@@ -1,0 +1,618 @@
+"""Geospatial analysis (counterpart of
+``anovos_tpu/data_analyzer/geospatial_analyzer.py``).
+
+``geospatial_autodetection`` (the workflow entry): detect lat/lon/geohash
+columns, per-column descriptive stats, cluster analysis — k-means with
+elbow k selection + DBSCAN over an eps × min_samples grid scored by
+silhouette (``ops/cluster.py``, kernel B3 for the neighbour counts) — and
+chart/stat dumps named ``geospatial_*`` in master_path for the report's
+geospatial tab.  The files and their names are the JAX package's.
+
+The DBSCAN grid takes one of two routes, by the knobs the JAX package
+reads at call time: a subsample of at most ``ANOVOS_DBSCAN_GRID_SAMPLE``
+points (default 4096) goes through one squared-distance matrix and host
+connected components while it has at most ``ANOVOS_DBSCAN_HOST_CC_MAX``
+points (default 6144); a larger one takes one neighbour-count pass (B3)
+per eps and the batched device labeling.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from anovos_tpu_torch.data_ingest.geo_auto_detection import ll_gh_cols
+from anovos_tpu_torch.data_transformer.geo_utils import geohash_decode
+from anovos_tpu_torch.ops.cluster import (
+    dbscan_grid, dbscan_host_grid_multi, kmeans_elbow, kmeans_fit, neighbor_counts, pairwise_d2,
+)
+from anovos_tpu_torch.ops.segment import code_counts
+from anovos_tpu_torch.shared.runtime import get_runtime
+from anovos_tpu_torch.shared.table import Table
+from anovos_tpu_torch.shared.utils import ends_with
+
+
+def _latlon_points(idf: Table, lat_col: str, lon_col: str, max_records: int) -> np.ndarray:
+    lat = idf.columns[lat_col].data.cpu().numpy().astype(float)
+    lon = idf.columns[lon_col].data.cpu().numpy().astype(float)
+    m = idf.columns[lat_col].mask.cpu().numpy() & idf.columns[lon_col].mask.cpu().numpy()
+    pts = np.stack([lat[m], lon[m]], axis=1)
+    if len(pts) > max_records:
+        pts = pts[np.random.default_rng(0).choice(len(pts), max_records, replace=False)]
+    return pts
+
+
+def _silhouettes_batched(
+    D_full: np.ndarray, labels_list, sample: int = 2000, seed: int = 1,
+    squared: bool = False,
+) -> list:
+    """Sampled silhouettes for MANY labelings of the same points, sharing
+    ONE fixed sample and ONE distance→one-hot matmul across all combos.
+
+    The per-combo `_silhouette` resamples valid points per labeling and
+    rebuilds the sample distance block each time.  Here the sample is drawn
+    once from all points (noise rows masked per combo), so the whole grid
+    costs one (s, s) gather plus a single (s, s) @ (s, Σk) BLAS call.
+    With noise-free labels and n > sample the drawn indices coincide with
+    `_silhouette`'s and the values are bit-identical; with noise the
+    estimator differs only in sampling scheme (both are sampled
+    approximations of the full silhouette)."""
+    n = D_full.shape[0]
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(n, sample, replace=False) if n > sample else np.arange(n)
+    Ds = D_full[np.ix_(pick, pick)]
+    if squared:
+        # sqrt applied after sampling: elementwise, so sqrt(sample(D2)) is
+        # bit-identical to sample(sqrt(D2)) at a fraction of the work
+        Ds = np.sqrt(np.maximum(Ds, 0.0))
+    s = len(pick)
+    blocks, metas = [], []
+    for li, labels in enumerate(labels_list):
+        full_valid = labels >= 0
+        if len(np.unique(labels[full_valid])) < 2 or full_valid.sum() < 10:
+            metas.append(-1.0)  # ineligible on the FULL labeling
+            continue
+        lp = labels[pick]
+        valid = lp >= 0
+        uniq, inv = (np.unique(lp[valid], return_inverse=True) if valid.any()
+                     else (np.empty(0), np.empty(0, np.int64)))
+        if valid.sum() < 10 or len(uniq) < 2:
+            # eligible on the full labeling but degenerate in the SHARED
+            # sample (high noise / tiny clusters): fall back to the
+            # per-combo resample so the score matches the old path instead
+            # of flipping to -1.  X's values are unused on the D_full path.
+            metas.append(_silhouette(
+                np.empty((n, 0)), labels, sample=sample, D_full=D_full,
+                squared=squared))
+            continue
+        k = len(uniq)
+        C = np.zeros((s, k))
+        C[np.nonzero(valid)[0], inv] = 1.0
+        metas.append((k, inv, valid))
+        blocks.append(C)
+    S_all = Ds @ np.concatenate(blocks, axis=1) if blocks else None
+    out, off = [], 0
+    for meta in metas:
+        if isinstance(meta, float):
+            out.append(meta)
+            continue
+        k, inv, valid = meta
+        S = S_all[:, off : off + k][valid]
+        off += k
+        out.append(_sil_mean(S, inv))
+    return out
+
+
+def _silhouette(
+    X: np.ndarray, labels: np.ndarray, sample: int = 2000, D_full=None,
+    squared: bool = False,
+) -> float:
+    """Mean silhouette on a sample (sklearn metric, computed directly).
+
+    ``D_full`` — a precomputed (n, n) distance matrix over ALL of X — lets a
+    hyperparameter grid skip rebuilding the sample's distance block for
+    every combo (the sample indices select the same distances)."""
+    valid = labels >= 0
+    vidx = np.nonzero(valid)[0]
+    X, labels = X[valid], labels[valid]
+    if len(np.unique(labels)) < 2 or len(X) < 10:
+        return -1.0
+    if len(X) > sample:
+        pick = np.random.default_rng(1).choice(len(X), sample, replace=False)
+        Xs, ls = X[pick], labels[pick]
+        sel = vidx[pick]
+    else:
+        Xs, ls = X, labels
+        sel = vidx
+    if D_full is not None:
+        D = D_full[np.ix_(sel, sel)]
+        if squared:
+            D = np.sqrt(np.maximum(D, 0.0))
+    else:
+        D = np.sqrt(
+            np.maximum(
+                (Xs**2).sum(1)[:, None] - 2 * Xs @ Xs.T + (Xs**2).sum(1)[None, :], 0
+            )
+        )
+    # fully vectorized: per-cluster distance sums via one matmul
+    uniq, inv = np.unique(ls, return_inverse=True)
+    k = len(uniq)
+    C = np.zeros((len(Xs), k))
+    C[np.arange(len(Xs)), inv] = 1.0
+    return _sil_mean(D @ C, inv)
+
+
+def _sil_mean(S: np.ndarray, inv: np.ndarray) -> float:
+    """Mean silhouette from per-cluster distance sums S (m, k) and each
+    point's own-cluster index ``inv`` — the ONE copy of the a/b math shared
+    by the per-combo and batched paths."""
+    m, k = S.shape
+    cnt = np.bincount(inv, minlength=k).astype(float)
+    own = cnt[inv]
+    rows = np.arange(m)
+    a = np.where(own > 1, S[rows, inv] / np.maximum(own - 1, 1), 0.0)
+    means = S / np.maximum(cnt[None, :], 1)
+    means[rows, inv] = np.inf  # exclude own cluster from b
+    b = means.min(axis=1)
+    b = np.where(np.isfinite(b), b, 0.0)
+    sil = (b - a) / np.maximum(np.maximum(a, b), 1e-30)
+    return float(np.mean(sil))
+
+
+def descriptive_stats_geospatial(idf: Table, lat_col: str, lon_col: str, max_records: int = 100000) -> dict:
+    """Per lat-lon pair summary."""
+    pts = _latlon_points(idf, lat_col, lon_col, max_records)
+    stats, _ = _pair_profile(idf, lat_col, lon_col, pts)
+    return stats
+
+
+def _geohash_profile(idf: Table, gh_col: str, max_val: int):
+    """(top frame, overall-summary frame, stats row) for one geohash column."""
+    col = idf.columns[gh_col]
+    cnts = code_counts(col.data, col.mask, max(len(col.vocab), 1)).cpu().numpy()
+    order = np.argsort(-cnts)[:max_val] if len(col.vocab) else np.zeros(0, dtype=int)
+    decoded = [geohash_decode(str(col.vocab[j])) for j in order]
+    top_gh = pd.DataFrame(
+        {
+            "geohash": [str(col.vocab[j]) for j in order],
+            "count": cnts[order].astype(int),
+            "lat": [round(d[0], 6) for d in decoded],
+            "lon": [round(d[1], 6) for d in decoded],
+        }
+    )
+    precisions = {len(str(v)) for v in col.vocab[:1000]}
+    overall = pd.DataFrame(
+        {
+            "stats": ["Distinct Geohash", "Geohash Precision Level", "Most Common Geohash"],
+            "count": [
+                int((cnts > 0).sum()),
+                ",".join(str(p) for p in sorted(precisions)),
+                str(col.vocab[order[0]]) if len(order) else "",
+            ],
+        }
+    )
+    row = {
+        "lat_col": gh_col,
+        "lon_col": "",
+        "records": int(cnts.sum()),
+        "distinct_pairs": int((cnts > 0).sum()),
+        "most_common_pair": str(col.vocab[order[0]]) if len(order) else "",
+        "most_common_pair_count": int(cnts[order[0]]) if len(order) else 0,
+    }
+    return top_gh, overall, row
+
+
+def descriptive_stats_gen(
+    idf: Table,
+    lat_col: Optional[str],
+    long_col: Optional[str],
+    geohash_col: Optional[str],
+    id_col: Optional[str],
+    master_path: str,
+    max_val: int,
+    _pts: Optional[np.ndarray] = None,
+    _max_records: int = 100000,
+) -> Optional[dict]:
+    """Base stats writer for one geospatial field.
+
+    For a lat-long pair writes the two-column overall summary
+    (``geospatial_overall_<lat>_<lon>.csv``) plus the top-pairs table and
+    chart dumps; for a geohash column the distinct/precision/most-common
+    summary plus the top-geohash table.  Returns the flat stats row that
+    ``geospatial_stats.csv`` aggregates."""
+    Path(master_path).mkdir(parents=True, exist_ok=True)
+    if lat_col is not None and long_col is not None:
+        pts = _pts if _pts is not None else _latlon_points(idf, lat_col, long_col, _max_records)
+        stats, pair_counts = _pair_profile(idf, lat_col, long_col, pts)
+        top = (
+            pair_counts.head(max_val).reset_index(name="count")
+            if pair_counts is not None
+            else pd.DataFrame(columns=["lat", "lon", "count"])
+        )
+        top.to_csv(ends_with(master_path) + f"geospatial_top_{lat_col}_{long_col}.csv", index=False)
+        _write_geo_charts(master_path, f"{lat_col}_{long_col}", top)
+        if stats.get("records"):
+            pd.DataFrame(
+                {
+                    "stats": [
+                        "Distinct {Lat, Long} Pair", "Distinct Latitude", "Distinct Longitude",
+                        "Most Common {Lat, Long} Pair", "Most Common Pair Occurrence",
+                    ],
+                    "count": [
+                        stats["distinct_pairs"], stats["distinct_lat"], stats["distinct_lon"],
+                        stats["most_common_pair"], stats["most_common_pair_count"],
+                    ],
+                }
+            ).to_csv(
+                ends_with(master_path) + f"geospatial_overall_{lat_col}_{long_col}.csv", index=False
+            )
+        return stats
+    if geohash_col is not None:
+        top_gh, overall, row = _geohash_profile(idf, geohash_col, max_val)
+        top_gh.to_csv(ends_with(master_path) + f"geospatial_top_{geohash_col}.csv", index=False)
+        _write_geo_charts(master_path, geohash_col, top_gh)
+        overall.to_csv(ends_with(master_path) + f"geospatial_overall_{geohash_col}.csv", index=False)
+        return row
+    return None
+
+
+def lat_long_col_stats_gen(
+    idf: Table, lat_col: List[str], long_col: List[str], id_col: Optional[str], master_path: str, max_val: int
+) -> List[dict]:
+    """Stats for every detected lat-long pair."""
+    rows = []
+    for lat_c, lon_c in zip(lat_col, long_col):
+        row = descriptive_stats_gen(idf, lat_c, lon_c, None, id_col, master_path, max_val)
+        if row is not None:
+            rows.append(row)
+    return rows
+
+
+def geohash_col_stats_gen(
+    idf: Table, geohash_col: List[str], id_col: Optional[str], master_path: str, max_val: int
+) -> List[dict]:
+    """Stats for every detected geohash column."""
+    rows = []
+    for gh_c in geohash_col:
+        row = descriptive_stats_gen(idf, None, None, gh_c, id_col, master_path, max_val)
+        if row is not None:
+            rows.append(row)
+    return rows
+
+
+def stats_gen_lat_long_geo(
+    idf: Table,
+    lat_col: List[str],
+    long_col: List[str],
+    geohash_col: List[str],
+    id_col: Optional[str],
+    master_path: str,
+    max_val: int,
+) -> List[dict]:
+    """Main stats entry feeding the report's geospatial tab: lat-long pair stats + geohash stats, aggregated into
+    ``geospatial_stats.csv``."""
+    rows = lat_long_col_stats_gen(idf, lat_col, long_col, id_col, master_path, max_val)
+    rows += geohash_col_stats_gen(idf, geohash_col, id_col, master_path, max_val)
+    if rows:
+        pd.DataFrame(rows).to_csv(ends_with(master_path) + "geospatial_stats.csv", index=False)
+    return rows
+
+
+def _pair_profile(idf: Table, lat_col: str, lon_col: str, pts: np.ndarray):
+    """(stats dict, rounded-grid pair counts) for one lat-lon pair — shared
+    by the stats row and the top-locations dump so the grid count runs once.
+    Range/center/quartile stats plus distinct-value and most-common-pair
+    measures."""
+    if len(pts) == 0:
+        return {"lat_col": lat_col, "lon_col": lon_col, "records": 0}, None
+    grid = pd.DataFrame({"lat": pts[:, 0].round(4), "lon": pts[:, 1].round(4)})
+    pair_counts = grid.value_counts()
+    most_pair = pair_counts.index[0]
+    null_pct = 1.0 - len(pts) / max(idf.nrows, 1)
+    q = np.percentile(pts, [25, 50, 75], axis=0)
+    return {
+        "lat_col": lat_col,
+        "lon_col": lon_col,
+        "records": len(pts),
+        "null_pct": round(null_pct, 4),
+        "distinct_lat": int(pd.Series(pts[:, 0]).nunique()),
+        "distinct_lon": int(pd.Series(pts[:, 1]).nunique()),
+        "distinct_pairs": int(len(pair_counts)),
+        "most_common_pair": f"[{most_pair[0]},{most_pair[1]}]",
+        "most_common_pair_count": int(pair_counts.iloc[0]),
+        "lat_min": round(float(pts[:, 0].min()), 6),
+        "lat_max": round(float(pts[:, 0].max()), 6),
+        "lon_min": round(float(pts[:, 1].min()), 6),
+        "lon_max": round(float(pts[:, 1].max()), 6),
+        "lat_mean": round(float(pts[:, 0].mean()), 6),
+        "lon_mean": round(float(pts[:, 1].mean()), 6),
+        "lat_q1": round(float(q[0, 0]), 6),
+        "lat_median": round(float(q[1, 0]), 6),
+        "lat_q3": round(float(q[2, 0]), 6),
+        "lon_q1": round(float(q[0, 1]), 6),
+        "lon_median": round(float(q[1, 1]), 6),
+        "lon_q3": round(float(q[2, 1]), 6),
+    }, pair_counts
+
+
+def _write_geo_charts(master_path: str, name: str, top: pd.DataFrame) -> None:
+    """Plotly JSON chart dumps for the report's geospatial tab: scattergeo
+    + density contour over the top location grid (token-free)."""
+    if top.empty:
+        return
+    scatter = {
+        "data": [
+            {
+                "type": "scattergeo",
+                "lat": top["lat"].tolist(),
+                "lon": top["lon"].tolist(),
+                "mode": "markers",
+                "marker": {
+                    "size": np.clip(4 + 16 * top["count"] / max(top["count"].max(), 1), 4, 20).tolist(),
+                    "color": top["count"].tolist(),
+                    "colorscale": "Viridis",
+                    "showscale": True,
+                },
+                "text": [f"({a},{o}) n={c}" for a, o, c in zip(top["lat"], top["lon"], top["count"])],
+            }
+        ],
+        "layout": {
+            "title": {"text": f"top locations — {name}"},
+            "geo": {"showland": True, "landcolor": "#eee", "fitbounds": "locations"},
+            "template": "plotly_white",
+        },
+    }
+    heat = {
+        "data": [
+            {
+                "type": "histogram2dcontour",
+                "x": top["lon"].tolist(),
+                "y": top["lat"].tolist(),
+                "z": top["count"].tolist(),
+                "histfunc": "sum",
+                "colorscale": "Hot",
+                "reversescale": True,
+            }
+        ],
+        "layout": {
+            "title": {"text": f"location density — {name}"},
+            "xaxis": {"title": {"text": "longitude"}},
+            "yaxis": {"title": {"text": "latitude"}},
+            "template": "plotly_white",
+        },
+    }
+    for kind, fig in [("scatter", scatter), ("heat", heat)]:
+        with open(ends_with(master_path) + f"geo_{kind}_{name}", "w") as f:
+            json.dump(fig, f)
+
+
+def cluster_analysis(
+    pts: np.ndarray,
+    max_cluster: int = 20,
+    eps: str = "0.3,0.5,0.05",
+    min_samples: str = "500,1100,100",
+) -> Tuple[pd.DataFrame, pd.DataFrame]:
+    """KMeans elbow + DBSCAN grid.  Returns
+    (kmeans_centers_frame, dbscan_grid_frame)."""
+    best_k, _ = kmeans_elbow(pts, max_k=min(max_cluster, max(2, len(pts) // 10 or 2)))
+    centers, labels, _ = kmeans_fit(np.asarray(pts, np.float32), best_k)
+    centers = centers.cpu().numpy()
+    counts = np.bincount(labels.cpu().numpy(), minlength=best_k)
+    km = pd.DataFrame(
+        {
+            "cluster": range(best_k),
+            "lat_center": centers[:, 0].round(6),
+            "lon_center": centers[:, 1].round(6),
+            "count": counts,
+        }
+    )
+    e0, e1, estep = (float(x) for x in str(eps).split(","))
+    m0, m1, mstep = (int(float(x)) for x in str(min_samples).split(","))
+    rows = []
+    sub = pts
+    grid_cap = int(os.environ.get("ANOVOS_DBSCAN_GRID_SAMPLE", 4096))
+    if len(sub) > grid_cap:
+        # the grid scan is a hyperparameter search: O(n²) propagation per
+        # combo, so it runs on a subsample with min_samples SCALED by the
+        # sample fraction (an absolute density threshold on a subsample
+        # would mean a different density than a full-data
+        # sklearn scan — and unscaled was both wrong and 6× slower)
+        sub = sub[np.random.default_rng(2).choice(len(sub), grid_cap, replace=False)]
+    frac = len(sub) / max(len(pts), 1)
+    ms_values = list(range(m0, m1 + 1, mstep))
+    ms_eff = [max(2, int(round(m * frac))) for m in ms_values]
+    # the squared-distance matrix is eps-independent: one device pass
+    # serves the entire (eps × min_samples) grid, with thresholding + CC on
+    # the host.  ANOVOS_DBSCAN_HOST_CC_MAX bounds the host memory (n² f32 +
+    # transient edge lists); samples above it — a grid cap raised beyond the
+    # 4096 default — take B3's counts and the batched device labeling.
+    eps_values = [float(e) for e in np.arange(e0, e1 + 1e-9, estep)]
+    D2 = None
+    if eps_values and len(sub) <= int(os.environ.get("ANOVOS_DBSCAN_HOST_CC_MAX", 6144)):
+        Xc = np.asarray(sub, np.float32)
+        Xc = Xc - Xc.mean(axis=0, keepdims=True)  # f32 bits follow the spread
+        D2 = pairwise_d2(torch.from_numpy(Xc).to(get_runtime().device)).cpu().numpy()
+        all_labels = dbscan_host_grid_multi(D2, eps_values, ms_eff)
+    combos = []  # (eps, min_samples, labels)
+    for a, e in enumerate(eps_values):
+        if D2 is not None:
+            labels_b = all_labels[a]
+        else:
+            # one neighbour-count pass (B3) per eps; all min_samples labeled
+            # in one batched device pass
+            counts = neighbor_counts(sub, float(e))
+            labels_b = dbscan_grid(sub, float(e), ms_eff, counts=counts)
+        combos.extend((e, m, labels) for m, labels in zip(ms_values, labels_b))
+    if D2 is not None:
+        # every combo's silhouette samples the squared matrix and takes the
+        # square root after sampling
+        scores = _silhouettes_batched(D2, [lab for _, _, lab in combos], squared=True)
+    else:
+        # _silhouette itself returns -1.0 for <2 clusters / <10 valid points
+        scores = [_silhouette(sub, lab) for _, _, lab in combos]
+    for (e, m, labels), score in zip(combos, scores):
+        rows.append(
+            {
+                "eps": round(float(e), 4),
+                "min_samples": int(m),
+                "n_clusters": len(set(labels[labels >= 0])),
+                "noise_pct": round(float((labels < 0).mean()), 4),
+                "silhouette": round(score, 4),
+            }
+        )
+    return km, pd.DataFrame(rows)
+
+
+def geo_cluster_analysis(
+    idf: Table,
+    lat_col: str,
+    long_col: str,
+    max_cluster: int,
+    eps: str,
+    min_samples: str,
+    master_path: str,
+    col_name: str,
+    global_map_box_val=None,
+    _pts: Optional[np.ndarray] = None,
+    _max_records: int = 100000,
+) -> None:
+    """KMeans + DBSCAN analysis for one field.
+
+    Writes both the ``cluster_output_{kmeans,dbscan}_<col>.csv``
+    names and the ``geospatial_{kmeans,dbscan}_<col>.csv`` names the report
+    tab hydrates."""
+    pts = _pts if _pts is not None else _latlon_points(idf, lat_col, long_col, _max_records)
+    if len(pts) < 50:
+        return
+    km, db = cluster_analysis(pts, max_cluster or 20, eps, min_samples)
+    for name, frame in [("kmeans", km), ("dbscan", db)]:
+        frame.to_csv(ends_with(master_path) + f"geospatial_{name}_{col_name}.csv", index=False)
+        frame.to_csv(ends_with(master_path) + f"cluster_output_{name}_{col_name}.csv", index=False)
+
+
+def geo_cluster_generator(
+    idf: Table,
+    lat_col_list: List[str],
+    long_col_list: List[str],
+    geo_col_list: List[str],
+    max_cluster: int = 20,
+    eps: str = "0.3,0.5,0.05",
+    min_samples: str = "500,1100,100",
+    master_path: str = ".",
+    global_map_box_val=None,
+    max_records: int = 100000,
+) -> None:
+    """Cluster-analysis controller over every detected field; geohash columns are decoded to lat-long before clustering."""
+    for lat_c, lon_c in zip(lat_col_list or [], long_col_list or []):
+        geo_cluster_analysis(
+            idf, lat_c, lon_c, max_cluster, eps, min_samples, master_path,
+            f"{lat_c}_{lon_c}", global_map_box_val, _max_records=max_records,
+        )
+    for gh_c in geo_col_list or []:
+        pts = _geohash_points(idf, gh_c, max_records)
+        geo_cluster_analysis(
+            idf, gh_c, gh_c, max_cluster, eps, min_samples, master_path,
+            gh_c, global_map_box_val, _pts=pts,
+        )
+
+
+def _geohash_points(idf: Table, gh_col: str, max_records: int) -> np.ndarray:
+    """Decode a geohash column's values (via its dictionary) to lat-long points."""
+    col = idf.columns[gh_col]
+    codes = col.data.cpu().numpy()
+    mask = col.mask.cpu().numpy()
+    decoded = np.array([geohash_decode(str(v))[:2] for v in col.vocab]) if len(col.vocab) else np.zeros((0, 2))
+    pts = decoded[codes[mask]] if len(decoded) else np.zeros((0, 2))
+    if len(pts) > max_records:
+        pts = pts[np.random.default_rng(0).choice(len(pts), max_records, replace=False)]
+    return pts
+
+
+def generate_loc_charts_processor(
+    idf: Table,
+    lat_col: Optional[List[str]],
+    long_col: Optional[List[str]],
+    geohash_col: Optional[List[str]],
+    max_val: int,
+    id_col: Optional[str] = None,
+    global_map_box_val=None,
+    master_path: str = ".",
+) -> None:
+    """Location-chart writer: scatter + density JSON
+    per lat-long pair, and per geohash column after decode."""
+    for lat_c, lon_c in zip(lat_col or [], long_col or []):
+        # max_val caps the DISPLAYED top locations; the grid count itself
+        # runs over the full analysis sample
+        pts = _latlon_points(idf, lat_c, lon_c, max(int(max_val), 100000))
+        _, pair_counts = _pair_profile(idf, lat_c, lon_c, pts)
+        if pair_counts is not None:
+            top = pair_counts.head(max_val).reset_index(name="count")
+            _write_geo_charts(master_path, f"{lat_c}_{lon_c}", top)
+    for gh_c in geohash_col or []:
+        top_gh, _, _ = _geohash_profile(idf, gh_c, max_val)
+        _write_geo_charts(master_path, gh_c, top_gh)
+
+
+def generate_loc_charts_controller(
+    idf: Table,
+    id_col: Optional[str],
+    lat_col: List[str],
+    long_col: List[str],
+    geohash_col: List[str],
+    max_val: int,
+    global_map_box_val=None,
+    master_path: str = ".",
+) -> None:
+    """Chart-generation trigger: lat-long pairs first
+    (geohash None), then geohash columns (lat/long None)."""
+    if lat_col:
+        generate_loc_charts_processor(idf, lat_col, long_col, None, max_val, id_col, global_map_box_val, master_path)
+    if geohash_col:
+        generate_loc_charts_processor(idf, None, None, geohash_col, max_val, id_col, global_map_box_val, master_path)
+
+
+def geospatial_autodetection(
+    idf: Table,
+    id_col: Optional[str] = None,
+    master_path: str = ".",
+    max_analysis_records: int = 100000,
+    top_geo_records: int = 100,
+    max_cluster: int = 20,
+    eps: str = "0.3,0.5,0.05",
+    min_samples: str = "500,1100,100",
+    global_map_box_val=None,
+    run_type: str = "local",
+    auth_key: str = "NA",
+    **_ignored,
+) -> Tuple[List[str], List[str], List[str]]:
+    """Workflow entry: detect columns, write
+    ``geospatial_*`` stats/cluster CSVs + top-location dumps, return the
+    detected (lat_cols, lon_cols, gh_cols)."""
+    Path(master_path).mkdir(parents=True, exist_ok=True)
+    lat_cols, lon_cols, gh_cols = ll_gh_cols(idf, max_analysis_records)
+    stats_rows = []
+    for lat_c, lon_c in zip(lat_cols, lon_cols):
+        # points are extracted once per pair and shared by the stats writer
+        # and the cluster scan (both accept them via _pts)
+        pts = _latlon_points(idf, lat_c, lon_c, max_analysis_records)
+        row = descriptive_stats_gen(
+            idf, lat_c, lon_c, None, id_col, master_path, top_geo_records, _pts=pts
+        )
+        if row is not None:
+            stats_rows.append(row)
+        geo_cluster_analysis(
+            idf, lat_c, lon_c, max_cluster, eps, min_samples, master_path,
+            f"{lat_c}_{lon_c}", global_map_box_val, _pts=pts,
+        )
+    stats_rows += geohash_col_stats_gen(idf, gh_cols, id_col, master_path, top_geo_records)
+    if stats_rows:
+        pd.DataFrame(stats_rows).to_csv(
+            ends_with(master_path) + "geospatial_stats.csv", index=False
+        )
+    return lat_cols, lon_cols, gh_cols

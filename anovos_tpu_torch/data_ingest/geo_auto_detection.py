@@ -1,0 +1,156 @@
+"""Latitude/longitude/geohash column auto-detection (counterpart of
+``anovos_tpu/data_ingest/geo_auto_detection.py``).
+
+1. name match ("lat" / "lon" / "lng") with decimals and an in-range
+   min/max → direct;
+2. otherwise a statistical gate on float columns — decimals, max ≤ 180,
+   min ≥ −180, stddev ≥ 1, coefficient of variation < 1 — then range
+   classification (|max| ≤ 90 → latitude, else longitude) with more than
+   two distinct values matching the value-format regex;
+3. geohash: string columns whose values are 5-11 characters long and
+   decode through the base-32 codec (more than two, over 90% of a probe);
+4. a lat/lon count mismatch resets both (pairs must align).
+
+The range/spread statistics come from one masked-moments pass (kernel B1,
+``ops/reductions.masked_moments``) over the float columns.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import List, Tuple
+
+import numpy as np
+
+from anovos_tpu_torch.data_transformer.geo_utils import geohash_decode, geohash_encode
+from anovos_tpu_torch.ops.reductions import masked_moments
+from anovos_tpu_torch.shared.table import Table
+
+_LAT_NAME = re.compile(r"lat", re.I)
+_LON_NAME = re.compile(r"lon|lng", re.I)
+_GH_VALUE = re.compile(r"^[0123456789bcdefghjkmnpqrstuvwxyz]{5,11}$")
+
+# value-format regexes (decimal runs unbounded: str(float64) yields 15-17
+# digits)
+_LAT_VALUE = re.compile(r"^(\+|-|)?(?:90(?:\.0{1,})?|(?:[0-9]|[1-8][0-9])(?:\.[0-9]{1,})?)$")
+_LON_VALUE = re.compile(
+    r"^(\+|-)?(?:180(?:\.0{1,})?|(?:[0-9]|[1-9][0-9]|1[0-7][0-9])(?:\.[0-9]{1,})?)$"
+)
+
+
+def reg_lat_lon(option: str):
+    """The value-format regex for 'latitude' / 'longitude'."""
+    return _LAT_VALUE if option == "latitude" else _LON_VALUE
+
+
+def _value_regex_hits(vals: np.ndarray, rx: re.Pattern, limit: int = 500) -> int:
+    """Distinct values matching the format regex ('+'-prefixed positives)."""
+    seen = set()
+    for v in vals[:limit]:
+        s = str(v) if v < 0 else "+" + str(v)
+        if rx.match(s):
+            seen.add(s)
+        if len(seen) > 2:
+            break
+    return len(seen)
+
+
+def ll_gh_cols(idf: Table, max_records: int = 100000) -> Tuple[List[str], List[str], List[str]]:
+    """Detect (lat_cols, lon_cols, geohash_cols)."""
+    lat_cols, lon_cols, gh_cols = [], [], []
+    num_cols = [
+        c
+        for c in idf.col_names
+        if idf.columns[c].kind == "num" and idf.columns[c].dtype_name in ("float", "double")
+    ]
+    stats = {}
+    if num_cols:
+        X, M = idf.numeric_block(num_cols)
+        mom = {k: v.cpu().numpy() for k, v in masked_moments(X, M).items()}
+        for i, c in enumerate(num_cols):
+            stats[c] = {
+                "max": float(mom["max"][i]),
+                "min": float(mom["min"][i]),
+                "mean": float(mom["mean"][i]),
+                "std": float(mom["stddev"][i]),
+            }
+    for c in num_cols:
+        s = stats[c]
+        if not np.isfinite(s["max"]):
+            continue
+        host = idf.columns[c].data[:2000].cpu().numpy().astype(float)
+        hmask = idf.columns[c].mask[:2000].cpu().numpy()
+        v = host[hmask]
+        if len(v) == 0:
+            continue
+        # decimals required even for name matches: 'plat_version' with codes
+        # 1.0-8.0 must not become a latitude
+        has_decimals = (np.abs(v - np.round(v)) > 1e-9).mean() > 0.5
+        if _LAT_NAME.search(c) and has_decimals and abs(s["max"]) <= 90 and abs(s["min"]) <= 90:
+            lat_cols.append(c)
+            continue
+        if _LON_NAME.search(c) and has_decimals and abs(s["max"]) <= 180 and abs(s["min"]) <= 180:
+            lon_cols.append(c)
+            continue
+        cv_ok = s["std"] >= 1 and s["mean"] != 0 and abs(s["std"] / s["mean"]) < 1
+        if not (has_decimals and s["max"] <= 180 and s["min"] >= -180 and cv_ok):
+            continue
+        amax = max(abs(s["max"]), abs(s["min"]))
+        if amax <= 90 and _value_regex_hits(v, _LAT_VALUE) > 2:
+            lat_cols.append(c)
+        elif amax <= 180 and _value_regex_hits(v, _LON_VALUE) > 2:
+            lon_cols.append(c)
+    for c in idf.col_names:
+        col = idf.columns[c]
+        if col.kind != "cat" or not len(col.vocab):
+            continue
+        sample = col.vocab[: min(len(col.vocab), 500)]
+        # per-value length filter: one over-length placeholder must not veto
+        # an otherwise-valid column
+        in_range = [v for v in sample if 4 < len(str(v)) < 12]
+        if len(in_range) / max(len(sample), 1) < 0.9:
+            continue
+        probe = in_range[:50]
+        decodable = 0
+        for v in probe:
+            if _GH_VALUE.match(str(v)):
+                lat, lon = geohash_decode(str(v))
+                if -90 <= lat <= 90 and -180 <= lon <= 180:
+                    decodable += 1
+        if decodable > 2 and decodable / max(len(probe), 1) > 0.9:
+            gh_cols.append(c)
+    if len(lat_cols) != len(lon_cols):  # pairs must align
+        lat_cols, lon_cols = [], []
+    return lat_cols, lon_cols, gh_cols
+
+
+def geo_to_latlong(gh: str) -> Tuple[float, float]:
+    """Geohash cell center."""
+    return geohash_decode(gh)
+
+
+def conv_str_plus(col):
+    """Signed-string form for regex probing: positives get a '+' prefix."""
+    if col is None:
+        return None
+    if col < 0:
+        return str(col)
+    return "+" + str(col)
+
+
+def precision_lev(col) -> int:
+    """Number of significant digits after the decimal point, capped at 8."""
+    if col is None:
+        return 0
+    v = float(col)
+    if not np.isfinite(v):  # NaN is the numeric null
+        return 0
+    frac = format(v, ".8f").split(".")[1].rstrip("0")
+    return len(frac)
+
+
+def latlong_to_geo(lat, long, precision: int = 9):
+    """(lat, lon) → geohash string."""
+    if lat is None or long is None:
+        return None
+    return geohash_encode(float(lat), float(long), precision)

@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("histogram.cu", "moments.cu", "bindings.cpp")
+SOURCES = ("histogram.cu", "moments.cu", "neighbor_counts.cu", "bindings.cpp")
 # an explicit -gencode keeps cpp_extension from adding its own arch flags
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
 CXX_FLAGS = ["-O3"]

@@ -3,7 +3,8 @@
 // interface, so nvcc compiles them quickly.
 //
 // Each function takes tensors that the Python wrapper has checked and
-// allocated (ops/kernels/histogram.py, ops/kernels/moments.py), launches on
+// allocated (ops/kernels/histogram.py, ops/kernels/moments.py,
+// ops/kernels/neighbor_counts.py), launches on
 // the current stream of the tensors' device and checks every launch.
 
 #include <torch/extension.h>
@@ -21,6 +22,8 @@ void anovos_moments_partial(const float* x, const uint8_t* m, float* part, long 
                             int k, cudaStream_t stream);
 void anovos_moments_merge(const float* part, float* out, long long rows, int k,
                           cudaStream_t stream);
+void anovos_neighbor_counts(const float* x, float eps2, int* counts, int n, int d,
+                            cudaStream_t stream);
 }
 
 namespace {
@@ -92,10 +95,31 @@ void masked_moments(torch::Tensor x, torch::Tensor m, torch::Tensor part, torch:
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// x (n, d) f32 points, 1 <= d <= 8; eps2 the f32 squared radius; counts
+// (n,) int32 out
+void neighbor_counts(torch::Tensor x, double eps2, torch::Tensor counts) {
+  TORCH_CHECK(x.is_cuda() && x.scalar_type() == torch::kFloat32 && x.dim() == 2 &&
+                  x.is_contiguous(),
+              "x must be a contiguous (n, d) float32 CUDA tensor");
+  const int64_t n = x.size(0);
+  const int64_t d = x.size(1);
+  TORCH_CHECK(d >= 1 && d <= 8, "neighbor_counts: need 1 <= d <= 8, got ", d);
+  TORCH_CHECK(n <= INT32_MAX, "neighbor_counts: at most 2^31 - 1 points");
+  TORCH_CHECK(counts.device() == x.device() && counts.scalar_type() == torch::kInt32 &&
+                  counts.is_contiguous() && counts.dim() == 1 && counts.size(0) == n,
+              "counts must be a contiguous (n,) int32 tensor on x's device");
+  if (n == 0) return;
+  const c10::cuda::CUDAGuard guard(x.device());
+  anovos_neighbor_counts(x.data_ptr<float>(), (float)eps2, counts.data_ptr<int>(), (int)n, (int)d,
+                         at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("binned_histograms", &binned_histograms, "binned histograms (csrc/histogram.cu)");
   mod.def("moments_blocks", &moments_blocks, "row blocks of the moments kernel");
   mod.def("masked_moments", &masked_moments, "masked moments (csrc/moments.cu)");
+  mod.def("neighbor_counts", &neighbor_counts, "within-eps neighbour counts (csrc/neighbor_counts.cu)");
 }

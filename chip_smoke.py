@@ -19,7 +19,24 @@ Phases, in order; any failure exits non-zero:
    sampling) of the second half against the first, once to warm up and
    once timed, and ``stability_index_computation`` over three slices.
    Results are checked against float64 pandas/numpy references, and every
-   kernel must have been launched by this phase.
+   kernel of this path must have been launched by this phase;
+4. geo kernels: the DBSCAN neighbour-count kernel against its plain version
+   at the shapes of the JAX package's Pallas test and at 100,000 points,
+   with its time, the plain version's and the card's lower bound;
+5. geo path: a 1,000,000-row table of six Gaussian cities (σ = 0.3°) and 2%
+   uniform noise, with a lat/lon pair (1% nulls), a precision-7 geohash of
+   the same points and an id, written as parquet and read back with
+   ``read_dataset``; ``geospatial_autodetection`` with the default knobs
+   (host connected components, no neighbour-count launch), the same call
+   with ``ANOVOS_DBSCAN_GRID_SAMPLE=16384`` (one neighbour-count launch per
+   eps, the batched device labeling) and ``generate_loc_charts_controller``.
+   Then the kernels at the shapes and on the data this path gave them (the
+   moments kernel on the lat/lon block, the neighbour-count kernel on the
+   centred 16,384-point grid sample at every eps) against their plain
+   versions, timed.  The neighbour counts and the DBSCAN labels of every
+   combo are checked against float64 numpy/scipy, the k-means centers
+   against a float64 Lloyd run from the same start, and every expected
+   file must exist.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -41,6 +58,15 @@ import numpy as np
 ROWS = 4_000_000
 BIN_SIZE = 10
 DROP = ["ifa", "dt_1", "dt_2", "empty", "logfnl"]
+GEO_ROWS = 1_000_000
+GEO_RECORDS = 100_000  # geospatial_autodetection's max_analysis_records default
+GEO_B3_SAMPLE = 16_384
+GEO_EPS = "0.3,0.5,0.05"
+GEO_MIN_SAMPLES = "500,1100,100"
+# the kernels each path must launch
+PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
+                "geo_default": ("masked_moments",),
+                "geo_grid_16384": ("masked_moments", "neighbor_counts")}
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -71,7 +97,12 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def bound(nbytes: float, ops: float):
-    """(least ms, what bounds it) on the card for this many bytes and f32 ops."""
+    """(least ms, what bounds it) on the card for this many bytes and f32 ops.
+
+    The f32 rate is the data sheet's, which counts an FMA as two
+    operations; a kernel whose products and sums are separate instructions
+    (as B3's are, to keep its rounding) issues at most half as many a
+    second, so its time can never come closer than 2x to this bound."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -337,8 +368,8 @@ def phase_path(torch, seed: int) -> dict:
         print(f"path: stability_index_computation over 3 slices {out['stability_s']:.2f} s; "
               f"moments checked against pandas", flush=True)
         out["launches"] = dict(kernels.LAUNCHES)
-        for name, n in out["launches"].items():
-            check(n > 0, f"kernel {name} was not launched on the main path")
+        for name in PATH_KERNELS["income"]:
+            check(out["launches"][name] > 0, f"kernel {name} was not launched on the main path")
         print(f"path: kernel launches {out['launches']}", flush=True)
 
         # after the path: the device part of a drift run alone, both sides'
@@ -348,6 +379,368 @@ def phase_path(torch, seed: int) -> dict:
             torch, lambda: (drift_side_full(*args_t), drift_side_full(*args_s)), 10)
         print(f"path: drift device pass (both sides) {out['psi_device_ms']:.3f} ms", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the neighbour-count kernel against its plain version
+# ---------------------------------------------------------------------------
+def blob_points(n: int, seed: int) -> np.ndarray:
+    """Four 0.3-sd blobs in a ±40 box (the JAX package's Pallas test),
+    centred in numpy f32 as ops/cluster.py centres them."""
+    g = np.random.default_rng(seed)
+    X = (g.uniform(-40, 40, (4, 2))[g.integers(0, 4, n)] + g.normal(0, 0.3, (n, 2))).astype(np.float32)
+    return X - X.mean(axis=0, keepdims=True)
+
+
+def neighbor_counts_bound(n: int, d: int):
+    """Bytes: the points read once, the counts written once.  Operations:
+    2d + 3 for each of the n² pairs, the least the function needs (d
+    products and d − 1 sums of −2q·x with −2q taken once per query, the
+    addition of |q|², the addition of |x|², the compare, the count); the
+    kernel itself doubles each pair's dot, 2d + 4 (csrc/neighbor_counts.cu)."""
+    return bound(n * (d + 1) * 4, n * n * (2 * d + 3))
+
+
+def time_neighbor_counts(torch, Xc, eps2: float, what: str) -> dict:
+    """B3 on the card against its plain version on ``Xc``: equal counts,
+    then both timed."""
+    from anovos_tpu_torch.ops.kernels.neighbor_counts import neighbor_counts_plain, neighbor_counts_rows
+
+    n, d = Xc.shape
+    got = neighbor_counts_rows(Xc, eps2)
+    plain = neighbor_counts_plain(Xc, eps2)
+    check(torch.equal(got, plain), f"neighbor_counts differs from plain at {what}")
+    ms = cuda_ms(torch, lambda: neighbor_counts_rows(Xc, eps2), 20)
+    plain_ms = cuda_ms(torch, lambda: neighbor_counts_plain(Xc, eps2), 3)
+    b_ms, b_by = neighbor_counts_bound(n, d)
+    return {"max_abs_err": float((got - plain).abs().max().item()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d]}
+
+
+def phase_geo_kernels(torch, seed: int) -> dict:
+    from anovos_tpu_torch.ops.kernels.neighbor_counts import neighbor_counts_plain, neighbor_counts_rows
+
+    for n, eps in ((3000, 0.4), (1024, 0.05), (1500, 50.0), (257, 0.3)):
+        Xc = torch.from_numpy(blob_points(n, seed + n)).cuda()
+        eps2 = float(np.float32(eps * eps))
+        got = neighbor_counts_rows(Xc, eps2)
+        torch.cuda.synchronize()
+        check(torch.equal(got, neighbor_counts_plain(Xc, eps2)),
+              f"neighbor_counts differs from plain at n={n}, eps={eps}")
+    print("kernels: neighbor_counts equal to plain at the Pallas test's shapes", flush=True)
+
+    n, eps = 100_000, 0.4
+    r = time_neighbor_counts(torch, torch.from_numpy(blob_points(n, seed)).cuda(),
+                             float(np.float32(eps * eps)), f"n={n}")
+    r["data"] = f"four blobs, eps {eps}"
+    print(f"kernel neighbor_counts ({n} x 2, eps {eps}): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library none; exact", flush=True)
+    return r
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the geospatial path
+# ---------------------------------------------------------------------------
+def geo_frame(seed: int):
+    """GEO_ROWS rows: six city centres at least 3 degrees apart in a
+    continental box, points around them with σ = 0.3°, 2% uniform noise
+    over the box, lat/lon with 1% nulls each, a precision-7 geohash of the
+    same points (the port's encoder) and an id."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_transformer.geo_utils import geohash_encode
+
+    g = np.random.default_rng(seed)
+    centers = []
+    while len(centers) < 6:
+        c = (g.uniform(28, 46), g.uniform(-120, -75))
+        if all(np.hypot(c[0] - a, c[1] - b) >= 3 for a, b in centers):
+            centers.append(c)
+    pts = np.asarray(centers)[g.integers(0, 6, GEO_ROWS)] + g.normal(0, 0.3, (GEO_ROWS, 2))
+    noise = g.random(GEO_ROWS) < 0.02
+    pts[noise] = np.stack([g.uniform(25, 49, noise.sum()), g.uniform(-124, -71, noise.sum())], 1)
+    lat, lon = pts[:, 0].copy(), pts[:, 1].copy()
+    gh = np.array([geohash_encode(a, o, 7) for a, o in zip(lat.tolist(), lon.tolist())], object)
+    lat[g.random(GEO_ROWS) < 0.01] = np.nan
+    lon[g.random(GEO_ROWS) < 0.01] = np.nan
+    return pd.DataFrame({"id": np.arange(GEO_ROWS), "latitude": lat, "longitude": lon, "geohash": gh})
+
+
+def geo_files(lat: str, lon: str, gh: str, charts_only: bool = False):
+    pair, names = f"{lat}_{lon}", []
+    for field in (pair, gh):
+        names += [f"geo_scatter_{field}", f"geo_heat_{field}"]
+    if not charts_only:
+        names += ["geospatial_stats.csv", f"geospatial_overall_{pair}.csv", f"geospatial_top_{pair}.csv",
+                  f"geospatial_overall_{gh}.csv", f"geospatial_top_{gh}.csv"]
+        names += [f"{pre}_{kind}_{pair}.csv" for pre in ("geospatial", "cluster_output")
+                  for kind in ("kmeans", "dbscan")]
+    return names
+
+
+def kmeans_float64_check(pts: np.ndarray, km) -> dict:
+    """The k-means centers of ``km`` (the analyzer's frame) against a
+    float64 Lloyd run over the same points from the same start, with the
+    JAX package's stopping rule."""
+    from anovos_tpu_torch.ops.cluster import kmeans_init_indices
+
+    X = np.asarray(pts, np.float32).astype(np.float64)
+    k = len(km)
+    C = X[kmeans_init_indices(len(X), k, 0).numpy()]
+    for _ in range(50):
+        lbl = ((X[:, None, :] - C[None, :, :]) ** 2).sum(-1).argmin(1)
+        cnt = np.bincount(lbl, minlength=k)
+        sums = np.stack([np.bincount(lbl, weights=X[:, j], minlength=k) for j in range(2)], 1)
+        Cn = np.where(cnt[:, None] > 0, sums / np.maximum(cnt, 1)[:, None], C)
+        moved = bool((np.abs(Cn - C) > 1e-6 * (1 + np.abs(C))).any())
+        C = Cn
+        if not moved:
+            break
+    cnt = np.bincount(((X[:, None, :] - C[None, :, :]) ** 2).sum(-1).argmin(1), minlength=k)
+    err = float(np.abs(km[["lat_center", "lon_center"]].to_numpy(np.float64) - C).max())
+    check(err <= 1e-4, f"k-means centers off the float64 Lloyd run by {err}")
+    return {"k": k, "center_max_abs_err": err,
+            "count_diff": int(np.abs(km["count"].to_numpy() - cnt).sum())}
+
+
+def dbscan_float64_check(sub: np.ndarray, eps_values, ms_eff, db) -> dict:
+    """On the grid sample ``sub`` of the B3 route, against float64 numpy and
+    scipy.
+
+    Counts: each eps's neighbour counts (kernel B3) may differ from the
+    float64 counts only by band pairs, pairs whose float64 d² lies within
+    tol = 8 f32 ulps of |q|² + |x|² (the scale of the f32 expansion's
+    rounding) of eps².
+
+    Labels: a float64 DBSCAN that counts only the pairs certainly within
+    eps (d² ≤ eps² − tol) and one that counts every pair possibly within
+    it (d² ≤ eps² + tol) bracket the port's graph, so for every combo
+    (a) lo-core ⊆ port core ⊆ hi-core; (b) points of one lo component
+    share one port label; (c) port core points of one label lie in one hi
+    component; (d) a labelled non-core point has a core neighbour of its
+    label within eps² + tol; (e) a non-core point with a lo-core point
+    within eps² − tol is labelled.  The labels are recomputed with the
+    port (the analyzer's calls) and must give the analyzer's frame ``db``."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from anovos_tpu_torch.ops.cluster import dbscan_grid, neighbor_counts
+
+    Xc32 = np.asarray(sub, np.float32)
+    Xc32 = Xc32 - Xc32.mean(axis=0, keepdims=True)
+    X = Xc32.astype(np.float64)
+    n, A = len(X), len(eps_values)
+    eps2 = [float(np.float32(e * e)) for e in eps_values]
+    nrm = (X * X).sum(1)
+    counts64 = np.zeros((A, n), np.int64)
+    band = np.zeros((A, n), np.int64)
+    near_eps_ulps = np.zeros(A, np.int64)
+    ei, ej, ed, et = [], [], [], []
+    for s in range(0, n, 2048):
+        q = X[s:s + 2048]
+        t = len(q)
+        d2 = (q[:, None, 0] - X[None, :, 0]) ** 2 + (q[:, None, 1] - X[None, :, 1]) ** 2
+        tol = 8 * np.spacing((nrm[s:s + t, None] + nrm[None, :]).astype(np.float32)).astype(np.float64)
+        diag = (np.arange(t), np.arange(s, s + t))
+        for a, e2 in enumerate(eps2):
+            ulps = 8 * float(np.spacing(np.float32(e2)))
+            counts64[a, s:s + t] = (d2 <= e2).sum(1)
+            dev = np.abs(d2 - e2)
+            inband = dev <= tol + ulps
+            inband[diag] = False
+            band[a, s:s + t] = inband.sum(1)
+            near_eps_ulps[a] += int((dev <= ulps).sum())
+        r, c = np.nonzero(d2 <= max(eps2) + tol)
+        keep = r + s != c
+        r, c = r[keep], c[keep]
+        ei.append((r + s).astype(np.int32))
+        ej.append(c.astype(np.int32))
+        ed.append(d2[r, c])
+        et.append(tol[r, c])
+    ei, ej, ed, et = (np.concatenate(v) for v in (ei, ej, ed, et))
+
+    out = {"n": n, "band_pairs": [int(b.sum()) // 2 for b in band],
+           "pairs_within_8_ulps_of_eps2": [int(v) // 2 for v in near_eps_ulps],
+           "count_mismatches": [], "lo_hi_cluster_counts": [], "combos": 0}
+    rows = db.set_index(["eps", "min_samples"])
+    ms_values = sorted({int(m) for m in db["min_samples"]})
+
+    def components(edges, core):
+        ri, ci = ei[edges & core[ei] & core[ej]], ej[edges & core[ei] & core[ej]]
+        g = coo_matrix((np.ones(len(ri), np.int8), (ri, ci)), shape=(n, n))
+        return connected_components(g, directed=True, connection="weak")[1]
+
+    def is_function(a_, b_):
+        """Every value of a_ comes with one value of b_."""
+        pairs = np.unique(np.stack([a_, b_], 1), axis=0)
+        return len(pairs) == len(np.unique(a_))
+
+    for a, e in enumerate(eps_values):
+        kc = neighbor_counts(sub, float(e))
+        diff = np.abs(kc.astype(np.int64) - counts64[a])
+        check(bool((diff <= band[a]).all()),
+              f"neighbour counts at eps={e} differ from float64 beyond band pairs")
+        out["count_mismatches"].append(int((diff > 0).sum()))
+        labels = dbscan_grid(sub, float(e), ms_eff, counts=kc)
+        lo, hi = ed <= eps2[a] - et, ed <= eps2[a] + et
+        c_lo = np.bincount(ei[lo], minlength=n) + 1
+        c_hi = np.bincount(ei[hi], minlength=n) + 1
+        for b, ms in enumerate(ms_eff):
+            lab = labels[b]
+            row = rows.loc[(round(float(e), 4), ms_values[b])]
+            check(int(row["n_clusters"]) == len(set(lab[lab >= 0]))
+                  and float(row["noise_pct"]) == round(float((lab < 0).mean()), 4),
+                  f"analyzer frame differs from a rerun at eps={e}, ms={ms}")
+            core_lo, core_p, core_hi = c_lo >= ms, kc >= ms, c_hi >= ms
+            what = f"DBSCAN at eps={e}, ms={ms} against float64"
+            check(bool((core_p >= core_lo).all() and (core_hi >= core_p).all()), f"{what}: (a) core sets")
+            check(bool((lab[core_p] >= 0).all()), f"{what}: a core point is noise")
+            comp_lo, comp_hi = components(lo, core_lo), components(hi, core_hi)
+            check(is_function(comp_lo[core_lo], lab[core_lo]), f"{what}: (b) a lo component split")
+            check(is_function(lab[core_p], comp_hi[core_p]), f"{what}: (c) a label spans hi components")
+            m = hi & core_p[ej] & ~core_p[ei] & (lab[ei] == lab[ej])
+            supported = np.zeros(n, bool)
+            supported[ei[m]] = True
+            border = ~core_p & (lab >= 0)
+            check(bool(supported[border].all()), f"{what}: (d) a border label without a core neighbour")
+            m = lo & core_lo[ej] & ~core_p[ei]
+            check(bool((lab[ei[m]] >= 0).all()), f"{what}: (e) an unlabelled point next to a core")
+            out["lo_hi_cluster_counts"].append(
+                [len(np.unique(comp_lo[core_lo])), len(set(lab[lab >= 0])), len(np.unique(comp_hi[core_hi]))])
+            out["combos"] += 1
+    return out
+
+
+def geo_path_kernels(torch, table, ll_cols, sub: np.ndarray, eps_values) -> dict:
+    """The kernels at the shapes and on the data the geo path gives them,
+    against their plain versions: B1 on the lat/lon block of the table (as
+    ``ll_gh_cols`` calls it), B3 on the grid sample centred in numpy f32
+    (as ``cluster.neighbor_counts`` centres it) at every eps of the grid."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    X, M = table.numeric_block(ll_cols)
+    Xc, Mc = X.t().contiguous(), M.t().contiguous()
+    k, rows = Xc.shape
+    acc = masked_moments_cols(Xc, Mc)
+    share = moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
+    ms = cuda_ms(torch, lambda: masked_moments_cols(Xc, Mc), 50)
+    plain_ms = cuda_ms(torch, lambda: masked_moments_plain(Xc, Mc), 2)
+    b_ms, b_by = bound(rows * k * 5 + 8 * k * 4, int(Mc.sum().item()) * 30)
+    b1 = {"path": "geo", "shape": [k, rows], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "err_share_of_allowance": share}
+    print(f"kernel masked_moments at the geo path ({k} x {rows}, lat/lon): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); error as share of allowance {share}",
+          flush=True)
+
+    x32 = np.asarray(sub, np.float32)
+    xc = torch.from_numpy(x32 - x32.mean(axis=0, keepdims=True)).cuda()
+    b3 = []
+    for e in eps_values:
+        r = time_neighbor_counts(torch, xc, float(np.float32(e * e)), f"the geo grid sample, eps={e}")
+        r["eps"] = e
+        b3.append(r)
+    print("kernel neighbor_counts at the geo path (" + " x ".join(map(str, b3[0]["shape"]))
+          + "), equal to plain at every eps: ms " + ", ".join(f"{r['ms']:.4f}" for r in b3)
+          + "; plain ms " + ", ".join(f"{r['plain_ms']:.4f}" for r in b3)
+          + f"; bound {b3[0]['bound_ms']:.4f} ms ({b3[0]['bound_by']})", flush=True)
+    row = {"path": "geo_grid_16384", "shape": b3[0]["shape"],
+           "ms": float(np.mean([r["ms"] for r in b3])),
+           "plain_ms": float(np.mean([r["plain_ms"] for r in b3])),
+           "bound_ms": b3[0]["bound_ms"], "bound_by": b3[0]["bound_by"],
+           "max_abs_err": max(r["max_abs_err"] for r in b3), "per_eps": b3}
+    return {"masked_moments": b1, "neighbor_counts": row}
+
+
+def phase_geo(torch, seed: int) -> dict:
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer import geospatial_analyzer as ga
+    from anovos_tpu_torch.data_ingest.data_ingest import read_dataset
+    from anovos_tpu_torch.ops import kernels
+
+    out = {"rows": GEO_ROWS}
+    t0 = time.perf_counter()
+    df = geo_frame(seed)
+    out["synth_s"] = time.perf_counter() - t0
+    lat, lon, gh = "latitude", "longitude", "geohash"
+    e0, e1, estep = (float(x) for x in GEO_EPS.split(","))
+    eps_values = [float(e) for e in np.arange(e0, e1 + 1e-9, estep)]
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "geo")
+        os.makedirs(data_dir)
+        df.to_parquet(os.path.join(data_dir, "part-00000.parquet"), index=False)
+        t0 = time.perf_counter()
+        table = read_dataset(data_dir, "parquet")
+        torch.cuda.synchronize()
+        out["ingest_s"] = time.perf_counter() - t0
+        check(table.nrows == GEO_ROWS and table.col_names == list(df.columns), "geo read_dataset shape")
+        print(f"geo: read {GEO_ROWS} rows x {table.ncols} columns in {out['ingest_s']:.2f} s", flush=True)
+
+        out["launches"] = {}
+        for path, sample in (("geo_default", None), ("geo_grid_16384", GEO_B3_SAMPLE)):
+            master = os.path.join(tmp, path)
+            if sample:
+                os.environ["ANOVOS_DBSCAN_GRID_SAMPLE"] = str(sample)
+            try:
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                found = ga.geospatial_autodetection(
+                    table, "id", master, max_analysis_records=GEO_RECORDS, max_cluster=20,
+                    eps=GEO_EPS, min_samples=GEO_MIN_SAMPLES)
+                torch.cuda.synchronize()
+                out[f"{path}_s"] = time.perf_counter() - t0
+                launches = out["launches"][path] = dict(kernels.LAUNCHES)
+            finally:
+                os.environ.pop("ANOVOS_DBSCAN_GRID_SAMPLE", None)
+            check(found == ([lat], [lon], [gh]), f"{path}: detected {found}")
+            for name in PATH_KERNELS[path]:
+                check(launches[name] > 0, f"kernel {name} was not launched on the {path} path")
+            want = len(eps_values) if sample else 0
+            check(launches["neighbor_counts"] == want,
+                  f"{path}: neighbor_counts launched {launches['neighbor_counts']} times, not {want}")
+            missing = [f for f in geo_files(lat, lon, gh) if not os.path.isfile(os.path.join(master, f))]
+            check(not missing, f"{path}: files not written: {missing}")
+            db = pd.read_csv(os.path.join(master, f"geospatial_dbscan_{lat}_{lon}.csv"))
+            check(len(db) == len(eps_values) * 7 and bool(np.isfinite(db["silhouette"]).all()),
+                  f"{path}: DBSCAN grid frame")
+            out[f"{path}_best_silhouette"] = float(db["silhouette"].max())
+            out[f"{path}_clusters_at_best"] = int(db.loc[db["silhouette"].idxmax(), "n_clusters"])
+            print(f"geo: geospatial_autodetection, {path} {out[f'{path}_s']:.2f} s, launches "
+                  f"{launches}; best silhouette {out[f'{path}_best_silhouette']} with "
+                  f"{out[f'{path}_clusters_at_best']} clusters", flush=True)
+
+        charts = os.path.join(tmp, "charts")
+        os.makedirs(charts)
+        t0 = time.perf_counter()
+        ga.generate_loc_charts_controller(table, "id", [lat], [lon], [gh], 100, master_path=charts)
+        out["charts_s"] = time.perf_counter() - t0
+        missing = [f for f in geo_files(lat, lon, gh, charts_only=True)
+                   if not os.path.isfile(os.path.join(charts, f))]
+        check(not missing, f"charts not written: {missing}")
+
+        km = pd.read_csv(os.path.join(tmp, "geo_default", f"geospatial_kmeans_{lat}_{lon}.csv"))
+        km2 = pd.read_csv(os.path.join(tmp, "geo_grid_16384", f"geospatial_kmeans_{lat}_{lon}.csv"))
+        check(km.equals(km2), "k-means frames of the two routes differ")
+        db = pd.read_csv(os.path.join(tmp, "geo_grid_16384", f"geospatial_dbscan_{lat}_{lon}.csv"))
+
+    # after the timed runs (these launches are not counted): the kernels at
+    # this path's shapes and data, then the float64 checks
+    pts = ga._latlon_points(table, lat, lon, GEO_RECORDS)
+    sub = pts[np.random.default_rng(2).choice(len(pts), GEO_B3_SAMPLE, replace=False)]
+    out["kernels"] = geo_path_kernels(torch, table, [lat, lon], sub, eps_values)
+    t0 = time.perf_counter()
+    out["kmeans_check"] = kmeans_float64_check(pts, km)
+    frac = len(sub) / len(pts)
+    m0, m1, mstep = (int(float(x)) for x in GEO_MIN_SAMPLES.split(","))
+    ms_eff = [max(2, int(round(m * frac))) for m in range(m0, m1 + 1, mstep)]
+    out["dbscan_check"] = dbscan_float64_check(sub, eps_values, ms_eff, db)
+    out["float64_checks_s"] = time.perf_counter() - t0
+    print(f"geo: k-means vs float64 Lloyd {out['kmeans_check']}; B3 route vs float64 "
+          f"{out['dbscan_check']}; charts {out['charts_s']:.2f} s", flush=True)
+    check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmul precision changed")
+    return out
+
 
 
 def main() -> None:
@@ -373,19 +766,38 @@ def main() -> None:
     print(f"build: {len(build.SOURCES)} sources, one extension module, in {build_s:.2f} s",
           flush=True)
 
+    check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls must not run in TF32")
     k_num = 9  # numeric columns of the income schema after the bench's drops
     kres = phase_kernels(torch, args.seed, k_num)
     path = phase_path(torch, args.seed)
     print("path " + json.dumps({k: v for k, v in path.items() if k != "launches"}), flush=True)
+    b3_blobs = phase_geo_kernels(torch, args.seed)
+    geo = phase_geo(torch, args.seed)
+    geo_kernels = geo.pop("kernels")
+    print("geo " + json.dumps({k: v for k, v in geo.items() if k != "launches"}), flush=True)
+    # each row's numbers are at its own path's shapes; the other shapes it
+    # was timed at ride along.  B3's library_ms: no single PyTorch call
+    # counts within-eps neighbours without materialising the (n, n)
+    # distances.
+    kres["masked_moments"]["other_shapes"] = [geo_kernels["masked_moments"]]
+    b3 = geo_kernels["neighbor_counts"]
+    kres["neighbor_counts"] = {**b3, "library_ms": None, "other_shapes": [b3_blobs],
+                               "max_abs_err": max(b3["max_abs_err"], b3_blobs["max_abs_err"])}
 
+    by_path = {"income": path["launches"], **geo["launches"]}
+    own_path = {"masked_moments": "income", "binned_histograms": "income",
+                "neighbor_counts": "geo_grid_16384"}
     rows = []
     for kname, meta in kernels.KERNELS.items():
         r = kres[kname]
         rows.append({"name": kname, "route": meta["route"], "source": meta["source"],
-                     "replaces": meta["replaces"], "launches": path["launches"][kname],
+                     "replaces": meta["replaces"], "launches": by_path[own_path[kname]][kname],
+                     "launches_by_path": {p: n[kname] for p, n in by_path.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"], "shape": r["shape"],
+                     "other_shapes": r.get("other_shapes", [])})
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -50,3 +50,24 @@ def test_cuda_moments_match_plain():
         # the plain version merges 2048-row tiles: a looser rtol than the
         # plain-vs-Pallas test, which shares the tile structure
         assert_moments_close(got, exp, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_neighbor_counts_equal_plain():
+    """Kernel B3 and its plain version evaluate d² with the same rounded
+    operations in the same order: the counts are equal, not just close,
+    across the Pallas test's regimes, a ragged block and d = 3."""
+    from anovos_tpu_torch.ops.kernels.neighbor_counts import neighbor_counts_plain, neighbor_counts_rows
+
+    _require_cuda()
+    for n, eps, d in ((3000, 0.4, 2), (1024, 0.05, 2), (1500, 50.0, 2), (257, 0.3, 2),
+                      (2049, 0.7, 3), (1, 0.1, 2)):
+        g = np.random.default_rng(n)
+        X = g.uniform(-40, 40, (4, d))[g.integers(0, 4, n)] + g.normal(0, 0.3, (n, d))
+        X = X.astype(np.float32)
+        Xc = torch.from_numpy(X - X.mean(axis=0, keepdims=True)).cuda()
+        eps2 = float(np.float32(eps * eps))
+        got = neighbor_counts_rows(Xc, eps2)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), neighbor_counts_plain(Xc, eps2).cpu()), (n, eps, d)
+        assert int(got.min()) >= 1
