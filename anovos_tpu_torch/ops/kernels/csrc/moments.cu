@@ -7,40 +7,57 @@
 // turns it into mean / variance / skewness / kurtosis.
 //
 // Bound on the H100: memory.  Each (row, column) is read once, 4 bytes of
-// value and 1 byte of mask; the output is 32 bytes a column.  The update is
-// about 30 f32 operations and one division a value, well under the card's
-// f32 rate at this byte count.
+// value and 1 byte of mask; the output is 32 bytes a column.  The arithmetic
+// is about 24 f32 operations a value read (push_step, an FMA counted as
+// two), masked or not, well under the card's f32 rate at this byte count.
 //
-// Design: layout is column-major, (k, rows), so a warp reads consecutive
-// values of one column.  The grid is (row blocks x columns).  Each thread
-// runs a Welford / Terriberry update over its rows in f32 (well conditioned
-// for large means, where raw power sums cancel).  Every partial result
-// keeps its mean relative to a reference value: a thread's first valid
-// value.  For a column whose spread is small beside its mean (normal(1e5,
-// 3)) the relative mean keeps the digits that a running f32 mean near 1e5
-// would round away, whatever rows are masked (a null is stored as 0).  A
-// merge moves the second partial onto the first one's reference; two
-// references close to each other differ exactly in f32 (Sterbenz), so no
-// digit is lost there.  min, max and nonzero are taken of the raw values.
-// A warp merges its threads with Chan's formulas through shuffles, and the
-// block merges its warps in shared memory.  Chan merges do not commute bit
-// for bit and cannot be done with atomics, so each block writes its 9
-// values to a (blocks, 9, k) scratch and a second launch merges each
-// column's partials with one warp in a fixed order: the result is the same
-// from run to run.
+// Design.  The reads follow columns.cuh: 16 values and their mask a thread
+// a step, loaded together and unconditionally, so enough bytes are in
+// flight to reach the memory rate.
+// - Per step a thread takes a two-pass moment of its 16 values, as the
+//   Pallas kernel does of a tile: the count, one division for the step
+//   mean, then the centred M2/M3/M4 over the registers, and min, max and
+//   nonzero of the raw values; the mask selects.  It Chan-merges the step
+//   into its running moments with one more division: 2 divisions for 16
+//   values.
+// - Every partial keeps its mean relative to a reference value: the
+//   thread's first valid value of the work item.  For a column whose spread
+//   is small beside its mean (normal(1e5, 3)) the relative mean keeps the
+//   digits that a running f32 mean near 1e5 would round away, whatever rows
+//   are masked (a null is stored as 0).  A merge moves the second partial
+//   onto the first one's reference; two references close to each other
+//   differ exactly in f32 (Sterbenz), so no digit is lost there.
+// - Work items: each column is cut into items of 32,768 rows (8 steps of a
+//   block); the last item of a column also reads its unaligned head and
+//   tail rows.  One launch of SMs x resident blocks walks the items with a
+//   grid stride, so no wave is left half full.  A block merges its threads
+//   (warp shuffles, then its 8 warps in order) into the item's partial and
+//   writes it to the item's own slot of a scratch.  The kernel is held to
+//   64 registers, so 4 blocks (1024 threads) fit on an SM: on the H100 that
+//   hid the loads and the merges better than 4-step items at 69 registers
+//   and 3 blocks an SM.
+// - Chan merges do not commute bit for bit and cannot be done with
+//   atomics.  So after writing a partial the block takes a ticket on the
+//   item's column (__threadfence, then atomicAdd on a per-call counter that
+//   the entry point zeroes); the block that takes the column's last ticket
+//   merges that column's partials in item order (thread t items t, t + 256,
+//   ...; then the fixed shuffle tree and the 8 warps in order) and writes
+//   the column's result.  The result depends on the items alone, not on
+//   which block ran which item: two runs give the same bits.  Columns
+//   finish one after another along the grid stride, so their merges overlap
+//   the streaming of later columns.
 //
 // Limit: n and nonzero are f32 counts, exact up to 2^24 valid rows a column,
 // the same bound the Pallas kernel has.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "columns.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerThread = 64;
-constexpr long long kRowsPerBlock = (long long)kThreads * kRowsPerThread;
+using namespace anovos;
+
+constexpr int kItemSteps = 8;
+constexpr long long kItemRows = (long long)kItemSteps * kStepRows;
 constexpr int kFields = 9;
 // the Pallas kernel's empty-min / empty-max sentinel, so an all-masked
 // column gives the same accumulator
@@ -58,24 +75,56 @@ __device__ __forceinline__ Mom empty_mom() {
   return a;
 }
 
-// one value into the running moments (Welford, with Terriberry's update of
-// the third and fourth central sums); the first value becomes the reference
-__device__ __forceinline__ void push(Mom& a, float x) {
-  if (a.n == 0.f) a.ref = isfinite(x) ? x : 0.f;
-  const float n1 = a.n;
-  const float n = n1 + 1.f;
-  const float delta = (x - a.ref) - a.mean;
-  const float dn = delta / n;
-  const float dn2 = dn * dn;
-  const float t1 = delta * dn * n1;
-  a.mean += dn;
-  a.m4 += t1 * dn2 * (n * n - 3.f * n + 3.f) + 6.f * dn2 * a.m2 - 4.f * dn * a.m3;
-  a.m3 += t1 * dn * (n - 2.f) - 3.f * dn * a.m2;
-  a.m2 += t1;
+// One step of 16 values into the thread's running moments.  When the
+// running moments are empty, the step's first valid value becomes the
+// reference.  No branch: an empty step leaves the moments as they were.
+__device__ __forceinline__ void push_step(Mom& a, const Step& s) {
+  float cnt = 0.f, first = 0.f;
+#pragma unroll
+  for (int i = kVec - 1; i >= 0; --i) {
+    first = s.ok[i] ? s.v[i] : first;
+    cnt += s.ok[i] ? 1.f : 0.f;
+  }
+  a.ref = a.n == 0.f ? (isfinite(first) ? first : 0.f) : a.ref;
+  float d[kVec];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    d[i] = s.ok[i] ? s.v[i] - a.ref : 0.f;
+    sum += d[i];
+  }
+  const float mu = sum / fmaxf(cnt, 1.f);
+  float m2 = 0.f, m3 = 0.f, m4 = 0.f, mn = a.mn, mx = a.mx, nz = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float e = s.ok[i] ? d[i] - mu : 0.f;
+    const float e2 = e * e;
+    m2 += e2;
+    m3 = fmaf(e2, e, m3);
+    m4 = fmaf(e2, e2, m4);
+    mn = fminf(mn, s.ok[i] ? s.v[i] : kBig);
+    mx = fmaxf(mx, s.ok[i] ? s.v[i] : -kBig);
+    nz += (s.ok[i] && s.v[i] != 0.f) ? 1.f : 0.f;
+  }
+  // Chan merge of (cnt, mu, m2, m3, m4) into a, both relative to a.ref;
+  // with a empty it gives the step, with the step empty it keeps a
+  const float na = a.n, nb = cnt;
+  const float n = na + nb;
+  const float inv = 1.f / fmaxf(n, 1.f);
+  const float fa = na * inv, fb = nb * inv;
+  const float dl = mu - a.mean;
+  const float dl2 = dl * dl;
+  const float w = na * fb;
+  const float a2 = a.m2, a3 = a.m3;
   a.n = n;
-  a.mn = fminf(a.mn, x);
-  a.mx = fmaxf(a.mx, x);
-  a.nz += (x != 0.f) ? 1.f : 0.f;
+  a.mean += dl * fb;
+  a.m2 = a2 + m2 + dl2 * w;
+  a.m3 = a3 + m3 + dl2 * dl * w * (fa - fb) + 3.f * dl * (fa * m2 - fb * a2);
+  a.m4 = a.m4 + m4 + dl2 * dl2 * w * (fa * fa - fa * fb + fb * fb) +
+         6.f * dl2 * (fa * fa * m2 + fb * fb * a2) + 4.f * dl * (fa * m3 - fb * a3);
+  a.mn = mn;
+  a.mx = mx;
+  a.nz += nz;
 }
 
 // Chan et al. pairwise merge (the Pallas kernel's _merge), with the weights
@@ -90,7 +139,8 @@ __device__ __forceinline__ Mom merge(const Mom& a, const Mom& b) {
   }
   const float na = a.n, nb = b.n;
   const float n = na + nb;
-  const float fa = na / n, fb = nb / n;
+  const float inv = 1.f / n;
+  const float fa = na * inv, fb = nb * inv;
   const float d = nb > 0.f ? ((b.ref - a.ref) + b.mean) - a.mean : 0.f;
   const float d2 = d * d;
   Mom r;
@@ -121,75 +171,116 @@ __device__ __forceinline__ Mom shfl_down(const Mom& a, int off) {
   return r;
 }
 
-// partials layout: part[(block * kFields + field) * k + col]
-__global__ void __launch_bounds__(kThreads)
-moments_partial_kernel(const float* __restrict__ x, const uint8_t* __restrict__ m,
-                       float* __restrict__ part, long long rows, int k) {
-  __shared__ Mom s_warp[kWarps];
-  const int col = blockIdx.y;
-  const float* xc = x + (long long)col * rows;
-  const uint8_t* mc = m + (long long)col * rows;
-  const long long base = (long long)blockIdx.x * kRowsPerBlock;
-  const long long end = min(base + kRowsPerBlock, rows);
-
-  Mom acc = empty_mom();
-  for (long long r = base + threadIdx.x; r < end; r += kThreads) {
-    if (mc[r]) push(acc, xc[r]);
-  }
-  for (int off = 16; off > 0; off >>= 1) acc = merge(acc, shfl_down(acc, off));
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) s_warp[warp] = acc;
+// The block's threads merged in a fixed order: the shuffle tree in each
+// warp, then warps 0..7 in order.  The result is valid in thread 0.  Ends
+// with every thread past its use of s_warp's previous contents.
+__device__ __forceinline__ Mom block_merge(Mom a, Mom* s_warp) {
+  for (int off = 16; off > 0; off >>= 1) a = merge(a, shfl_down(a, off));
+  __syncthreads();  // s_warp's previous contents are read
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = a;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    Mom b = s_warp[0];
-    for (int w = 1; w < kWarps; ++w) b = merge(b, s_warp[w]);
-    float* p = part + (long long)blockIdx.x * kFields * k + col;
-    p[0 * k] = b.n;  p[1 * k] = b.ref; p[2 * k] = b.mean; p[3 * k] = b.m2; p[4 * k] = b.m3;
-    p[5 * k] = b.m4; p[6 * k] = b.mn;  p[7 * k] = b.mx;   p[8 * k] = b.nz;
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kWarps; ++w) a = merge(a, s_warp[w]);
+  return a;
+}
+
+__device__ __forceinline__ void store_mom(float* p, const Mom& a) {
+  p[0] = a.n;  p[1] = a.ref; p[2] = a.mean; p[3] = a.m2; p[4] = a.m3;
+  p[5] = a.m4; p[6] = a.mn;  p[7] = a.mx;   p[8] = a.nz;
+}
+
+// another block wrote p: read it from L2, past this SM's L1
+__device__ __forceinline__ Mom load_mom(const float* p) {
+  Mom a;
+  a.n = __ldcg(p + 0);  a.ref = __ldcg(p + 1); a.mean = __ldcg(p + 2);
+  a.m2 = __ldcg(p + 3); a.m3 = __ldcg(p + 4);  a.m4 = __ldcg(p + 5);
+  a.mn = __ldcg(p + 6); a.mx = __ldcg(p + 7);  a.nz = __ldcg(p + 8);
+  return a;
+}
+
+// part: (k * ipc, 9) item partials; tickets: (k,) int32, zero at launch;
+// out: (8, k)
+__global__ void __launch_bounds__(kThreads, 4)
+moments_kernel(const float* __restrict__ x, const uint8_t* __restrict__ m, float* part,
+               int* tickets, float* __restrict__ out, long long rows, int k, int ipc) {
+  __shared__ Mom s_warp[kWarps];
+  __shared__ int s_last;
+  const long long items = (long long)k * ipc;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int col = (int)(item / ipc);
+    const int j = (int)(item - (long long)col * ipc);
+    const float* xc = x + (long long)col * rows;
+    const uint8_t* mc = m + (long long)col * rows;
+    const Span sp = col_span(col, rows);
+    const long long lo = sp.head + (long long)j * kItemRows;
+    const long long hi = min(lo + kItemRows, sp.end);
+
+    Mom acc = empty_mom();
+    Step s;
+    long long base = lo;
+    for (; base + kStepRows <= hi; base += kStepRows) {
+      load_step<true>(xc, mc, base, hi, s);
+      push_step(acc, s);
+    }
+    if (base < hi) {
+      load_step<false>(xc, mc, base, hi, s);
+      push_step(acc, s);
+    }
+    if (j == ipc - 1) {
+      load_edges(xc, mc, sp, rows, s);
+      push_step(acc, s);
+    }
+    acc = block_merge(acc, s_warp);
+    if (threadIdx.x == 0) {
+      store_mom(part + item * kFields, acc);
+      __threadfence();  // the partial is visible before the ticket
+      s_last = atomicAdd(&tickets[col], 1) == ipc - 1;
+    }
+    __syncthreads();
+    if (s_last) {  // every other item of this column is written
+      __threadfence();
+      Mom c = empty_mom();
+      const float* pc = part + (long long)col * ipc * kFields;
+      for (int i = threadIdx.x; i < ipc; i += kThreads)
+        c = merge(c, load_mom(pc + (long long)i * kFields));
+      c = block_merge(c, s_warp);
+      if (threadIdx.x == 0) {
+        float* o = out + col;
+        o[0] = c.n;                   o[(long long)k] = c.n > 0.f ? c.ref + c.mean : 0.f;
+        o[2LL * k] = c.m2; o[3LL * k] = c.m3; o[4LL * k] = c.m4;
+        o[5LL * k] = c.mn; o[6LL * k] = c.mx; o[7LL * k] = c.nz;
+      }
+    }
+    __syncthreads();  // s_last and s_warp are read before the next item
   }
 }
 
-// one warp a column merges that column's block partials: lane l merges
-// partials l, l + 32, l + 64, ... in order, then the lanes merge through
-// the fixed shuffle tree, so the order (and the result) is the same from
-// run to run; lane 0 adds the reference back to the mean
-__global__ void moments_merge_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                     int nblocks, int k) {
-  const int col = blockIdx.x;
-  const int lane = threadIdx.x;
-  Mom acc = empty_mom();
-  for (int b = lane; b < nblocks; b += 32) {
-    const float* p = part + (long long)b * kFields * k + col;
-    Mom q;
-    q.n = p[0 * k];  q.ref = p[1 * k]; q.mean = p[2 * k]; q.m2 = p[3 * k]; q.m3 = p[4 * k];
-    q.m4 = p[5 * k]; q.mn = p[6 * k];  q.mx = p[7 * k];   q.nz = p[8 * k];
-    acc = merge(acc, q);
-  }
-  for (int off = 16; off > 0; off >>= 1) acc = merge(acc, shfl_down(acc, off));
-  if (lane != 0) return;
-  out[0 * k + col] = acc.n;  out[1 * k + col] = acc.n > 0.f ? acc.ref + acc.mean : 0.f;
-  out[2 * k + col] = acc.m2; out[3 * k + col] = acc.m3;
-  out[4 * k + col] = acc.m4; out[5 * k + col] = acc.mn;
-  out[6 * k + col] = acc.mx; out[7 * k + col] = acc.nz;
-}
+Residency g_residency;
 
 }  // namespace
 
-extern "C" long long anovos_moments_blocks(long long rows) {
-  return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+// work items a column (at least one, which also reads the unaligned rows)
+extern "C" int anovos_moments_items(long long rows) {
+  return (int)(rows > 0 ? (rows + kItemRows - 1) / kItemRows : 1);
 }
 
-// x (k, rows) f32, m (k, rows) uint8, contiguous on the device; part is an
-// (anovos_moments_blocks(rows), 9, k) f32 scratch.  The caller checks the
-// launch.
-extern "C" void anovos_moments_partial(const float* x, const uint8_t* m, float* part,
-                                       long long rows, int k, cudaStream_t stream) {
-  const dim3 grid((unsigned)anovos_moments_blocks(rows), (unsigned)k);
-  moments_partial_kernel<<<grid, kThreads, 0, stream>>>(x, m, part, rows, k);
-}
-
-// merges the partials into out (8, k) f32.  The caller checks the launch.
-extern "C" void anovos_moments_merge(const float* part, float* out, long long rows, int k,
-                                     cudaStream_t stream) {
-  moments_merge_kernel<<<k, 32, 0, stream>>>(part, out, (int)anovos_moments_blocks(rows), k);
+// x (k, rows) f32 16-byte aligned and m (k, rows) uint8 4-byte aligned,
+// contiguous on `device`, k > 0; part a (k * anovos_moments_items(rows), 9)
+// f32 scratch; tickets a (k,) int32 scratch; out (8, k) f32.  Zeroes the
+// tickets and launches on `stream`; returns the launch's error code.
+extern "C" int anovos_moments(const float* x, const uint8_t* m, float* part, int* tickets,
+                              float* out, long long rows, int k, int device,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int resident = 0;
+  err = g_residency.get(moments_kernel, device, 0, &resident);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(tickets, 0, sizeof(int) * (size_t)k, stream);
+  if (err != cudaSuccess) return err;
+  const int ipc = anovos_moments_items(rows);
+  const long long items = (long long)k * ipc;
+  const int grid = (int)(items < resident ? items : resident);
+  moments_kernel<<<grid, kThreads, 0, stream>>>(x, m, part, tickets, out, rows, k, ipc);
+  return cudaGetLastError();
 }

@@ -88,10 +88,12 @@ void launch(const float* x, float eps2, int* counts, int n, cudaStream_t stream)
 
 }  // namespace
 
-// x (n, d) f32 contiguous on the device, 1 <= d <= 8, n > 0; counts (n,)
-// int32.  The caller checks the launch.
-extern "C" void anovos_neighbor_counts(const float* x, float eps2, int* counts, int n, int d,
-                                       cudaStream_t stream) {
+// x (n, d) f32 contiguous on `device`, 1 <= d <= 8, n > 0; counts (n,)
+// int32.  Launches on `stream`; returns the launch's error code.
+extern "C" int anovos_neighbor_counts(const float* x, float eps2, int* counts, int n, int d,
+                                      int device, cudaStream_t stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   switch (d) {
     case 1: launch<1>(x, eps2, counts, n, stream); break;
     case 2: launch<2>(x, eps2, counts, n, stream); break;
@@ -101,6 +103,7 @@ extern "C" void anovos_neighbor_counts(const float* x, float eps2, int* counts, 
     case 6: launch<6>(x, eps2, counts, n, stream); break;
     case 7: launch<7>(x, eps2, counts, n, stream); break;
     case 8: launch<8>(x, eps2, counts, n, stream); break;
-    default: break;  // the binding refuses other widths
+    default: return cudaErrorInvalidValue;  // the wrapper refuses other widths
   }
+  return cudaGetLastError();
 }

@@ -8,7 +8,8 @@ import torch
 from anovos_tpu_torch.ops import kernels
 from anovos_tpu_torch.ops.kernels import build
 
-# shared memory holds the cutoffs and one int32 histogram per warp
+# above 32 bins shared memory holds the cutoffs and one int32 histogram per
+# warp (36 KB at 1024 bins, inside the 48 KB a block gets without opting in)
 MAX_BINS = 1024
 
 
@@ -47,10 +48,19 @@ def binned_histograms_cols(Xc: torch.Tensor, Mc: torch.Tensor, cutoffs: torch.Te
         raise ValueError("binned_histograms: X, M and cutoffs must be contiguous")
     if Mc.device != Xc.device or cutoffs.device != Xc.device:
         raise ValueError("binned_histograms: X, M and cutoffs must be on one device")
-    if not 1 <= nbins <= MAX_BINS or k > 65535:
-        raise ValueError(f"binned_histograms: need 1 <= nbins <= {MAX_BINS} and k <= 65535")
-    counts = torch.empty((k, nbins), dtype=torch.int32, device=Xc.device)
+    if not 1 <= nbins <= MAX_BINS or k > build.C_INT_MAX:
+        raise ValueError(f"binned_histograms: need 1 <= nbins <= {MAX_BINS} and "
+                         f"k <= {build.C_INT_MAX}")
     out = torch.empty((k, nbins), dtype=torch.float32, device=Xc.device)
-    build.load().binned_histograms(Xc, Mc, cutoffs, counts, out)
+    if k == 0:
+        return out
+    Xc, Mc = build.aligned(Xc), build.aligned(Mc)
+    # (k, nbins) int32 counts, then (k,) tickets; zeroed by the entry point
+    scratch = torch.empty(k * nbins + k, dtype=torch.int32, device=Xc.device)
+    lib = build.load()["histogram"]
+    build.check(lib.anovos_histograms(Xc.data_ptr(), Mc.data_ptr(), cutoffs.data_ptr(),
+                                      scratch.data_ptr(), out.data_ptr(), Xc.shape[1], k, nbins,
+                                      Xc.device.index, build.stream_of(Xc)),
+                "binned_histograms")
     kernels.LAUNCHES["binned_histograms"] += 1
     return out

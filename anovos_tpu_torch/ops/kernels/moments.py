@@ -85,12 +85,21 @@ def masked_moments_cols(Xc: torch.Tensor, Mc: torch.Tensor) -> torch.Tensor:
     if Mc.device != Xc.device:
         raise ValueError("masked_moments: X and M must be on one device")
     k, rows = Xc.shape
-    if k > 65535:
-        raise ValueError("masked_moments: at most 65535 columns a launch")
-    ext = build.load()
-    # per row block: [n, reference, mean, M2, M3, M4, min, max, nonzero]
-    part = torch.empty((ext.moments_blocks(rows), 9, k), dtype=torch.float32, device=Xc.device)
+    if k > build.C_INT_MAX:
+        raise ValueError(f"masked_moments: at most {build.C_INT_MAX} columns a launch")
     out = torch.empty((8, k), dtype=torch.float32, device=Xc.device)
-    ext.masked_moments(Xc, Mc, part, out)
+    if k == 0:
+        return out
+    Xc, Mc = build.aligned(Xc), build.aligned(Mc)
+    lib = build.load()["moments"]
+    # one partial a work item: [n, reference, mean, M2, M3, M4, min, max, nonzero]
+    part = torch.empty((k * lib.anovos_moments_items(rows), 9), dtype=torch.float32,
+                       device=Xc.device)
+    # one ticket a column, zeroed by the entry point
+    tickets = torch.empty(k, dtype=torch.int32, device=Xc.device)
+    build.check(lib.anovos_moments(Xc.data_ptr(), Mc.data_ptr(), part.data_ptr(),
+                                   tickets.data_ptr(), out.data_ptr(), rows, k, Xc.device.index,
+                                   build.stream_of(Xc)),
+                "masked_moments")
     kernels.LAUNCHES["masked_moments"] += 1
     return out

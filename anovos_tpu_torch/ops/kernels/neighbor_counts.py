@@ -76,7 +76,15 @@ def neighbor_counts_rows(X: torch.Tensor, eps2: float, tile: int = TILE_ROWS) ->
         raise ValueError("neighbor_counts: X must be contiguous")
     if not 1 <= X.shape[1] <= MAX_DIM:
         raise ValueError(f"neighbor_counts: need 1 <= d <= {MAX_DIM}, got {X.shape[1]}")
-    counts = torch.empty(X.shape[0], dtype=torch.int32, device=X.device)
-    build.load().neighbor_counts(X, float(eps2), counts)
+    n, d = X.shape
+    if n > build.C_INT_MAX:
+        raise ValueError(f"neighbor_counts: at most {build.C_INT_MAX} points")
+    counts = torch.empty(n, dtype=torch.int32, device=X.device)
+    if n == 0:
+        return counts
+    lib = build.load()["neighbor_counts"]
+    build.check(lib.anovos_neighbor_counts(X.data_ptr(), float(eps2), counts.data_ptr(), n, d,
+                                           X.device.index, build.stream_of(X)),
+                "neighbor_counts")
     kernels.LAUNCHES["neighbor_counts"] += 1
     return counts

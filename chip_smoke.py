@@ -6,12 +6,15 @@
 Phases, in order; any failure exits non-zero:
 
 1. build: compile every CUDA kernel of the port from ``anovos_tpu_torch/ops/
-   kernels/csrc`` (nvcc, sm_90a, through ``torch.utils.cpp_extension``) and
-   print the build seconds;
+   kernels/csrc`` (one nvcc a source for sm_90a, all at once, loaded with
+   ctypes), print each kernel's registers and spills and the build seconds;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge shapes (ragged row counts, an
-   all-masked column, a NaN cutoff row, a normal(1e5, 3) column whose first
-   row is null), with the kernel's time, the plain version's and the card's
+   the main path's shapes and at unaligned row counts (≡ 1, 2, 3 mod 4,
+   1,333,333 among them; an all-masked column, a NaN cutoff row, a
+   normal(1e5, 3) column whose first row is null), the moments kernel twice
+   at every shape with bit-identical results; each kernel's time as 5
+   repeats of 50 launches (min, median, max), warm and with L2 flushed
+   before each launch, beside the plain version's time and the card's
    lower bound;
 3. path: the income schema at 4,000,000 rows written as parquet and read
    back with ``read_dataset``, the eleven ``stats_generator`` measures,
@@ -22,7 +25,8 @@ Phases, in order; any failure exits non-zero:
    kernel of this path must have been launched by this phase;
 4. geo kernels: the DBSCAN neighbour-count kernel against its plain version
    at the shapes of the JAX package's Pallas test and at 100,000 points,
-   with its time, the plain version's and the card's lower bound;
+   with its time (5 repeats of 50 launches), the plain version's and the
+   card's lower bound;
 5. geo path: a 1,000,000-row table of six Gaussian cities (σ = 0.3°) and 2%
    uniform noise, with a lat/lon pair (1% nulls), a precision-7 geohash of
    the same points and an id, written as parquet and read back with
@@ -70,6 +74,24 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# kernel timing: repeats of back-to-back launches; the cold-L2 flush buffer
+TIME_REPS = 5
+TIME_ITERS = 50
+COLD_BYTES = 128 * 2**20
+# a device sleep (clock cycles, about 10 ms) that the timed launches queue
+# behind
+QUEUE_CYCLES = 20_000_000
+# f32 operations of kernel B1 a value read (csrc/moments.cu push_step, an
+# FMA counted as two, as the peak rate counts it): 3 for the count and the
+# first valid value, 3 for the step sum, 16 for the centred powers, min,
+# max and nonzero, and about 2 for the step's division and Chan merge.  The
+# mask selects rather than branches, so masked values cost the same.
+B1_OPS_PER_VALUE = 24
+# unaligned row counts the kernels are checked at (≡ 1, 2, 3 mod 4, none a
+# multiple of 16), with their column counts: the stability slices of the
+# 4M-row path, a ragged shape, one row past a B1 work item, a tiny one
+UNALIGNED = ((1_333_333, 9), (1_333_334, 9), (1_234_567, 5), (16_387, 3), (4_098, 5),
+             (2_049, 4), (7, 4), (1, 4))
 
 
 def fail(msg: str) -> None:
@@ -94,6 +116,58 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_times(torch, fn, cold: bool = False, iters: int = TIME_ITERS,
+                 reps: int = TIME_REPS) -> dict:
+    """Device time of ``fn`` a launch as ``reps`` repeats of ``iters``
+    launches: their min, median and max (ms), and every repeat.  ``fn``
+    must not wait for the device.
+
+    Warm: the launches run back to back, timed together, so inputs that fit
+    the 50 MB L2 stay there.  Cold: before each launch, outside its timed
+    window, a 128 MB buffer is written, so the launch finds its inputs in
+    device memory, as the drift caller does after building its inputs.
+    Either way the launches are queued behind a device sleep, so the
+    device never waits for the host's wrapper calls: the time is the
+    device's."""
+    fn()
+    torch.cuda.synchronize()
+    flush = torch.empty(COLD_BYTES // 4, dtype=torch.float32, device="cuda") if cold else None
+    per = []
+    for _ in range(reps):
+        evs = []
+        torch.cuda._sleep(QUEUE_CYCLES)
+        for _ in range(iters if cold else 1):
+            if cold:
+                flush.fill_(1.0)
+                torch.cuda._sleep(QUEUE_CYCLES // 100)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(1 if cold else iters):
+                fn()
+            b.record()
+            evs.append((a, b))
+        torch.cuda.synchronize()
+        per.append(sum(a.elapsed_time(b) for a, b in evs) / iters)
+    return {"min": min(per), "median": float(np.median(per)), "max": max(per), "repeats": per}
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time a call of ``fn`` (µs) on a shape whose device time is
+    negligible: what a wrapper call costs the host, checks, allocation and
+    launch included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def spread(t: dict) -> str:
+    return f"{t['median']:.5f} ms (min {t['min']:.5f}, max {t['max']:.5f})"
 
 
 def bound(nbytes: float, ops: float):
@@ -155,6 +229,32 @@ def moments_errors(acc: np.ndarray, ref: np.ndarray) -> dict:
     return share
 
 
+def b2_bound(k: int, rows: int, nbins: int, valid: int):
+    """B2's least time: bytes, every value and mask byte read once, the
+    cutoffs read and the counts written; operations, a compare and an add
+    for each cutoff and value read (the mask selects, it does not branch)
+    and one count for each valid value."""
+    return bound(rows * k * 5 + k * (nbins - 1) * 4 + k * nbins * 4,
+                 rows * k * 2 * (nbins - 1) + valid)
+
+
+def b1_bound(k: int, rows: int):
+    """B1's least time: bytes, every value and mask byte read once and 32
+    bytes a column written; operations, B1_OPS_PER_VALUE a value read."""
+    return bound(rows * k * 5 + 8 * k * 4, rows * k * B1_OPS_PER_VALUE)
+
+
+def check_moments_twice(torch, X, M, what: str):
+    """B1 on (X, M) twice: the two results are the same bits; returns one."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols
+
+    a = masked_moments_cols(X, M)
+    b = masked_moments_cols(X, M)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"masked_moments differs between two runs at {what}")
+    return a
+
+
 def phase_kernels(torch, seed: int, k_num: int) -> dict:
     from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
     from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
@@ -164,18 +264,18 @@ def phase_kernels(torch, seed: int, k_num: int) -> dict:
     gen.manual_seed(seed)
     out = {}
 
-    # edge shapes: ragged against every block size, tiny, one row
-    for rows, k in ((1_234_567, 5), (2049, 4), (1, 4)):
+    # unaligned row counts: every column after the first starts off the
+    # 16-byte grid (all-masked column, NaN cutoffs, mean 1e5 in each)
+    for rows, k in UNALIGNED:
         X, M, cuts = kernel_inputs(torch, k, rows, gen)
         h = binned_histograms_cols(X, M, cuts, BIN_SIZE)
-        a = masked_moments_cols(X, M)
-        torch.cuda.synchronize()
+        a = check_moments_twice(torch, X, M, f"({k}, {rows})")
         check(torch.equal(h, binned_histograms_plain(X, M, cuts, BIN_SIZE)),
               f"binned_histograms differs from plain at ({k}, {rows})")
         check(int(h.sum().item()) == int(M.sum().item()), "histogram total != valid count")
         moments_errors(a.cpu().numpy(), masked_moments_plain(X, M).cpu().numpy())
-    print(f"kernels: edge shapes ok (ragged rows, all-masked column, NaN cutoffs, mean 1e5)",
-          flush=True)
+    print("kernels: unaligned shapes ok, rows " + ", ".join(str(r) for r, _ in UNALIGNED)
+          + " (all-masked column, NaN cutoffs, mean 1e5; B1 bit-identical over two runs)", flush=True)
 
     # binned histogram at the drift path's shape: one side of the 4M-row
     # bench split, every numeric column
@@ -184,24 +284,22 @@ def phase_kernels(torch, seed: int, k_num: int) -> dict:
     got = binned_histograms_cols(X, M, cuts, BIN_SIZE)
     plain = binned_histograms_plain(X, M, cuts, BIN_SIZE)
     check(torch.equal(got, plain), "binned_histograms differs from plain at the path shape")
-    ms = cuda_ms(torch, lambda: binned_histograms_cols(X, M, cuts, BIN_SIZE), 50)
+    warm = kernel_times(torch, lambda: binned_histograms_cols(X, M, cuts, BIN_SIZE))
+    cold = kernel_times(torch, lambda: binned_histograms_cols(X, M, cuts, BIN_SIZE), cold=True)
     plain_ms = cuda_ms(torch, lambda: binned_histograms_plain(X, M, cuts, BIN_SIZE), 3)
-    # bytes: every value and mask byte read once, cutoffs read, counts
-    # written; operations: nbins-1 compares for each valid value
-    b_ms, b_by = bound(rows_h * k_num * 5 + cuts.numel() * 4 + k_num * BIN_SIZE * 4,
-                       int(M.sum().item()) * (BIN_SIZE - 1))
+    b_ms, b_by = b2_bound(k_num, rows_h, BIN_SIZE, int(M.sum().item()))
     out["binned_histograms"] = {"max_abs_err": float((got - plain).abs().max().item()),
-                                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                "bound_by": b_by, "library_ms": None,
+                                "ms": warm["median"], "plain_ms": plain_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "library_ms": None, "warm": warm, "cold": cold,
                                 "shape": [k_num, rows_h, BIN_SIZE]}
-    print(f"kernel binned_histograms ({k_num} x {rows_h}, {BIN_SIZE} bins): {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library none; exact", flush=True)
+    print(f"kernel binned_histograms ({k_num} x {rows_h}, {BIN_SIZE} bins): warm {spread(warm)}, "
+          f"cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+          f"library none; exact", flush=True)
 
     # masked moments at stats_generator's shape: every numeric column of the
     # 4M-row table
     X, M, _ = kernel_inputs(torch, k_num, ROWS, gen)
-    acc = masked_moments_cols(X, M)
-    check(torch.equal(masked_moments_cols(X, M), acc), "masked_moments differs between two runs")
+    acc = check_moments_twice(torch, X, M, "the path shape")
     ref = masked_moments_plain(X, M)
     share = moments_errors(acc.cpu().numpy(), ref.cpu().numpy())
 
@@ -211,17 +309,37 @@ def phase_kernels(torch, seed: int, k_num: int) -> dict:
 
     diff = (fin(acc) - fin(ref)).abs()
     max_err = float(torch.nan_to_num(diff, nan=0.0).max().item())
-    ms = cuda_ms(torch, lambda: masked_moments_cols(X, M), 50)
+    warm = kernel_times(torch, lambda: masked_moments_cols(X, M))
+    cold = kernel_times(torch, lambda: masked_moments_cols(X, M), cold=True)
     plain_ms = cuda_ms(torch, lambda: masked_moments_plain(X, M), 2)
-    # operations: the Welford update is about 30 f32 operations for each
-    # valid value (csrc/moments.cu)
-    b_ms, b_by = bound(ROWS * k_num * 5 + 8 * k_num * 4, int(M.sum().item()) * 30)
-    out["masked_moments"] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    b_ms, b_by = b1_bound(k_num, ROWS)
+    out["masked_moments"] = {"max_abs_err": max_err, "ms": warm["median"], "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                             "shape": [k_num, ROWS], "err_share_of_allowance": share}
-    print(f"kernel masked_moments ({k_num} x {ROWS}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), library none; max |Δ| of mean/stddev/skew/kurt "
-          f"{max_err:.3g}, error as share of allowance {share}", flush=True)
+                             "warm": warm, "cold": cold, "shape": [k_num, ROWS],
+                             "err_share_of_allowance": share}
+    print(f"kernel masked_moments ({k_num} x {ROWS}): warm {spread(warm)}, cold L2 {spread(cold)}, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library none; max |Δ| of "
+          f"mean/stddev/skew/kurt {max_err:.3g}, error as share of allowance {share}", flush=True)
+
+    # masked moments at a stability slice's shape (3 of the path's 4 launches)
+    rows_s = ROWS // 3
+    X, M, _ = kernel_inputs(torch, k_num, rows_s, gen)
+    warm = kernel_times(torch, lambda: masked_moments_cols(X, M))
+    cold = kernel_times(torch, lambda: masked_moments_cols(X, M), cold=True)
+    b_ms, b_by = b1_bound(k_num, rows_s)
+    out["masked_moments"]["other_shapes"] = [{"path": "stability", "shape": [k_num, rows_s],
+                                              "ms": warm["median"], "bound_ms": b_ms,
+                                              "bound_by": b_by, "warm": warm, "cold": cold}]
+    print(f"kernel masked_moments at a stability slice ({k_num} x {rows_s}): warm {spread(warm)}, "
+          f"cold L2 {spread(cold)}, bound {b_ms:.5f} ms ({b_by})", flush=True)
+
+    X, M, cuts = kernel_inputs(torch, 4, 1000, gen)
+    out["masked_moments"]["host_us"] = host_us(torch, lambda: masked_moments_cols(X, M))
+    out["binned_histograms"]["host_us"] = host_us(
+        torch, lambda: binned_histograms_cols(X, M, cuts, BIN_SIZE))
+    print(f"kernels: host time a wrapper call at (4, 1000): masked_moments "
+          f"{out['masked_moments']['host_us']:.2f} µs, binned_histograms "
+          f"{out['binned_histograms']['host_us']:.2f} µs", flush=True)
     return out
 
 
@@ -410,11 +528,11 @@ def time_neighbor_counts(torch, Xc, eps2: float, what: str) -> dict:
     got = neighbor_counts_rows(Xc, eps2)
     plain = neighbor_counts_plain(Xc, eps2)
     check(torch.equal(got, plain), f"neighbor_counts differs from plain at {what}")
-    ms = cuda_ms(torch, lambda: neighbor_counts_rows(Xc, eps2), 20)
+    warm = kernel_times(torch, lambda: neighbor_counts_rows(Xc, eps2))
     plain_ms = cuda_ms(torch, lambda: neighbor_counts_plain(Xc, eps2), 3)
     b_ms, b_by = neighbor_counts_bound(n, d)
-    return {"max_abs_err": float((got - plain).abs().max().item()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d]}
+    return {"max_abs_err": float((got - plain).abs().max().item()), "ms": warm["median"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "shape": [n, d]}
 
 
 def phase_geo_kernels(torch, seed: int) -> dict:
@@ -433,7 +551,7 @@ def phase_geo_kernels(torch, seed: int) -> dict:
     r = time_neighbor_counts(torch, torch.from_numpy(blob_points(n, seed)).cuda(),
                              float(np.float32(eps * eps)), f"n={n}")
     r["data"] = f"four blobs, eps {eps}"
-    print(f"kernel neighbor_counts ({n} x 2, eps {eps}): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+    print(f"kernel neighbor_counts ({n} x 2, eps {eps}): {spread(r['warm'])}, plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library none; exact", flush=True)
     return r
 
@@ -621,16 +739,18 @@ def geo_path_kernels(torch, table, ll_cols, sub: np.ndarray, eps_values) -> dict
     X, M = table.numeric_block(ll_cols)
     Xc, Mc = X.t().contiguous(), M.t().contiguous()
     k, rows = Xc.shape
-    acc = masked_moments_cols(Xc, Mc)
+    acc = check_moments_twice(torch, Xc, Mc, "the geo block")
     share = moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
-    ms = cuda_ms(torch, lambda: masked_moments_cols(Xc, Mc), 50)
+    warm = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc))
+    cold = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc), cold=True)
     plain_ms = cuda_ms(torch, lambda: masked_moments_plain(Xc, Mc), 2)
-    b_ms, b_by = bound(rows * k * 5 + 8 * k * 4, int(Mc.sum().item()) * 30)
-    b1 = {"path": "geo", "shape": [k, rows], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-          "bound_by": b_by, "err_share_of_allowance": share}
-    print(f"kernel masked_moments at the geo path ({k} x {rows}, lat/lon): {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); error as share of allowance {share}",
-          flush=True)
+    b_ms, b_by = b1_bound(k, rows)
+    b1 = {"path": "geo", "shape": [k, rows], "ms": warm["median"], "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
+          "err_share_of_allowance": share}
+    print(f"kernel masked_moments at the geo path ({k} x {rows}, lat/lon): warm {spread(warm)}, "
+          f"cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); error as "
+          f"share of allowance {share}", flush=True)
 
     x32 = np.asarray(sub, np.float32)
     xc = torch.from_numpy(x32 - x32.mean(axis=0, keepdims=True)).cuda()
@@ -643,7 +763,10 @@ def geo_path_kernels(torch, table, ll_cols, sub: np.ndarray, eps_values) -> dict
           + "), equal to plain at every eps: ms " + ", ".join(f"{r['ms']:.4f}" for r in b3)
           + "; plain ms " + ", ".join(f"{r['plain_ms']:.4f}" for r in b3)
           + f"; bound {b3[0]['bound_ms']:.4f} ms ({b3[0]['bound_by']})", flush=True)
-    row = {"path": "geo_grid_16384", "shape": b3[0]["shape"],
+    warm = {"min": min(r["warm"]["min"] for r in b3),
+            "median": float(np.median([r["warm"]["median"] for r in b3])),
+            "max": max(r["warm"]["max"] for r in b3)}
+    row = {"path": "geo_grid_16384", "shape": b3[0]["shape"], "warm": warm,
            "ms": float(np.mean([r["ms"] for r in b3])),
            "plain_ms": float(np.mean([r["plain_ms"] for r in b3])),
            "bound_ms": b3[0]["bound_ms"], "bound_by": b3[0]["bound_by"],
@@ -743,6 +866,37 @@ def phase_geo(torch, seed: int) -> dict:
 
 
 
+def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict) -> list:
+    """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
+    with its launches there (``by_path``: launch counts per path) and the
+    other shapes it was timed at riding along.  B3's library_ms: no single
+    PyTorch call counts within-eps neighbours without materialising the
+    (n, n) distances."""
+    from anovos_tpu_torch.ops import kernels
+
+    kres["masked_moments"]["other_shapes"].append(geo_kernels["masked_moments"])
+    b3 = geo_kernels["neighbor_counts"]
+    kres["neighbor_counts"] = {**b3, "library_ms": None, "other_shapes": [b3_blobs],
+                               "max_abs_err": max(b3["max_abs_err"], b3_blobs["max_abs_err"])}
+    own_path = {"masked_moments": "income", "binned_histograms": "income",
+                "neighbor_counts": "geo_grid_16384"}
+    rows = []
+    for kname, meta in kernels.KERNELS.items():
+        r = kres[kname]
+        rows.append({"name": kname, "route": meta["route"], "source": meta["source"],
+                     "replaces": meta["replaces"], "launches": by_path[own_path[kname]][kname],
+                     "launches_by_path": {p: n[kname] for p, n in by_path.items()},
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "shape": r["shape"],
+                     "warm_ms": {q: r["warm"][q] for q in ("min", "median", "max")},
+                     "cold_ms": ({q: r["cold"][q] for q in ("min", "median", "max")}
+                                 if "cold" in r else None),
+                     "host_us": r.get("host_us"),
+                     "other_shapes": r.get("other_shapes", [])})
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -752,7 +906,6 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
-    from anovos_tpu_torch.ops import kernels
     from anovos_tpu_torch.ops.kernels import build
     from anovos_tpu_torch.shared.runtime import init_runtime
 
@@ -761,9 +914,15 @@ def main() -> None:
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    build.load(verbose=True)
+    try:
+        build.load()
+    finally:
+        for src, log in build.BUILD_LOG.items():
+            for line in log.splitlines():
+                if "ptxas info" in line and ("Used" in line or "spill" in line):
+                    print(f"build: {src}: {line.strip()}", flush=True)
     build_s = time.perf_counter() - t0
-    print(f"build: {len(build.SOURCES)} sources, one extension module, in {build_s:.2f} s",
+    print(f"build: {len(build.SOURCES)} sources, one nvcc each, all at once, in {build_s:.2f} s",
           flush=True)
 
     check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
@@ -776,28 +935,7 @@ def main() -> None:
     geo = phase_geo(torch, args.seed)
     geo_kernels = geo.pop("kernels")
     print("geo " + json.dumps({k: v for k, v in geo.items() if k != "launches"}), flush=True)
-    # each row's numbers are at its own path's shapes; the other shapes it
-    # was timed at ride along.  B3's library_ms: no single PyTorch call
-    # counts within-eps neighbours without materialising the (n, n)
-    # distances.
-    kres["masked_moments"]["other_shapes"] = [geo_kernels["masked_moments"]]
-    b3 = geo_kernels["neighbor_counts"]
-    kres["neighbor_counts"] = {**b3, "library_ms": None, "other_shapes": [b3_blobs],
-                               "max_abs_err": max(b3["max_abs_err"], b3_blobs["max_abs_err"])}
-
-    by_path = {"income": path["launches"], **geo["launches"]}
-    own_path = {"masked_moments": "income", "binned_histograms": "income",
-                "neighbor_counts": "geo_grid_16384"}
-    rows = []
-    for kname, meta in kernels.KERNELS.items():
-        r = kres[kname]
-        rows.append({"name": kname, "route": meta["route"], "source": meta["source"],
-                     "replaces": meta["replaces"], "launches": by_path[own_path[kname]][kname],
-                     "launches_by_path": {p: n[kname] for p, n in by_path.items()},
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "shape": r["shape"],
-                     "other_shapes": r.get("other_shapes", [])})
+    rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"]})
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -71,3 +71,129 @@ def test_cuda_neighbor_counts_equal_plain():
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), neighbor_counts_plain(Xc, eps2).cpu()), (n, eps, d)
         assert int(got.min()) >= 1
+
+
+# Row counts ≡ 1, 2, 3 (mod 4) and ≢ 0 (mod 16): every column after the
+# first starts off the 16-byte grid, so the kernels read a head and a tail
+# one value at a time.  1,333,333 and 1,333,334 are the stability slices of
+# the 4M-row path; 16,387 and 20,483 end one row past a work item.
+UNALIGNED_ROWS = (1_333_333, 1_333_334, 16_387, 20_483, 4_097, 4_098, 4_099, 2_049, 7, 6, 5, 3, 2, 1)
+
+
+def _cols(X, M):
+    return torch.from_numpy(X.T.copy()).cuda(), torch.from_numpy(M.T.copy()).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", UNALIGNED_ROWS)
+def test_cuda_moments_unaligned_rows(rows):
+    """B1 against its plain version where columns start off the vector
+    grid; two calls give the same bits."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    _require_cuda()
+    Xc, Mc = _cols(*moment_inputs(rows, seed=rows))
+    got = masked_moments_cols(Xc, Mc)
+    again = masked_moments_cols(Xc, Mc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert_moments_close(got.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", UNALIGNED_ROWS)
+def test_cuda_histogram_unaligned_rows(rows):
+    """B2 equal to its plain version where columns start off the vector
+    grid, with a NaN cutoff row and an all-masked column."""
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+
+    _require_cuda()
+    X, M, cuts = hist_inputs(rows, 5, 10, seed=rows, nan_rows=(3,), dead_cols=(2,))
+    Xc, Mc = _cols(X, M)
+    c = torch.from_numpy(cuts).cuda()
+    got = binned_histograms_cols(Xc, Mc, c, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, binned_histograms_plain(Xc, Mc, c, 10))
+    assert int(got.sum().item()) == int(M.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbins", [1, 2, 10, 32, 33, "MAX_BINS"])
+def test_cuda_histogram_bin_counts(nbins):
+    """B2 equal to its plain version from one bin to the most the kernel
+    takes, on both sides of 32 bins (a counter for every thread up to 32,
+    per-warp atomics above), with a NaN cutoff row and an all-masked
+    column."""
+    from anovos_tpu_torch.ops.kernels.histogram import MAX_BINS, binned_histograms_cols, binned_histograms_plain
+
+    _require_cuda()
+    nbins = MAX_BINS if nbins == "MAX_BINS" else nbins
+    nan_rows = (1,) if nbins > 1 else ()
+    X, M, cuts = hist_inputs(50_001, 4, nbins, seed=nbins, nan_rows=nan_rows, dead_cols=(3,))
+    Xc, Mc = _cols(X, M)
+    c = torch.from_numpy(cuts).cuda()
+    got = binned_histograms_cols(Xc, Mc, c, nbins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, binned_histograms_plain(Xc, Mc, c, nbins))
+    assert got[3].sum().item() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_all_masked_and_empty_columns():
+    """An all-masked column gives the empty accumulator and empty bins; a
+    table of zero rows too."""
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    _require_cuda()
+    for rows in (100_003, 0):
+        Xc = torch.randn((3, rows), device="cuda")
+        Mc = torch.zeros((3, rows), dtype=torch.bool, device="cuda")
+        cuts = torch.full((3, 4), float("nan"), device="cuda")
+        acc = masked_moments_cols(Xc, Mc)
+        h = binned_histograms_cols(Xc, Mc, cuts, 5)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, masked_moments_plain(Xc, Mc))
+        assert torch.equal(h, binned_histograms_plain(Xc, Mc, cuts, 5))
+        assert h.sum().item() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_consecutive_calls_at_other_shapes():
+    """Calls at shapes that change from one to the next, then the first
+    shape again: no scratch or ticket of one call leaks into the next."""
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols
+
+    _require_cuda()
+    shapes = [(9, 300_001), (2, 5), (13, 70_000), (1, 1_000_003), (9, 300_001)]
+    first = None
+    for k, rows in shapes:
+        X, M, cuts = hist_inputs(rows, k, 10, seed=k * rows, nan_rows=(0,) if k > 1 else ())
+        Xc, Mc = _cols(X, M)
+        c = torch.from_numpy(cuts).cuda()
+        acc = masked_moments_cols(Xc, Mc)
+        h = binned_histograms_cols(Xc, Mc, c, 10)
+        torch.cuda.synchronize()
+        assert torch.equal(h, binned_histograms_plain(Xc, Mc, c, 10)), (k, rows)
+        assert torch.equal(acc[0].cpu(), torch.from_numpy(M.sum(axis=0).astype(np.float32))), (k, rows)
+        first = acc if first is None else first
+    assert torch.equal(acc, first)
+
+
+@pytest.mark.cuda
+def test_cuda_views_off_the_vector_grid():
+    """Contiguous views whose data start off a 16-byte boundary: the
+    wrappers read them correctly."""
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    _require_cuda()
+    X, M, cuts = hist_inputs(3 * 40_001 + 1, 1, 10, seed=5)
+    x = torch.from_numpy(X[:, 0].copy()).cuda()[1:].view(3, 40_001)
+    m = torch.from_numpy(M[:, 0].copy()).cuda()[1:].view(3, 40_001)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    c = torch.from_numpy(np.repeat(cuts, 3, axis=0)).cuda()
+    assert torch.equal(binned_histograms_cols(x, m, c, 10), binned_histograms_plain(x, m, c, 10))
+    assert_moments_close(masked_moments_cols(x, m).cpu().numpy(),
+                         masked_moments_plain(x, m).cpu().numpy(), rtol=1e-5)
