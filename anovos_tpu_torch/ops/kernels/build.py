@@ -51,8 +51,11 @@ ENTRY_POINTS = {
         "anovos_histograms": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]),
     },
     "neighbor_counts": {
-        # x, eps2, counts, n, d, device, stream
-        "anovos_neighbor_counts": (_I, [_P, ctypes.c_float, _P, _I, _I, _I, _P]),
+        "anovos_neighbor_counts_scratch": (_LL, [_I, _I]),
+        # n, d, device, out (4 ints)
+        "anovos_neighbor_counts_plan": (_I, [_I, _I, _I, _P]),
+        # x, eps2, scratch, counts, n, d, device, stream
+        "anovos_neighbor_counts": (_I, [_P, ctypes.c_float, _P, _P, _I, _I, _I, _P]),
     },
 }
 

@@ -1,6 +1,7 @@
 // Streaming reads of a column-major (k, rows) block of f32 values and their
 // uint8 mask, shared by the moments (moments.cu) and histogram
-// (histogram.cu) kernels.
+// (histogram.cu) kernels; the device guard and residency query below serve
+// every kernel of the port.
 //
 // Both kernels are bound by the bytes they read (5 a value).  To stream at
 // the card's 3.35 TB/s with about 700 ns of memory latency, an SM needs
@@ -99,6 +100,22 @@ __device__ __forceinline__ void load_edges(const float* __restrict__ xc,
     s.ok[0] = mc[r] != 0;
   }
 }
+
+// Makes `device` current for the scope of an entry point and gives the
+// caller's device back when it ends, on every return, errors included.
+struct DeviceGuard {
+  int prev = -1, device;
+  cudaError_t err;
+  explicit DeviceGuard(int d) : device(d) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0 && prev != device) cudaSetDevice(prev);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+};
 
 // How many blocks of one kernel the card holds at once (SMs x resident
 // blocks an SM), queried once per device and shared-memory size.

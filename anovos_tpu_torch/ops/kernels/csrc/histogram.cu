@@ -182,14 +182,15 @@ int hist_steps(long long rows) {
 // x (k, rows) f32 16-byte aligned and m (k, rows) uint8 4-byte aligned,
 // cuts (k, nbins-1) f32, all contiguous on `device`, k > 0, 1 <= nbins <=
 // 1024; scratch (k * nbins + k) int32; out (k, nbins) f32.  Zeroes the
-// scratch and launches on `stream`; returns the launch's error code.
+// scratch and launches on `stream`; returns the launch's error code;
+// the caller's current device is kept.
 extern "C" int anovos_histograms(const float* x, const uint8_t* m, const float* cuts,
                                  int* scratch, float* out, long long rows, int k, int nbins,
                                  int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const anovos::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   const size_t ncounts = (size_t)k * nbins;
-  err = cudaMemsetAsync(scratch, 0, sizeof(int) * (ncounts + k), stream);
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * (ncounts + k), stream);
   if (err != cudaSuccess) return err;
   const int steps = hist_steps(rows);
   int* tickets = scratch + ncounts;

@@ -267,14 +267,15 @@ extern "C" int anovos_moments_items(long long rows) {
 // x (k, rows) f32 16-byte aligned and m (k, rows) uint8 4-byte aligned,
 // contiguous on `device`, k > 0; part a (k * anovos_moments_items(rows), 9)
 // f32 scratch; tickets a (k,) int32 scratch; out (8, k) f32.  Zeroes the
-// tickets and launches on `stream`; returns the launch's error code.
+// tickets and launches on `stream`; returns the launch's error code;
+// the caller's current device is kept.
 extern "C" int anovos_moments(const float* x, const uint8_t* m, float* part, int* tickets,
                               float* out, long long rows, int k, int device,
                               cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const anovos::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
   int resident = 0;
-  err = g_residency.get(moments_kernel, device, 0, &resident);
+  cudaError_t err = g_residency.get(moments_kernel, device, 0, &resident);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(tickets, 0, sizeof(int) * (size_t)k, stream);
   if (err != cudaSuccess) return err;

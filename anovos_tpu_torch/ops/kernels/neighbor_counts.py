@@ -2,6 +2,11 @@
 ``csrc/neighbor_counts.cu``, replacing ``neighbor_counts_pallas``) and
 their plain PyTorch version.
 
+The kernel splits the queries and the sources over a 2-D grid and adds
+partial counts with integer atomics; a pack kernel before it zeroes the
+counts and writes the points with their thresholds into a scratch buffer
+that the wrapper allocates.  :func:`launch_plan` reports the grid.
+
 The squared distance of points q and x is the expansion
 ``(|q|² − 2·(q·x)) + |x|²`` in f32, every product and sum rounded on its
 own and the sums over coordinates taken in index order.  The kernel and
@@ -13,6 +18,8 @@ the parity tests allow for the pairs that rounding can move across eps².)
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -83,8 +90,23 @@ def neighbor_counts_rows(X: torch.Tensor, eps2: float, tile: int = TILE_ROWS) ->
     if n == 0:
         return counts
     lib = build.load()["neighbor_counts"]
-    build.check(lib.anovos_neighbor_counts(X.data_ptr(), float(eps2), counts.data_ptr(), n, d,
-                                           X.device.index, build.stream_of(X)),
+    scratch = torch.empty(lib.anovos_neighbor_counts_scratch(n, d), dtype=torch.float32,
+                          device=X.device)
+    build.check(lib.anovos_neighbor_counts(X.data_ptr(), float(eps2), scratch.data_ptr(),
+                                           counts.data_ptr(), n, d, X.device.index,
+                                           build.stream_of(X)),
                 "neighbor_counts")
     kernels.LAUNCHES["neighbor_counts"] += 1
     return counts
+
+
+def launch_plan(n: int, d: int, device: torch.device) -> tuple:
+    """(query tiles, source splits, points a split, query rows a tile) of
+    the kernel's launch for ``n`` > 0 points of width ``d`` on the CUDA
+    ``device``."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = (ctypes.c_int * 4)()
+    build.check(build.load()["neighbor_counts"].anovos_neighbor_counts_plan(
+        n, d, index, ctypes.addressof(out)), "neighbor_counts plan")
+    return tuple(out)

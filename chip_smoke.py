@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero:
 
 1. build: compile every CUDA kernel of the port from ``anovos_tpu_torch/ops/
    kernels/csrc`` (one nvcc a source for sm_90a, all at once, loaded with
-   ctypes), print each kernel's registers and spills and the build seconds;
+   ctypes), print each kernel's registers and spills, the build seconds and
+   the instructions a pair of the neighbour-count kernel's pair loop (its
+   SASS, where the toolkit has ``cuobjdump``);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at unaligned row counts (≡ 1, 2, 3 mod 4,
    1,333,333 among them; an all-masked column, a NaN cutoff row, a
@@ -23,10 +25,15 @@ Phases, in order; any failure exits non-zero:
    once timed, and ``stability_index_computation`` over three slices.
    Results are checked against float64 pandas/numpy references, and every
    kernel of this path must have been launched by this phase;
-4. geo kernels: the DBSCAN neighbour-count kernel against its plain version
-   at the shapes of the JAX package's Pallas test and at 100,000 points,
-   with its time (5 repeats of 50 launches), the plain version's and the
-   card's lower bound;
+4. geo kernels: the DBSCAN neighbour-count kernel equal to its plain version
+   at the shapes of the JAX package's Pallas test and at its edges (every
+   width 1-8; n = 1, below one source split, a query tile and a split ± 1,
+   last splits ragged against the unroll; eps² = 0 on duplicated points,
+   an eps beyond the set's diameter, the spacing-eps lattice; NaN,
+   infinite and overflowing points and a non-finite eps², which take the
+   literal form; calls at changing n), then at 100,000 points with its time
+   (5 repeats of 50 launches), the plain version's and the card's lower
+   bound;
 5. geo path: a 1,000,000-row table of six Gaussian cities (σ = 0.3°) and 2%
    uniform noise, with a lat/lon pair (1% nulls), a precision-7 geohash of
    the same points and an id, written as parquet and read back with
@@ -52,6 +59,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -174,12 +183,63 @@ def bound(nbytes: float, ops: float):
     """(least ms, what bounds it) on the card for this many bytes and f32 ops.
 
     The f32 rate is the data sheet's, which counts an FMA as two
-    operations; a kernel whose products and sums are separate instructions
-    (as B3's are, to keep its rounding) issues at most half as many a
-    second, so its time can never come closer than 2x to this bound."""
+    operations, so a kernel that issues i instructions for work the bound
+    counts as o operations can come no closer to it than o / (2 i): for
+    B3, (2d + 3) / (2 x its instructions a pair)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b3_loop_sass(lib_path: str):
+    """Instructions of B3's folded pair loop at d = 2 (``count_kernel<2>``
+    in csrc/neighbor_counts.cu), from ``cuobjdump -sass`` of the built
+    library: of the loops (a backward branch and the code from its target
+    to it), the one with the most FFMA, which issues one FFMA a pair.
+    Returns its pairs, instructions, instructions a pair, opcode mix and
+    text, or None where the toolkit has no cuobjdump."""
+    from anovos_tpu_torch.ops.kernels import build
+
+    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.isfile(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)
+                if "count_kernelILi2E" in f.split("\n", 1)[0])
+    code, labels = [], {}  # (address, opcode, text); label -> address of what follows
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = None
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name, at in labels.items():
+                labels[name] = addr if at is None else at
+            code.append((addr, m.group(2), line.split(";")[0].strip() + " ;"))
+    best = None
+    for addr, op, text in code:
+        if op != "BRA":
+            continue
+        t = re.search(r"\((\.L_x_\d+)\)", text)
+        target = labels.get(t.group(1)) if t else None
+        if target is None:
+            h = re.search(r"BRA\s+(?:`\()?0x([0-9a-f]+)", text)
+            target = int(h.group(1), 16) if h else None
+        if target is None or target > addr:
+            continue
+        loop = [c for c in code if target <= c[0] <= addr]
+        if best is None or sum(c[1] == "FFMA" for c in loop) > sum(c[1] == "FFMA" for c in best):
+            best = loop
+    if best is None:
+        return None
+    ops = [c[1] for c in best]
+    pairs = ops.count("FFMA")
+    return {"pairs": pairs, "instructions": len(ops),
+            "per_pair": len(ops) / pairs if pairs else None,
+            "mix": {op: ops.count(op) for op in sorted(set(ops))}, "text": [c[2] for c in best]}
 
 
 # ---------------------------------------------------------------------------
@@ -502,20 +562,21 @@ def phase_path(torch, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the neighbour-count kernel against its plain version
 # ---------------------------------------------------------------------------
-def blob_points(n: int, seed: int) -> np.ndarray:
-    """Four 0.3-sd blobs in a ±40 box (the JAX package's Pallas test),
-    centred in numpy f32 as ops/cluster.py centres them."""
+def blob_points(n: int, seed: int, d: int = 2) -> np.ndarray:
+    """Four 0.3-sd blobs in a ±40 box of width d (the JAX package's Pallas
+    test at d = 2), centred in numpy f32 as ops/cluster.py centres them."""
     g = np.random.default_rng(seed)
-    X = (g.uniform(-40, 40, (4, 2))[g.integers(0, 4, n)] + g.normal(0, 0.3, (n, 2))).astype(np.float32)
+    X = (g.uniform(-40, 40, (4, d))[g.integers(0, 4, n)] + g.normal(0, 0.3, (n, d))).astype(np.float32)
     return X - X.mean(axis=0, keepdims=True)
 
 
 def neighbor_counts_bound(n: int, d: int):
     """Bytes: the points read once, the counts written once.  Operations:
     2d + 3 for each of the n² pairs, the least the function needs (d
-    products and d − 1 sums of −2q·x with −2q taken once per query, the
-    addition of |q|², the addition of |x|², the compare, the count); the
-    kernel itself doubles each pair's dot, 2d + 4 (csrc/neighbor_counts.cu)."""
+    products and d − 1 sums of the dot, the doubling folded into the
+    subtraction of |q|², the addition of |x|², the compare, the count).
+    The kernel issues 6 instructions a pair at d = 2 (csrc/neighbor_counts.cu
+    and phase 1's SASS count), a ceiling of 7/12 of this bound."""
     return bound(n * (d + 1) * 4, n * n * (2 * d + 3))
 
 
@@ -535,6 +596,43 @@ def time_neighbor_counts(torch, Xc, eps2: float, what: str) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "shape": [n, d]}
 
 
+def b3_edge_cases(seed: int):
+    """(what, points, eps²) at B3's edges: its launch shape (from the card's
+    plan), its data and its inputs that take the literal form."""
+    from anovos_tpu_torch.ops.kernels.neighbor_counts import launch_plan
+
+    e16 = float(np.float32(0.4 * 0.4))
+    for d in range(1, 9):
+        yield f"d={d}", blob_points(3001, seed + d, d), float(np.float32(0.2 * d))
+    tile = launch_plan(1, 2, "cuda")[3]
+    split = launch_plan(GEO_B3_SAMPLE, 2, "cuda")[2]
+    ragged = {}
+    for n in range(GEO_B3_SAMPLE - 384, GEO_B3_SAMPLE + 416):
+        _, splits, length, _ = launch_plan(n, 2, "cuda")
+        if splits > 1:
+            ragged.setdefault((n - (splits - 1) * length) % 8, n)
+    check({0, 1, 7} <= set(ragged), f"no ragged last split found near {GEO_B3_SAMPLE}: {ragged}")
+    sizes = sorted({1, 50, tile - 1, tile + 1, split - 1, split + 1, ragged[0], ragged[1], ragged[7]})
+    for n in sizes:
+        yield f"n={n}", blob_points(n, seed + n, 2), e16
+    g = np.random.default_rng(seed)
+    dup = blob_points(1500, seed, 2)[g.integers(0, 1500, 5000)]
+    yield "eps2=0, duplicated points", dup, 0.0
+    yield "duplicated points", dup, e16
+    yield "eps beyond the diameter", dup, float(np.float32(1e4))
+    i, j = np.meshgrid(np.arange(40), np.arange(30), indexing="ij")
+    lat = (np.stack([i.ravel(), j.ravel()], 1) * 0.125 + g.uniform(-3, 3, (1, 2))).astype(np.float32)
+    yield "spacing-eps lattice", lat - lat.mean(axis=0, keepdims=True), float(np.float32(0.125 ** 2))
+    # 2·dot overflows where two points near (1.2e19, 1.2e19) meet
+    for what, rows in (("a NaN point", {7: np.nan}), ("an infinite point", {11: np.inf}),
+                       ("an overflowing dot", {0: 1.2e19, 1: 1.25e19, 2: -1.2e19})):
+        X = blob_points(3000, seed, 2)
+        for r, v in rows.items():
+            X[r] = v
+        yield what, X, e16
+    yield "an infinite eps2", blob_points(3000, seed, 2), float("inf")
+
+
 def phase_geo_kernels(torch, seed: int) -> dict:
     from anovos_tpu_torch.ops.kernels.neighbor_counts import neighbor_counts_plain, neighbor_counts_rows
 
@@ -546,6 +644,19 @@ def phase_geo_kernels(torch, seed: int) -> dict:
         check(torch.equal(got, neighbor_counts_plain(Xc, eps2)),
               f"neighbor_counts differs from plain at n={n}, eps={eps}")
     print("kernels: neighbor_counts equal to plain at the Pallas test's shapes", flush=True)
+    edges = []
+    for what, X, eps2 in b3_edge_cases(seed):
+        Xc = torch.from_numpy(np.ascontiguousarray(X)).cuda()
+        got = neighbor_counts_rows(Xc, eps2)
+        torch.cuda.synchronize()
+        check(torch.equal(got, neighbor_counts_plain(Xc, eps2)), f"neighbor_counts differs from plain at {what}")
+        if what == "eps2=0, duplicated points":
+            _, inv, mult = np.unique(X, axis=0, return_inverse=True, return_counts=True)
+            check(bool((got.cpu().numpy() >= mult[inv.ravel()]).all()), "eps2=0: a point misses a duplicate")
+        if what == "eps beyond the diameter":
+            check(bool((got == len(X)).all()), "eps beyond the diameter: a count is not n")
+        edges.append(what)
+    print(f"kernels: neighbor_counts equal to plain at {len(edges)} edge cases: {'; '.join(edges)}", flush=True)
 
     n, eps = 100_000, 0.4
     r = time_neighbor_counts(torch, torch.from_numpy(blob_points(n, seed)).cuda(),
@@ -866,18 +977,27 @@ def phase_geo(torch, seed: int) -> dict:
 
 
 
-def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict) -> list:
+def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
     other shapes it was timed at riding along.  B3's library_ms: no single
     PyTorch call counts within-eps neighbours without materialising the
-    (n, n) distances."""
+    (n, n) distances.  B3's row also carries its launch plan and its pair
+    loop's instructions a pair (``sass``, phase 1) with the ceiling they
+    set, (2d + 3) / (2 x instructions)."""
     from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.ops.kernels.neighbor_counts import launch_plan
 
     kres["masked_moments"]["other_shapes"].append(geo_kernels["masked_moments"])
     b3 = geo_kernels["neighbor_counts"]
+    n, d = b3["shape"]
+    per_pair = sass["per_pair"] if sass else None
     kres["neighbor_counts"] = {**b3, "library_ms": None, "other_shapes": [b3_blobs],
-                               "max_abs_err": max(b3["max_abs_err"], b3_blobs["max_abs_err"])}
+                               "max_abs_err": max(b3["max_abs_err"], b3_blobs["max_abs_err"]),
+                               "launch_plan": dict(zip(("query_tiles", "source_splits", "split_points",
+                                                        "tile_rows"), launch_plan(n, d, "cuda"))),
+                               "instructions_per_pair": per_pair,
+                               "ceiling_share": (2 * d + 3) / (2 * per_pair) if per_pair else None}
     own_path = {"masked_moments": "income", "binned_histograms": "income",
                 "neighbor_counts": "geo_grid_16384"}
     rows = []
@@ -893,6 +1013,8 @@ def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict) ->
                      "cold_ms": ({q: r["cold"][q] for q in ("min", "median", "max")}
                                  if "cold" in r else None),
                      "host_us": r.get("host_us"),
+                     **{k: r[k] for k in ("launch_plan", "instructions_per_pair", "ceiling_share")
+                        if k in r},
                      "other_shapes": r.get("other_shapes", [])})
     return rows
 
@@ -924,6 +1046,13 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"build: {len(build.SOURCES)} sources, one nvcc each, all at once, in {build_s:.2f} s",
           flush=True)
+    sass = b3_loop_sass(str(build.build_dir() / "libneighbor_counts.so"))
+    if sass is not None:
+        sass.pop("text")
+        print(f"build: neighbor_counts pair loop at d = 2 (SASS): {sass['instructions']} instructions "
+              f"for {sass['pairs']} pairs, {sass['per_pair']:.4f} a pair; {sass['mix']}", flush=True)
+    else:
+        print("build: no cuobjdump in the toolkit; neighbor_counts pair loop not counted", flush=True)
 
     check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32")
@@ -935,7 +1064,8 @@ def main() -> None:
     geo = phase_geo(torch, args.seed)
     geo_kernels = geo.pop("kernels")
     print("geo " + json.dumps({k: v for k, v in geo.items() if k != "launches"}), flush=True)
-    rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"]})
+    rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"]},
+                       sass)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
