@@ -1,31 +1,43 @@
-"""Dataset reading and column operations (counterpart of
-``anovos_tpu/data_ingest/data_ingest.py``).
+"""Dataset reading, writing, combination and column operations (counterpart
+of ``anovos_tpu/data_ingest/data_ingest.py``).
 
-``read_dataset`` decodes CSV or Parquet part files on the host with
-pyarrow, applies whole-dataset schema inference and nulls ±inf and values
-beyond the f32 range (the JAX package's default ingest policy), then
-dictionary-encodes and uploads the columns to the runtime's device.  Avro,
-multi-host ingest, the quarantining guard and prefetch are not ported.
+``read_dataset`` decodes CSV, Parquet, JSON or Avro part files on the host
+(pyarrow, pandas, the port's own Avro codec), applies whole-dataset schema
+inference and nulls ±inf and values beyond the f32 range (the JAX
+package's default ingest policy), then dictionary-encodes and uploads the
+columns to the runtime's device.  ``write_dataset`` writes Spark-style part
+files.  ``concatenate_dataset`` and ``join_dataset`` keep the payload on
+the device (vocabulary-union code remaps, row gathers); join keys are
+matched on the host.  Multi-host ingest, the quarantining guard and
+prefetch are not ported.
 """
 
 from __future__ import annotations
 
 import glob
+import gzip
 import logging
 import os
-from typing import List, Optional
+import shutil
+import warnings
+from collections import OrderedDict
+from typing import List, Optional, Union
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
 import pyarrow.csv as pacsv
 import torch
 
+from anovos_tpu_torch.data_ingest import avro_io
+from anovos_tpu_torch.ops.segment import masked_nunique
 from anovos_tpu_torch.shared.table import Column, Table, host_to_column
-from anovos_tpu_torch.shared.utils import parse_cols
+from anovos_tpu_torch.shared.utils import pairwise_reduce, parse_cols
 
 logger = logging.getLogger(__name__)
 
-_EXTENSIONS = {"csv": (".csv",), "parquet": (".parquet", ".pq")}
+_EXTENSIONS = {"csv": (".csv",), "parquet": (".parquet", ".pq"), "avro": (".avro",),
+               "json": (".json", ".json.gz", ".jsonl")}
 _F32_MAX = float(np.finfo(np.float32).max)
 
 
@@ -58,7 +70,11 @@ def _read_one_part(f: str, file_type: str, cfg: dict) -> pd.DataFrame:
         tbl = pacsv.read_csv(f, read_options=pacsv.ReadOptions(autogenerate_column_names=not header),
                              parse_options=pacsv.ParseOptions(delimiter=delim))
         return tbl.to_pandas()
-    return pd.read_parquet(f)
+    if file_type == "parquet":
+        return pd.read_parquet(f)
+    opener = gzip.open if f.endswith(".gz") else open
+    with opener(f, "rt") as fh:
+        return pd.read_json(fh, lines=True)
 
 
 def read_host_frame(files: List[str], file_type: str, cfg: dict) -> pd.DataFrame:
@@ -89,19 +105,268 @@ def read_host_frame(files: List[str], file_type: str, cfg: dict) -> pd.DataFrame
     return df
 
 
+def _coerce_numeric_strings(decoded: dict) -> dict:
+    """A decoded string column whose every non-null value parses as a
+    number becomes float64 (the JAX package's Avro path does so through
+    its dictionary decoder); the parse runs over the distinct values."""
+    out = {}
+    for name, arr in decoded.items():
+        if arr.dtype == object:
+            isnull = pd.isna(arr)
+            head = pd.Series(arr[~isnull][:1024]).astype(str)
+            if len(head) and pd.to_numeric(head, errors="coerce").notna().all():
+                vocab, inv = np.unique(arr[~isnull].astype(str), return_inverse=True)
+                parsed = pd.to_numeric(pd.Series(vocab), errors="coerce")
+                if parsed.notna().all():
+                    vals = np.full(len(arr), np.nan)
+                    vals[~isnull] = parsed.to_numpy(np.float64)[inv]
+                    out[name] = vals
+                    continue
+        out[name] = arr
+    return out
+
+
 def read_dataset(file_path: str, file_type: str, file_configs: Optional[dict] = None,
                  device=None) -> Table:
-    """Read csv/parquet part files into a Table on the runtime's device.
+    """Read csv, parquet, avro or json part files into a Table on the
+    runtime's device.
 
     ``file_configs``: ``header``, ``delimiter``/``sep``, ``inferSchema``.
-    Multi-file directories are concatenated on the host before upload."""
+    Multi-file directories are concatenated on the host before upload,
+    except avro, whose parts each become a Table and are concatenated by
+    name."""
     if file_type not in _EXTENSIONS:
-        raise NotImplementedError(
-            f"read_dataset: file_type={file_type!r} is not ported yet (csv and parquet are); "
-            "see ROADMAP.md")
+        raise ValueError(f"unsupported file_type: {file_type}")
     cfg = dict(file_configs or {})
-    df = read_host_frame(_resolve_files(file_path, file_type), file_type, cfg)
+    files = _resolve_files(file_path, file_type)
+    if file_type == "avro":
+        tables = [Table.from_numpy(_coerce_numeric_strings(avro_io.read_avro(f)), device=device)
+                  for f in files]
+        return tables[0] if len(tables) == 1 else concatenate_dataset(*tables, method_type="name")
+    df = read_host_frame(files, file_type, cfg)
     return Table.from_pandas(df, device=device)
+
+
+def write_dataset(
+    idf: Table,
+    file_path: str,
+    file_type: str,
+    file_configs: Optional[dict] = None,
+    column_order: Optional[List[str]] = None,
+) -> None:
+    """Write a Table as Spark-style part files ``part-00000.<ext>`` … and
+    ``_SUCCESS``.  ``file_configs``: ``repartition`` (number of part
+    files), ``mode`` (overwrite, append or error), ``header`` and
+    ``delimiter`` (csv)."""
+    cfg = dict(file_configs or {})
+    mode = cfg.pop("mode", "error")
+    repartition = int(cfg.pop("repartition", 1) or 1)
+    if column_order:
+        idf = idf.select(column_order)
+    if os.path.exists(file_path):
+        if mode == "overwrite":
+            shutil.rmtree(file_path) if os.path.isdir(file_path) else os.remove(file_path)
+        elif mode == "error":
+            raise FileExistsError(f"{file_path} exists (mode=error)")
+    os.makedirs(file_path, exist_ok=True)
+    df = idf.to_pandas()
+    parts = np.array_split(np.arange(len(df)), max(repartition, 1))
+    for i, part_idx in enumerate(parts):
+        part = df if len(parts) == 1 else df.iloc[part_idx]
+        stem = os.path.join(file_path, f"part-{i:05d}")
+        if file_type == "csv":
+            header = str(cfg.get("header", True)).lower() in ("true", "1")
+            delim = str(cfg.get("delimiter", ","))
+            try:
+                # pyarrow writes whole-valued floats without ".0", so a
+                # null-free integral float column would read back as int:
+                # those columns are written as preformatted strings
+                part = part.copy(deep=False)
+                for c in part.columns:
+                    v = part[c].to_numpy()
+                    if (v.dtype.kind == "f" and len(v) and not np.isnan(v).any()
+                            and np.abs(v).max() < 2**62 and (v == np.trunc(v)).all()):
+                        part[c] = np.char.add(v.astype(np.int64).astype(str), ".0").astype(object)
+                pacsv.write_csv(pa.Table.from_pandas(part, preserve_index=False), stem + ".csv",
+                                write_options=pacsv.WriteOptions(include_header=header,
+                                                                 delimiter=delim))
+            except pa.ArrowException as e:
+                logger.info("pyarrow CSV writer refused %s (%s: %s); writing it with pandas",
+                            stem, type(e).__name__, e)
+                part.to_csv(stem + ".csv", index=False, header=header, sep=delim)
+        elif file_type == "parquet":
+            part.to_parquet(stem + ".parquet", index=False)
+        elif file_type == "avro":
+            avro_io.write_avro(part, stem + ".avro")
+        elif file_type == "json":
+            part.to_json(stem + ".json", orient="records", lines=True)
+        else:
+            raise ValueError(f"unsupported file_type: {file_type}")
+    open(os.path.join(file_path, "_SUCCESS"), "w").close()
+
+
+def _concat_columns(cols: List[Column], name: str) -> Column:
+    """One column of a row union.  Categorical: the union vocabulary and
+    each part's codes remapped into it.  Numeric: int64/float64 exact
+    values stay exact; parts of different dtypes meet in f32."""
+    kinds = {c.kind for c in cols}
+    if len(kinds) > 1:
+        raise TypeError(f"column {name}: mixed kinds {kinds} across concatenated tables")
+    kind = kinds.pop()
+    dev = cols[0].data.device
+    mask = torch.cat([c.mask for c in cols])
+    if kind == "cat":
+        vocab = np.unique(np.concatenate([c.vocab for c in cols])).astype(object)
+        parts = []
+        for c in cols:
+            remap = torch.as_tensor(np.searchsorted(vocab, c.vocab).astype(np.int32)
+                                    if len(c.vocab) else np.zeros(1, np.int32), device=dev)
+            parts.append(torch.where(c.data >= 0, remap[torch.clamp(c.data.to(torch.int64), 0,
+                                                                     len(remap) - 1)], -1))
+        return Column("cat", torch.cat(parts).to(torch.int32), mask, vocab=vocab, dtype_name="string")
+    if any(c.is_wide for c in cols):
+        if all(c.is_wide_int or c.data.dtype == torch.int32 for c in cols):
+            v64 = torch.cat([c.exact if c.is_wide_int else c.data.to(torch.int64) for c in cols])
+            v64 = torch.where(mask, v64, 0)
+            return Column("num", v64.to(torch.float32), mask, dtype_name="bigint", exact=v64)
+        # float-wide, or wide mixed with float parts: float64 semantics
+        v = torch.cat([(c.exact if c.is_wide else c.data).to(torch.float64) for c in cols])
+        v = torch.where(mask, v, float("nan")).cpu().numpy()
+        return host_to_column(v, len(v), dev)
+    dtypes = {c.data.dtype for c in cols}
+    tgt = torch.float32 if len(dtypes) > 1 else dtypes.pop()
+    return Column(kind, torch.cat([c.data.to(tgt) for c in cols]), mask,
+                  dtype_name=cols[0].dtype_name)
+
+
+def concatenate_dataset(*idfs: Table, method_type: str = "name") -> Table:
+    """Row union of Tables.  "name": columns follow the first table's names
+    and order, each of which every table must have.  "index": by position,
+    renamed to the first table's names."""
+    if method_type not in ("index", "name"):
+        raise TypeError("Invalid input for concatenate_dataset method")
+    names = idfs[0].col_names
+    aligned = []
+    for t in idfs:
+        if method_type == "name":
+            missing = [c for c in names if c not in t.columns]
+            if missing:
+                raise ValueError(f"concatenate_dataset: columns {missing} missing")
+            aligned.append(t.select(names))
+        else:
+            if t.ncols != len(names):
+                raise ValueError("concatenate_dataset index method: column count mismatch")
+            aligned.append(t.rename(dict(zip(t.col_names, names))).select(names))
+    cols = OrderedDict((name, _concat_columns([t.columns[name] for t in aligned], name))
+                       for name in names)
+    return Table(cols, sum(t.nrows for t in aligned))
+
+
+def _host_keys(t: Table, join_cols: List[str]) -> pd.DataFrame:
+    """Join keys as a host frame of decoded values; int64 and float64 keys
+    exact."""
+    out = {}
+    for c in join_cols:
+        col = t.columns[c]
+        mask = col.mask.cpu().numpy()
+        if col.kind == "cat":
+            data = col.data.cpu().numpy()
+            vals = np.empty(t.nrows, dtype=object)
+            valid = mask & (data >= 0)
+            vals[valid] = col.vocab[data[valid]]
+            vals[~valid] = None
+            out[c] = vals
+        elif col.is_wide_int:
+            out[c] = pd.arrays.IntegerArray(col.exact_host(), ~mask)
+        else:
+            vals = col.exact_host().astype(np.float64)
+            vals[~mask] = np.nan
+            out[c] = vals
+    return pd.DataFrame(out)
+
+
+def join_dataset(*idfs: Table, join_cols: Union[str, List[str]], join_type: str) -> Table:
+    """Key join of Tables, pairwise: inner, full, left, right, left_semi or
+    left_anti.  Keys are matched on the host (a pandas merge of the key
+    frames); the payload columns move by row gathers on the device, null
+    where an outer join finds no partner."""
+    if isinstance(join_cols, str):
+        join_cols = [x.strip() for x in join_cols.split("|")]
+    all_cols = [c for t in idfs for c in t.col_names]
+    nonjoin = [c for c in all_cols if c not in join_cols]
+    if len(nonjoin) != len(all_cols) - len(idfs) * len(join_cols):
+        raise ValueError("Specified join_cols do not match all the Input Dataframe(s)")
+    if len(nonjoin) != len(set(nonjoin)):
+        raise ValueError("Duplicate column(s) present in non joining column(s) in Input Dataframe(s)")
+
+    def join2(left: Table, right: Table) -> Table:
+        lk = _host_keys(left, join_cols).assign(_li=np.arange(left.nrows))
+        rk = _host_keys(right, join_cols).assign(_ri=np.arange(right.nrows))
+        how = {"full": "outer", "left_semi": "inner", "left_anti": "left"}.get(join_type, join_type)
+        merged = lk.merge(rk, on=join_cols, how=how)
+        if join_type == "left_semi":
+            return left.gather_rows(np.unique(merged["_li"].to_numpy()))
+        if join_type == "left_anti":
+            anti = merged[merged["_ri"].isna()]
+            return left.gather_rows(np.unique(anti["_li"].to_numpy()).astype(np.int64))
+        li, ri = merged["_li"].to_numpy(), merged["_ri"].to_numpy()
+        lvalid, rvalid = ~pd.isna(li), ~pd.isna(ri)
+        lg = left.gather_rows(np.where(lvalid, li, 0).astype(np.int64), valid=lvalid)
+        rg = right.gather_rows(np.where(rvalid, ri, 0).astype(np.int64), valid=rvalid)
+        out = OrderedDict()
+        for name in left.col_names:
+            if name in join_cols:
+                # the merged key: the left value, else the right one
+                s = merged[name]
+                if str(s.dtype) == "Int64":
+                    key = s.to_numpy(dtype=np.int64) if not s.isna().any() else s.astype("float64").to_numpy()
+                else:
+                    key = np.asarray(s.to_numpy())
+                out[name] = host_to_column(key, len(merged), left.device)
+            else:
+                out[name] = lg.columns[name]
+        for name in right.col_names:
+            if name not in join_cols:
+                out[name] = rg.columns[name]
+        return Table(out, len(merged))
+
+    return pairwise_reduce(join2, idfs)
+
+
+def recommend_type(
+    idf: Table,
+    list_of_cols="all",
+    drop_cols=[],
+    dynamic_threshold: float = 0.01,
+    static_threshold: int = 100,
+) -> pd.DataFrame:
+    """Form and datatype recommendation from distinct counts: fewer than
+    min(static_threshold, rows · dynamic_threshold) distinct values →
+    categorical/string, else numerical/double."""
+    cols = parse_cols(list_of_cols, idf.col_names, drop_cols)
+    if not (0 < dynamic_threshold <= 1):
+        raise TypeError("Invalid input for dynamic_threshold: Value need to be between 0 and 1")
+    if not cols:
+        warnings.warn("No recommend_attributeType analysis - No column(s) to analyze")
+        return pd.DataFrame(columns=["attribute", "original_form", "original_dataType",
+                                     "recommended_form", "recommended_dataType",
+                                     "distinct_value_count"])
+    X = torch.stack([idf.columns[c].data.to(torch.float32) for c in cols], 1)
+    M = torch.stack([idf.columns[c].mask & (idf.columns[c].data >= 0)
+                     if idf.columns[c].kind == "cat" else idf.columns[c].mask for c in cols], 1)
+    nu = masked_nunique(X, M).cpu().numpy()
+    threshold = min(static_threshold, idf.nrows * dynamic_threshold)
+    rows = []
+    for c, u in zip(cols, nu):
+        col = idf.columns[c]
+        r_form = "categorical" if u < threshold else "numerical"
+        rows.append({"attribute": c,
+                     "original_form": "categorical" if col.kind == "cat" else "numerical",
+                     "original_dataType": col.dtype_name,
+                     "recommended_form": r_form,
+                     "recommended_dataType": "string" if r_form == "categorical" else "double",
+                     "distinct_value_count": int(u)})
+    return pd.DataFrame(rows)
 
 
 def delete_column(idf: Table, list_of_cols, print_impact: bool = False) -> Table:

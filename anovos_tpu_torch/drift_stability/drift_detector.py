@@ -20,6 +20,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from anovos_tpu_torch.data_ingest.data_sampling import data_sample
 from anovos_tpu_torch.data_transformer.model_io import load_model_df, save_model_df
 from anovos_tpu_torch.drift_stability.validations import check_distance_method
 from anovos_tpu_torch.ops.drift_kernels import drift_side_full, fit_cutoffs
@@ -106,9 +107,10 @@ def statistics(
 
     With ``pre_existing_source=True`` the persisted binning model and
     source frequency CSVs under ``source_path/model_directory`` are reused
-    and ``idf_source`` may be None.  ``use_sampling=True`` on a table larger
-    than ``sample_size`` needs ``data_sampling``, which the port does not
-    have yet, and raises NotImplementedError."""
+    and ``idf_source`` may be None.  With ``use_sampling=True`` each side
+    above ``sample_size`` rows is first sampled by ``data_sample`` with
+    ``fraction = sample_size / nrows``, ``sample_method``, ``strata_cols``,
+    ``stratified_type`` and ``sample_seed``."""
     methods = check_distance_method(method_type)
     drop_cols = drop_cols or []
     num_all, cat_all, _ = idf_target.attribute_type_segregation()
@@ -121,12 +123,15 @@ def statistics(
     model_dir = os.path.join(source_path, model_directory)
 
     if use_sampling:
-        sides = [idf_target] + ([idf_source] if not pre_existing_source and idf_source is not None else [])
-        if any(t.nrows > sample_size for t in sides):
-            raise NotImplementedError(
-                "statistics: use_sampling=True on a table larger than sample_size needs "
-                "data_sampling, which the port does not have yet (see ROADMAP.md); "
-                "pass use_sampling=False")
+        def sample(t: Table) -> Table:
+            return data_sample(t, strata_cols=strata_cols, fraction=sample_size / t.nrows,
+                               method_type=sample_method, stratified_type=stratified_type,
+                               seed_value=sample_seed)
+
+        if idf_target.nrows > sample_size:
+            idf_target = sample(idf_target)
+        if not pre_existing_source and idf_source is not None and idf_source.nrows > sample_size:
+            idf_source = sample(idf_source)
 
     count_target = idf_target.nrows
     device = idf_target.device

@@ -203,6 +203,46 @@ class Table:
                                 exact=None if c.exact is None else c.exact[start:stop])
         return Table(cols, max(stop - start, 0))
 
+    def _take(self, idx: torch.Tensor, valid: Optional[torch.Tensor] = None) -> "Table":
+        """Rows ``idx`` (int64 on the table's device, in range) as a new
+        Table: one ``index_select`` a tensor; ``valid`` False → mask False."""
+        cols: "OrderedDict[str, Column]" = OrderedDict()
+        for name, c in self.columns.items():
+            mask = c.mask.index_select(0, idx)
+            if valid is not None:
+                mask = mask & valid
+            cols[name] = Column(c.kind, c.data.index_select(0, idx), mask, vocab=c.vocab,
+                                dtype_name=c.dtype_name,
+                                exact=None if c.exact is None else c.exact.index_select(0, idx))
+        return Table(cols, len(idx))
+
+    def gather_rows(self, idx, valid=None) -> "Table":
+        """New Table whose row r is this table's row ``idx[r]``
+        (``anovos_tpu/shared/table.py`` ``gather_rows``).
+
+        ``idx`` is a host int array; ``idx[r] == -1`` or ``valid[r] == False``
+        gives a null row (mask False in every column), as outer joins need.
+        Vocabularies are kept whole.  An index out of range raises
+        IndexError."""
+        idx = np.asarray(idx)
+        valid = idx >= 0 if valid is None else np.asarray(valid, bool)
+        live = idx[valid]
+        if live.size and (live.min() < 0 or live.max() >= self.nrows):
+            raise IndexError(f"gather_rows: index out of range [0, {self.nrows}) "
+                             f"(min={live.min()}, max={live.max()})")
+        dev = self.device
+        idx_d = _put(np.where(valid, idx, 0).astype(np.int64), dev)
+        return self._take(idx_d, None if valid.all() else _put(valid, dev))
+
+    def filter_rows(self, keep) -> "Table":
+        """Rows where the bool ``keep`` (host array or tensor, length
+        ``nrows``) is True, in order."""
+        if len(keep) != self.nrows:
+            raise ValueError(f"filter_rows: keep has length {len(keep)}, expected {self.nrows} (nrows)")
+        if isinstance(keep, torch.Tensor):
+            return self._take(torch.nonzero(keep.to(self.device)).flatten())
+        return self._take(_put(np.flatnonzero(np.asarray(keep, bool)).astype(np.int64), self.device))
+
     def __getitem__(self, name: str) -> Column:
         return self.columns[name]
 

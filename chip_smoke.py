@@ -47,7 +47,25 @@ Phases, in order; any failure exits non-zero:
    versions, timed.  The neighbour counts and the DBSCAN labels of every
    combo are checked against float64 numpy/scipy, the k-means centers
    against a float64 Lloyd run from the same start, and every expected
-   file must exist.
+   file must exist;
+6. quality: on phase 3's Table, each step timed on the host clock ending
+   in a device sync: ``concatenate_dataset`` of the Table and its first
+   100,000 rows; the seven quality checks with ``config/configs_full.yaml``'s
+   arguments in its order, each on the previous one's treated Table
+   (outlier_detection fits on a 1,000,000-row sample, nullColumns imputes
+   the median); ``invalidEntries_detection`` on a 1,000,000-row Table with
+   1% auto-rule tokens in a string column; drift ``statistics`` with its
+   sampling defaults (100,000 rows a side); ``recommend_type``; then a
+   1,000,000-row frame read from parquet, its 100,000-row join side written
+   and read back as avro, ``join_dataset`` (inner, on ``ifa``) and the
+   joined Table written and read back as parquet, csv and avro.  Checked:
+   exactly 100,000 duplicates, null rows, IDness and modes against pandas,
+   each outlier bound within 1% of the float64 fence over all rows and its
+   count against numpy, the imputed medians against numpy's lower median,
+   the invalid counts against a Python reference of the auto rules, the
+   sampled sides within 5 binomial sigma of 100,000 and their PSI below
+   0.1, distinct counts against pandas, the join against ``pandas.merge``
+   and every file read back equal; both B1 and B2 must have been launched.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -79,7 +97,41 @@ GEO_MIN_SAMPLES = "500,1100,100"
 # the kernels each path must launch
 PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_default": ("masked_moments",),
-                "geo_grid_16384": ("masked_moments", "neighbor_counts")}
+                "geo_grid_16384": ("masked_moments", "neighbor_counts"),
+                "quality": ("masked_moments", "binned_histograms")}
+# phase 6: the rows concatenated again (duplicates), the invalid-entry
+# table, the join's main and side tables
+DUP_ROWS = 100_000
+INVALID_ROWS = 1_000_000
+JOIN_ROWS = 1_000_000
+JOIN_SIDE_ROWS = 100_000
+SAMPLE_SIZE = 100_000  # drift statistics' default
+OUTLIER_SAMPLE = 1_000_000  # outlier_detection's default
+# config/configs_full.yaml's quality_checker block, in its order (a copy:
+# the GPU machine need not have a YAML reader; a CPU test holds it equal)
+QUALITY_CONFIG = {
+    "duplicate_detection": {"list_of_cols": "all", "drop_cols": ["ifa"], "treatment": True},
+    "nullRows_detection": {"list_of_cols": "all", "drop_cols": [], "treatment": True,
+                           "treatment_threshold": 0.75},
+    "invalidEntries_detection": {"list_of_cols": "all", "drop_cols": ["ifa"], "treatment": True,
+                                 "output_mode": "replace"},
+    "IDness_detection": {"list_of_cols": "all", "drop_cols": ["ifa"], "treatment": True,
+                         "treatment_threshold": 0.9},
+    "biasedness_detection": {"list_of_cols": "all", "drop_cols": ["income"], "treatment": True,
+                             "treatment_threshold": 0.98},
+    "outlier_detection": {
+        "list_of_cols": "all", "drop_cols": ["ifa", "income", "label"], "detection_side": "upper",
+        "detection_configs": {"pctile_lower": 0.05, "pctile_upper": 0.90, "stdev_lower": 3.0,
+                              "stdev_upper": 3.0, "IQR_lower": 1.5, "IQR_upper": 1.5,
+                              "min_validation": 2},
+        "treatment": True, "treatment_method": "value_replacement", "pre_existing_model": False,
+        "model_path": "NA", "output_mode": "replace"},
+    "nullColumns_detection": {
+        "list_of_cols": "all", "drop_cols": ["ifa", "income"], "treatment": True,
+        "treatment_method": "MMM",
+        "treatment_configs": {"method_type": "median", "pre_existing_model": False,
+                              "model_path": "NA", "output_mode": "replace"}},
+}
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -464,7 +516,9 @@ def check_stats(df, frames: dict, num_cols, cat_cols) -> None:
           "skewness/kurtosis not finite")
 
 
-def phase_path(torch, seed: int) -> dict:
+def phase_path(torch, seed: int):
+    """The main path; returns its figures, the 4M-row Table and the frame
+    it was read from (phase 6 goes on with both)."""
     import pandas as pd
 
     from examples._data import synthesize
@@ -556,7 +610,7 @@ def phase_path(torch, seed: int) -> dict:
         out["psi_device_ms"] = cuda_ms(
             torch, lambda: (drift_side_full(*args_t), drift_side_full(*args_s)), 10)
         print(f"path: drift device pass (both sides) {out['psi_device_ms']:.3f} ms", flush=True)
-    return out
+    return out, table, df
 
 
 # ---------------------------------------------------------------------------
@@ -977,6 +1031,327 @@ def phase_geo(torch, seed: int) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 6: sampling, the quality checks and the rest of ingest
+# ---------------------------------------------------------------------------
+AUTO_NULLS = {"", " ", "nan", "null", "na", "inf", "n/a", "not defined", "none", "undefined",
+              "blank", "unknown"}
+AUTO_SPECIALS = set("&$;:.,*#@_?%!^()-/'")
+
+
+def auto_invalid(value: str) -> bool:
+    """The reference of invalidEntries_detection's auto rules for one
+    value: lowercased and stripped, a null synonym, a lone special
+    character, a token of three or more repeats of one letter or digit, or
+    three or more characters in a run of consecutive code points."""
+    s = value.lower().strip()
+    if s in AUTO_NULLS or s in AUTO_SPECIALS:
+        return True
+    if re.search(r"\b([a-zA-Z0-9])\1\1+\b", s):
+        return True
+    return len(s) >= 3 and all(ord(b) - ord(a) == 1 for a, b in zip(s, s[1:]))
+
+
+def timed(torch, walls: dict, name: str, fn):
+    """``fn()`` timed on the host clock, ending in a device sync."""
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return result
+
+
+def upper_bound_f64(v: np.ndarray, cfg: dict):
+    """The upper fence of outlier_detection (detection_side "upper") in
+    float64 over all of ``v``: the min_validation-th smallest of the
+    percentile, mean + k·stddev and IQR candidates, percentiles taken
+    as elements ("lower"); None where the lower and upper percentiles
+    coincide (a skewed column)."""
+    p_lo, p_hi, q1, q3 = np.quantile(v, [cfg["pctile_lower"], cfg["pctile_upper"], 0.25, 0.75],
+                                     method="lower")
+    if p_lo == p_hi:
+        return None
+    cands = sorted([p_hi, v.mean() + cfg["stdev_upper"] * v.std(ddof=1),
+                    q3 + cfg["IQR_upper"] * (q3 - q1)])
+    return cands[cfg["min_validation"] - 1]
+
+
+def check_quality_chain(steps: dict, tmp: str) -> dict:
+    """Each check of the chain against pandas/numpy on the frame it was
+    given (``steps``: check → (input Table, output Table, stats))."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_transformer.model_io import load_model_df
+
+    out = {}
+    _, dedup, st = steps["duplicate_detection"]
+    dup = st.set_index("metric")["value"]
+    check(int(dup["duplicate_rows"]) == DUP_ROWS and dedup.nrows == ROWS,
+          f"duplicates: {dict(dup)}, {dedup.nrows} rows left")
+
+    inp, _, st = steps["nullRows_detection"]
+    exp = inp.to_pandas().isna().sum(axis=1).value_counts().sort_index()
+    check(st["null_cols_count"].tolist() == exp.index.tolist()
+          and st["row_count"].tolist() == exp.tolist(), "nullRows counts differ from pandas")
+
+    inp, _, st = steps["invalidEntries_detection"]
+    pdf = inp.to_pandas()
+    out["invalid_income"] = {}
+    for _, r in st.iterrows():
+        bad = [b for b in r["invalid_entries"].split("|") if b]
+        check(all(auto_invalid(b) for b in bad), f"invalid entries of {r['attribute']}: {bad[:5]}")
+        col = pdf[r["attribute"]]
+        if inp.columns[r["attribute"]].kind == "cat":
+            n = int(col.isin(bad).sum())
+        else:
+            n = int(np.isin(col.to_numpy(np.float32), np.array(bad, np.float64).astype(np.float32))
+                    [col.notna().to_numpy()].sum())
+        check(n == r["invalid_count"], f"invalid count of {r['attribute']}: {r['invalid_count']} vs {n}")
+        if n:
+            out["invalid_income"][r["attribute"]] = n
+
+    inp, _, st = steps["IDness_detection"]
+    pdf = inp.to_pandas()
+    for _, r in st.iterrows():
+        col = pdf[r["attribute"]]
+        check(int(r["unique_values"]) == col.nunique()
+              and abs(r["IDness"] - col.nunique() / col.notna().sum()) <= 5e-5 + 1e-12,
+              f"IDness of {r['attribute']}")
+    out["id_dropped"] = st.loc[st["treated"] == 1, "attribute"].tolist()
+
+    inp, _, st = steps["biasedness_detection"]
+    pdf = inp.to_pandas()
+    for _, r in st.iterrows():
+        vc = pdf[r["attribute"]].value_counts()
+        check(int(r["mode_rows"]) == int(vc.max())
+              and abs(r["mode_pct"] - vc.max() / vc.sum()) <= 5e-5 + 1e-12, f"mode of {r['attribute']}")
+    out["biased_dropped"] = st.loc[st["treated"] == 1, "attribute"].tolist()
+
+    inp, treated, st = steps["outlier_detection"]
+    cfg = QUALITY_CONFIG["outlier_detection"]["detection_configs"]
+    model = load_model_df(os.path.join(tmp, "outlier"), "outlier_numcols")
+    pdf = inp.to_pandas()
+    counts = st.set_index("attribute")["upper_outliers"]
+    out["outlier_bounds"] = {}
+    for _, r in model.iterrows():
+        c, params = r["attribute"], [str(x) for x in r["parameters"]]
+        v = pdf[c].dropna().to_numpy(np.float64)
+        ref = upper_bound_f64(v, cfg)
+        if "skewed_attribute" in params:
+            check(ref is None, f"outlier: {c} skewed on the sample only")
+            continue
+        hi = float(params[1])
+        check(ref is not None and abs(hi - ref) <= 0.01 * abs(ref),
+              f"outlier bound of {c}: {hi} vs float64 {ref}")
+        n = int((v.astype(np.float32) > np.float32(hi)).sum())
+        check(int(counts[c]) == n, f"outlier count of {c}: {counts[c]} vs {n}")
+        tc = treated.columns[c]
+        check(float(tc.data[tc.mask].max()) <= np.float32(hi), f"{c} not clipped")
+        out["outlier_bounds"][c] = {"port": hi, "float64_all_rows": float(ref), "count": n}
+
+    inp, treated, _ = steps["nullColumns_detection"]
+    out["imputed_medians"] = {}
+    num_cols, _, _ = inp.attribute_type_segregation()
+    for c in num_cols:
+        col = inp.columns[c]
+        null = ~col.mask
+        if c in QUALITY_CONFIG["nullColumns_detection"]["drop_cols"] or not bool(null.any()):
+            continue
+        v = np.sort(col.data[col.mask].float().cpu().numpy())
+        med = v[(len(v) - 1) // 2]
+        filled = treated.columns[c].data[null].float().unique().cpu().numpy()
+        check(filled.tolist() == [med] and bool(treated.columns[c].mask.all()),
+              f"imputed median of {c}: {filled[:3]} vs {med}")
+        out["imputed_medians"][c] = float(med)
+    check(bool(out["imputed_medians"]), "nullColumns: no column was imputed")
+    return out
+
+
+def quality_path_kernels(torch, outlier_in, tgt, src) -> dict:
+    """The kernels at the shapes and on the data the quality path gave
+    them, against their plain versions, timed: B1 on outlier_detection's
+    1,000,000-row sample (seed 11) of its columns, B2 on the sampled drift
+    target binned against the sampled source's cutoffs (the same seeded
+    draws as the path's)."""
+    from anovos_tpu_torch.data_ingest.data_sampling import data_sample
+    from anovos_tpu_torch.drift_stability.drift_detector import drift_device_args
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    num_all, _, _ = outlier_in.attribute_type_segregation()
+    cols = [c for c in num_all if c not in QUALITY_CONFIG["outlier_detection"]["drop_cols"]]
+    sub = data_sample(outlier_in, fraction=OUTLIER_SAMPLE / outlier_in.nrows, seed_value=11)
+    X, M = sub.numeric_block(cols)
+    Xc, Mc = X.t().contiguous(), M.t().contiguous()
+    k, rows = Xc.shape
+    acc = check_moments_twice(torch, Xc, Mc, "the outlier sample")
+    share = moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
+    warm = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc))
+    cold = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc), cold=True)
+    plain_ms = cuda_ms(torch, lambda: masked_moments_plain(Xc, Mc), 2)
+    b_ms, b_by = b1_bound(k, rows)
+    b1 = {"path": "quality", "shape": [k, rows], "ms": warm["median"], "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
+          "err_share_of_allowance": share}
+    print(f"kernel masked_moments at the quality path ({k} x {rows}, outlier sample): warm "
+          f"{spread(warm)}, cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}); error as share of allowance {share}", flush=True)
+
+    p = SAMPLE_SIZE / tgt.nrows
+    (datas, masks, cuts, *_), _ = drift_device_args(data_sample(tgt, fraction=p, seed_value=42),
+                                                    data_sample(src, fraction=p, seed_value=42),
+                                                    BIN_SIZE)
+    Xc = torch.stack([d.to(torch.float32) for d in datas]).contiguous()
+    Mc = torch.stack(list(masks)).contiguous()
+    cuts = cuts.contiguous()
+    k, rows = Xc.shape
+    got = binned_histograms_cols(Xc, Mc, cuts, BIN_SIZE)
+    plain = binned_histograms_plain(Xc, Mc, cuts, BIN_SIZE)
+    check(torch.equal(got, plain), "binned_histograms differs from plain at the quality path")
+    warm = kernel_times(torch, lambda: binned_histograms_cols(Xc, Mc, cuts, BIN_SIZE))
+    cold = kernel_times(torch, lambda: binned_histograms_cols(Xc, Mc, cuts, BIN_SIZE), cold=True)
+    plain_ms = cuda_ms(torch, lambda: binned_histograms_plain(Xc, Mc, cuts, BIN_SIZE), 3)
+    b_ms, b_by = b2_bound(k, rows, BIN_SIZE, int(Mc.sum().item()))
+    b2 = {"path": "quality", "shape": [k, rows, BIN_SIZE], "ms": warm["median"], "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
+          "max_abs_err": float((got - plain).abs().max().item())}
+    print(f"kernel binned_histograms at the quality path ({k} x {rows}, {BIN_SIZE} bins, sampled "
+          f"drift target): warm {spread(warm)}, cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}); exact", flush=True)
+    return {"masked_moments": b1, "binned_histograms": b2}
+
+
+def phase_quality(torch, seed: int, table, df) -> dict:
+    """Phase 6 on the 4M-row Table of phase 3 and its frame ``df``."""
+    import pandas as pd
+
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_analyzer import quality_checker as qc
+    from anovos_tpu_torch.data_ingest.data_ingest import (concatenate_dataset, join_dataset, read_dataset,
+                                                          recommend_type, rename_column, select_column,
+                                                          write_dataset)
+    from anovos_tpu_torch.data_ingest.data_sampling import data_sample
+    from anovos_tpu_torch.drift_stability import statistics
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.table import Table
+
+    out = {"rows": ROWS + DUP_ROWS}
+    walls = out["walls_s"] = {}
+    g = np.random.default_rng(seed + 6)
+    # set-up, not timed: the invalid-entry table and the join's main frame
+    words = np.array(["alpha", "beta", "gamma", "delta", "omega"], object)
+    tokens = np.array(["n/a", "unknown", "###", "aaa", "abc"], object)
+    inv_col = words[g.integers(0, len(words), INVALID_ROWS)]
+    hit = g.random(INVALID_ROWS) < 0.01
+    inv_col[hit] = tokens[g.integers(0, len(tokens), int(hit.sum()))]
+    inv_df = pd.DataFrame({"token": inv_col,
+                           "code": g.choice([7, 123, 456, 1000], INVALID_ROWS).astype(np.int32)})
+    inv_table = Table.from_pandas(inv_df)
+    jdf = synthesize(JOIN_ROWS, seed=seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir = os.path.join(tmp, "join_main")
+        os.makedirs(jdir)
+        jdf.to_parquet(os.path.join(jdir, "part-00000.parquet"), index=False)
+        torch.cuda.synchronize()
+
+        kernels.reset_launches()
+        cat = timed(torch, walls, "concatenate",
+                    lambda: concatenate_dataset(table, table.slice_rows(0, DUP_ROWS)))
+        steps, t = {}, cat
+        for name, kw in QUALITY_CONFIG.items():
+            if name == "outlier_detection":  # persist the bounds to check them
+                kw = dict(kw, model_path=os.path.join(tmp, "outlier"), sample_size=OUTLIER_SAMPLE)
+            inp = t
+            t, st = timed(torch, walls, name, lambda: getattr(qc, name)(inp, **kw))
+            steps[name] = (inp, t, st)
+        _, inv_stats = timed(torch, walls, "invalidEntries_1M_strings",
+                             lambda: qc.invalidEntries_detection(inv_table))
+        half = ROWS // 2
+        src, tgt = table.slice_rows(0, half), table.slice_rows(half, ROWS)
+        drift = timed(torch, walls, "sampled_drift_statistics",
+                      lambda: statistics(tgt, src, method_type="all", bin_size=BIN_SIZE,
+                                         sample_size=SAMPLE_SIZE,
+                                         source_path=os.path.join(tmp, "drift")))
+        rec = timed(torch, walls, "recommend_type", lambda: recommend_type(table))
+        main = timed(torch, walls, "join_read_main_parquet", lambda: read_dataset(jdir, "parquet"))
+        side_rows = np.arange(0, JOIN_ROWS, JOIN_ROWS // JOIN_SIDE_ROWS)
+        side = rename_column(select_column(main, ["ifa", "age", "workclass"]).gather_rows(side_rows),
+                             "age|workclass", "dupl_age|dupl_workclass")
+        side_dir = os.path.join(tmp, "join_side")
+        timed(torch, walls, "write_side_avro", lambda: write_dataset(side, side_dir, "avro"))
+        side_back = timed(torch, walls, "read_side_avro", lambda: read_dataset(side_dir, "avro"))
+        joined = timed(torch, walls, "join_dataset",
+                       lambda: join_dataset(main, side_back, join_cols="ifa", join_type="inner"))
+        backs = {}
+        for ft in ("parquet", "csv", "avro"):
+            d = os.path.join(tmp, f"joined_{ft}")
+            timed(torch, walls, f"write_{ft}", lambda: write_dataset(joined, d, ft))
+            backs[ft] = timed(torch, walls, f"read_{ft}", lambda: read_dataset(d, ft))
+        out["launches"] = dict(kernels.LAUNCHES)
+        for name in PATH_KERNELS["quality"]:
+            check(out["launches"][name] > 0, f"kernel {name} was not launched on the quality path")
+        out["seconds"] = sum(walls.values())
+        print("quality: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+        print(f"quality: kernel launches {out['launches']}", flush=True)
+
+        # after the timed steps (these launches are not counted): the kernels
+        # at this path's shapes and data, then the checks
+        out["kernels"] = quality_path_kernels(torch, steps["outlier_detection"][0], tgt, src)
+        t0 = time.perf_counter()
+        check(cat.nrows == ROWS + DUP_ROWS, f"concatenate: {cat.nrows} rows")
+        out.update(check_quality_chain(steps, tmp))
+        del steps
+
+        vc = inv_df["token"].value_counts()
+        exp = int(sum(n for v, n in vc.items() if auto_invalid(v)))
+        codes = inv_df["code"].value_counts()
+        exp_code = int(sum(n for v, n in codes.items() if auto_invalid(str(v))))
+        got = inv_stats.set_index("attribute")["invalid_count"]
+        check(int(got["token"]) == exp and int(got["code"]) == exp_code and exp > 0,
+              f"invalid entries: {dict(got)} vs token {exp}, code {exp_code}")
+        out["invalid_1M"] = {"token": exp, "code": exp_code}
+
+        p = SAMPLE_SIZE / half
+        sampled = [data_sample(t_, fraction=p, seed_value=42).nrows for t_ in (tgt, src)]
+        check(all(abs(n - SAMPLE_SIZE) <= 5 * np.sqrt(half * p * (1 - p)) for n in sampled),
+              f"sampled sides {sampled}")
+        vals = drift[["PSI", "HD", "JSD", "KS"]].to_numpy(np.float64)
+        check(bool(np.isfinite(vals).all()) and float(drift["PSI"].max()) < 0.1
+              and int(drift["flagged"].sum()) == 0, "sampled drift: not finite or flagged")
+        out["sampled_rows"] = sampled
+        out["sampled_psi_max"] = float(drift["PSI"].max())
+
+        for _, r in rec.iterrows():
+            c = r["attribute"]
+            col = df[c].to_numpy(np.float32) if df[c].dtype.kind == "f" else df[c]
+            check(int(r["distinct_value_count"]) == pd.Series(col).nunique(), f"recommend_type of {c}")
+
+        check(side_back.to_pandas().equals(side.to_pandas()), "join side changed through avro")
+        ref = jdf.copy()
+        for c in ref.columns:
+            if ref[c].dtype.kind == "f":
+                ref[c] = ref[c].astype(np.float32).astype(np.float64)
+        right = ref.iloc[side_rows][["ifa", "age", "workclass"]].rename(
+            columns={"age": "dupl_age", "workclass": "dupl_workclass"})
+        ref = ref.merge(right, on="ifa", how="inner").sort_values("ifa").reset_index(drop=True)
+        got_join = joined.to_pandas()
+        try:
+            pd.testing.assert_frame_equal(got_join.sort_values("ifa").reset_index(drop=True), ref,
+                                          check_dtype=False)
+            for ft, back in backs.items():
+                pd.testing.assert_frame_equal(back.to_pandas(), got_join, check_dtype=False, obj=ft)
+        except AssertionError as e:
+            fail(f"join/write: {e}")
+        out["joined_rows"] = joined.nrows
+        out["checks_s"] = time.perf_counter() - t0
+    print(f"quality: {len(QUALITY_CONFIG)} checks chained on {ROWS + DUP_ROWS} rows, invalid entries "
+          f"{out['invalid_1M']} on {INVALID_ROWS} rows, sampled drift sides {out['sampled_rows']} "
+          f"(PSI max {out['sampled_psi_max']:.4f}), join {out['joined_rows']} rows, written and "
+          f"read back as parquet, csv and avro: checked ({out['checks_s']:.1f} s of checks)",
+          flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -1026,6 +1401,7 @@ def main() -> None:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     from anovos_tpu_torch.ops.kernels import build
@@ -1058,14 +1434,21 @@ def main() -> None:
           "float32 matmuls must not run in TF32")
     k_num = 9  # numeric columns of the income schema after the bench's drops
     kres = phase_kernels(torch, args.seed, k_num)
-    path = phase_path(torch, args.seed)
+    path, table, df = phase_path(torch, args.seed)
     print("path " + json.dumps({k: v for k, v in path.items() if k != "launches"}), flush=True)
     b3_blobs = phase_geo_kernels(torch, args.seed)
     geo = phase_geo(torch, args.seed)
     geo_kernels = geo.pop("kernels")
     print("geo " + json.dumps({k: v for k, v in geo.items() if k != "launches"}), flush=True)
-    rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"]},
-                       sass)
+    quality = phase_quality(torch, args.seed, table, df)
+    del table, df
+    quality_kernels = quality.pop("kernels")
+    print("quality " + json.dumps({k: v for k, v in quality.items() if k != "launches"}), flush=True)
+    kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
+    kres["binned_histograms"]["other_shapes"] = [quality_kernels["binned_histograms"]]
+    rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
+                                                     "quality": quality["launches"]}, sass)
+    print(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -242,3 +242,110 @@ def assert_dirs_match(got_dir, exp_dir):
                                            err_msg=f"{name}:{c}")
             else:
                 assert got[c].astype(str).tolist() == exp[c].astype(str).tolist(), f"{name}:{c}"
+
+
+# -- quality checks: config/configs_full.yaml's arguments and their table -----
+
+QUALITY_TOKENS = ["n/a", "unknown", "###", "aaa", "abc"]
+
+def _quality_config():
+    import pathlib
+
+    import yaml
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "config" / "configs_full.yaml"
+    return yaml.safe_load(path.read_text())["quality_checker"]
+
+
+# config/configs_full.yaml's quality_checker block: {check: its arguments},
+# in the file's order
+QUALITY_CONFIG = _quality_config()
+
+
+def quality_frame(n=2000, seed=5):
+    """The income schema with 2% null ages, 5% null workclass, rows that
+    are mostly null, 100 exact duplicate rows, the auto rules' tokens in a
+    string column, a float column with '111.0' values and an almost-constant
+    column ("ifa" is id-like)."""
+    import pandas as pd
+
+    from examples._data import synthesize
+
+    df = synthesize(n, seed=seed).drop(columns=["dt_1", "dt_2", "logfnl"])
+    g = np.random.default_rng(seed)
+    df.loc[g.random(n) < 0.05, "workclass"] = None
+    df["tokens"] = g.choice(["alpha", "beta", "gamma"] + QUALITY_TOKENS, n,
+                            p=[0.3, 0.3, 0.3] + [0.02] * 5)
+    df["score"] = np.where(g.random(n) < 0.1, 111.0, g.normal(50, 10, n).round(2))
+    df["flat"] = np.where(g.random(n) < 0.99, 1.0, 2.0)
+    df.loc[g.random(n) < 0.01, ["age", "fnlwgt", "workclass", "education", "occupation",
+                                "race", "sex", "capital-gain", "capital-loss", "hours-per-week",
+                                "native-country", "latitude", "longitude", "geohash",
+                                "education-num", "marital-status", "relationship",
+                                "score", "tokens"]] = None
+    df = pd.concat([df, df.iloc[:100]], ignore_index=True)
+    return df
+
+
+def quality_tables():
+    """quality_frame() as a JAX Table and a port Table on the CPU."""
+    from anovos_tpu.shared.table import Table as JTable
+    from anovos_tpu_torch.shared.table import Table
+
+    df = quality_frame()
+    return JTable.from_pandas(df), Table.from_pandas(df, device="cpu")
+
+
+def quality_both(name, jt, pt, **kw):
+    """(port's (table, stats), JAX's (table, stats)) of one check."""
+    from anovos_tpu.data_analyzer import quality_checker as jq
+    from anovos_tpu_torch.data_analyzer import quality_checker as pq
+
+    jo, js = getattr(jq, name)(jt, **kw)
+    po, ps = getattr(pq, name)(pt, **kw)
+    return (po, ps), (jo, js)
+
+
+def assert_quality_same(got, exp, rtol=0.0, atol=0.0):
+    """Equal stats frames and treated tables (names, dtypes, values)."""
+    (po, ps), (jo, js) = got, exp
+    assert_frames_close(ps, js, rtol=rtol, atol=atol)
+    assert po.col_names == jo.col_names and po.nrows == jo.nrows
+    assert po.dtypes() == jo.dtypes()
+    assert_frames_close(po.to_pandas(), jo.to_pandas(), rtol=rtol)
+
+
+# -- ingest: join sides and frames in both packages ---------------------------
+
+JOIN_KEYS = ["kcat", "kf", "kbig"]
+
+
+def join_sides(seed):
+    """Left and right frames sharing the three key kinds: strings with
+    nulls, f32 values with nulls, int64 ids above 2^32 (exact); some keys
+    repeat on the right, some exist on one side only."""
+    import pandas as pd
+
+    g = np.random.default_rng(seed)
+    pool = np.arange(40)
+    lk, rk = g.choice(pool[:30], 60), g.choice(pool[10:], 50)
+
+    def frame(k, prefix):
+        kf = (k * 0.5).astype(np.float64)
+        kcat = np.array([f"key{v}" for v in k], dtype=object)
+        kcat[::9] = None
+        kf[::8] = np.nan
+        return pd.DataFrame({"kcat": kcat, "kf": kf, "kbig": k.astype(np.int64) + 2**40,
+                             f"{prefix}_num": g.normal(0, 1, len(k)),
+                             f"{prefix}_cat": g.choice(["x", "y", "z"], len(k)),
+                             f"{prefix}_int": g.integers(0, 9, len(k)).astype(np.int32)})
+
+    return frame(lk, "a"), frame(rk, "b")
+
+
+def jax_and_port(df):
+    """One frame as a JAX Table and a port Table on the CPU."""
+    from anovos_tpu.shared.table import Table as JTable
+    from anovos_tpu_torch.shared.table import Table
+
+    return JTable.from_pandas(df), Table.from_pandas(df, device="cpu")

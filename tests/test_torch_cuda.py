@@ -363,3 +363,56 @@ def test_cuda_entry_points_keep_the_current_device():
     assert torch.equal(h, binned_histograms_plain(Xc, Mc, c, 10))
     assert torch.equal(acc[0], masked_moments_plain(Xc, Mc)[0])
     assert torch.equal(nc, neighbor_counts_plain(P, 0.16))
+
+
+@pytest.mark.cuda
+def test_cuda_row_signature_filter_rows_and_data_sample():
+    """The sampling and quality building blocks run on the card: row
+    signatures and row filters equal the CPU's, a sample keeps its share
+    and is the same for one seed."""
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_ingest.data_sampling import data_sample
+    from anovos_tpu_torch.ops.segment import row_signature
+    from anovos_tpu_torch.shared.table import Table
+
+    _require_cuda()
+    g = np.random.default_rng(0)
+    X = g.integers(-(2**31), 2**31, (100_003, 5), dtype=np.int64).astype(np.int32)
+    M = g.random((100_003, 5)) > 0.2
+    got = row_signature(torch.from_numpy(X).cuda(), torch.from_numpy(M).cuda())
+    assert torch.equal(got.cpu(), row_signature(torch.from_numpy(X), torch.from_numpy(M)))
+    df = synthesize(50_000, seed=3)
+    ct, pt = Table.from_pandas(df, device="cuda"), Table.from_pandas(df, device="cpu")
+    keep = g.random(len(df)) < 0.3
+    assert ct.filter_rows(torch.from_numpy(keep).cuda()).to_pandas().equals(pt.filter_rows(keep).to_pandas())
+    a = data_sample(ct, fraction=0.2, seed_value=5)
+    b = data_sample(ct, fraction=0.2, seed_value=5)
+    assert a.columns["age"].data.device.type == "cuda"
+    assert a.to_pandas().equals(b.to_pandas())
+    assert abs(a.nrows - 10_000) <= 5 * np.sqrt(50_000 * 0.2 * 0.8)
+    s = data_sample(ct, strata_cols="race|sex", method_type="stratified", fraction=0.2, seed_value=5)
+    assert abs(s.nrows - 10_000) <= 5 * np.sqrt(50_000 * 0.2 * 0.8)
+
+
+@pytest.mark.cuda
+def test_cuda_quality_and_sampled_drift_launch_the_kernels(tmp_path):
+    """outlier_detection reaches B1 (its stdev fence) and sampled drift
+    statistics reach B2 (its histograms), counted by kernels.LAUNCHES."""
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_analyzer.quality_checker import outlier_detection
+    from anovos_tpu_torch.drift_stability.drift_detector import statistics
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.table import Table
+
+    _require_cuda()
+    df = synthesize(300_000, seed=4).drop(columns=["ifa", "dt_1", "dt_2", "empty", "logfnl"])
+    ct = Table.from_pandas(df, device="cuda")
+    kernels.reset_launches()
+    _, stats = outlier_detection(ct, detection_side="both", sample_size=100_000)
+    assert kernels.LAUNCHES["masked_moments"] == 1
+    assert (stats[["lower_outliers", "upper_outliers"]].to_numpy() >= 0).all()
+    kernels.reset_launches()
+    odf = statistics(ct.slice_rows(150_000, 300_000), ct.slice_rows(0, 150_000), method_type="all",
+                     source_path=str(tmp_path))
+    assert kernels.LAUNCHES["binned_histograms"] == 2
+    assert np.isfinite(odf[["PSI", "HD", "JSD", "KS"]].to_numpy(np.float64)).all()

@@ -159,9 +159,18 @@ def test_side_histograms_equal_given_same_cutoffs(sides):
     np.testing.assert_array_equal(got_cat.numpy(), exp_cat[: len(cat)])
 
 
-def test_sampling_path_raises(sides):
+def test_sampling_path_raises(sides, tmp_path):
+    """use_sampling=True samples each side above sample_size through
+    data_sample, so a bad sample_method raises its TypeError in both
+    packages; a good one runs."""
+    from anovos_tpu.drift_stability.drift_detector import statistics as jstat
     from anovos_tpu_torch.drift_stability.drift_detector import statistics
 
-    (_, _), (pt, ps) = sides
-    with pytest.raises(NotImplementedError):
-        statistics(pt, ps, use_sampling=True, sample_size=100)
+    (jt, js), (pt, ps) = sides
+    for stat, t, s in ((statistics, pt, ps), (jstat, jt, js)):
+        with pytest.raises(TypeError, match="data_sample method_type"):
+            stat(t, s, use_sampling=True, sample_size=100, sample_method="bogus",
+                 source_path=str(tmp_path))
+    with pytest.warns(UserWarning):
+        odf = statistics(pt, ps, use_sampling=True, sample_size=100, source_path=str(tmp_path))
+    assert len(odf) > 0 and odf["PSI"].notna().all()

@@ -83,8 +83,8 @@ def test_read_dataset_csv_matches_jax(tmp_path):
     exp = jread(str(tmp_path), "csv").to_pandas()
     pd.testing.assert_frame_equal(got, exp)
     assert got["capital-gain"].isna().sum() >= 600  # ±inf became null
-    with pytest.raises(NotImplementedError):
-        read_dataset(str(tmp_path), "avro")
+    with pytest.raises(ValueError, match="unsupported file_type"):
+        read_dataset(str(tmp_path), "orc")
 
 
 @pytest.mark.parametrize("casts", [
@@ -136,4 +136,6 @@ def test_port_never_imports_jax_or_the_jax_package():
                 if top in ("jax", "jaxlib", "anovos_tpu"):
                     bad.append(f"{f.relative_to(REPO)}:{node.lineno} imports {name}")
     assert len(_port_sources()) > 20
+    assert {"avro_io.py", "data_sampling.py", "quality_checker.py", "sampling.py",
+            "transformers.py"} <= {f.name for f in _port_sources()}
     assert not bad, bad
