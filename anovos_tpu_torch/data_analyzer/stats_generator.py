@@ -18,7 +18,8 @@ import numpy as np
 import pandas as pd
 import torch
 
-from anovos_tpu_torch.ops.describe import PCTL_QS, table_describe
+from anovos_tpu_torch.ops.describe import PCTL_QS, float_order_key, table_describe
+from anovos_tpu_torch.ops.hll import approx_nunique
 from anovos_tpu_torch.ops.segment import cat_valid_mask
 from anovos_tpu_torch.shared.table import Table
 from anovos_tpu_torch.shared.utils import parse_cols
@@ -62,7 +63,7 @@ def _fill_counts_light(idf: Table, cols: List[str]) -> np.ndarray:
     description when it is cached, else one stacked mask reduction."""
     cache = idf.__dict__.get("_describe_cache")
     if cache:
-        for (knum, kcat), (num_out, cat_out) in cache.items():
+        for (knum, kcat, _), (num_out, cat_out) in cache.items():
             ni = {c: i for i, c in enumerate(knum)}
             ci = {c: i for i, c in enumerate(kcat)}
             if all(c in ni or c in ci for c in cols):
@@ -251,6 +252,23 @@ def measures_of_centralTendency(
     return odf
 
 
+def _exact_bits(col) -> torch.Tensor:
+    """One int32 lane per value for the HLL sketch, the JAX package's lane:
+    an f32 value's bit pattern (−0.0 as +0.0), an integer's value, and for
+    a wide column its (hi, lo) int32 key pair mixed as
+    hi ^ (lo · −1640531527) mod 2^32, the key being the int64 value or the
+    float64 order key, hi = key >> 32 and lo = (key & 0xffffffff) − 2^31."""
+    if col.is_wide:
+        key = col.exact if col.is_wide_int else float_order_key(col.exact)
+        hi = key >> 32
+        lo = (key & 0xFFFFFFFF) - (1 << 31)
+        mixed = (hi ^ (lo * -1640531527)) & 0xFFFFFFFF
+        return (mixed - ((mixed >> 31) << 32)).to(torch.int32)
+    if col.data.dtype == torch.float32:
+        return (col.data + 0.0).view(torch.int32)
+    return col.data.to(torch.int32)
+
+
 def uniqueCount_computation(
     idf: Table,
     list_of_cols="all",
@@ -261,8 +279,8 @@ def uniqueCount_computation(
     **_ignored,
 ) -> pd.DataFrame:
     """[attribute, unique_values] (reference :529-620).  Exact distinct via
-    the shared device sort; ``compute_approx_unique_count=True`` (the HLL
-    sketch) raises NotImplementedError until ``ops/hll`` is ported."""
+    the shared device sort; ``compute_approx_unique_count=True`` uses the
+    HLL sketch (``ops/hll.py``) at the requested ``rsd``."""
     num_all, cat_all, _ = idf.attribute_type_segregation()
     cols = parse_cols(
         list_of_cols if list_of_cols != "all" else num_all + cat_all, idf.col_names, drop_cols
@@ -276,13 +294,15 @@ def uniqueCount_computation(
     if rsd <= 0:
         raise ValueError("rsd value can not be less than 0 (default value is 0.05)")
     if compute_approx_unique_count:
-        raise NotImplementedError(
-            "uniqueCount_computation: compute_approx_unique_count=True needs the HLL sketch "
-            "(ops/hll), which the port does not have yet; see ROADMAP.md")
-    num_out, cat_out, ni, ci = _desc(idf)
-    nu = np.array(
-        [num_out["nunique"][ni[c]] if c in ni else cat_out["nunique"][ci[c]] for c in cols]
-    ).astype(np.int64)
+        X = torch.stack([_exact_bits(idf.columns[c]) for c in cols], dim=1)
+        M = torch.stack([cat_valid_mask(idf.columns[c].data, idf.columns[c].mask)
+                         if idf.columns[c].kind == "cat" else idf.columns[c].mask for c in cols], dim=1)
+        nu = np.round(approx_nunique(X, M, rsd)).astype(np.int64)
+    else:
+        num_out, cat_out, ni, ci = _desc(idf)
+        nu = np.array(
+            [num_out["nunique"][ni[c]] if c in ni else cat_out["nunique"][ci[c]] for c in cols]
+        ).astype(np.int64)
     odf = pd.DataFrame({"attribute": cols, "unique_values": nu})
     if print_impact:
         logger.info(odf.to_string(index=False))

@@ -6,13 +6,18 @@
 - ``describe_exact``: the same order statistics over the exact int64 /
   float64 values of wide columns.
 - ``describe_cat``: per-column code histograms, from which count, unique
-  count and mode derive.
+  count and mode derive;
+- ``compensated_moments``: chunked moments merged in float64, whose error
+  does not grow with the row count; ``table_describe`` takes its mean,
+  variance, stddev, skewness and kurtosis at and above 2^24 rows
+  (``ANOVOS_COMPENSATED_MOMENTS``: ``auto``, ``1``, ``0``).
 
-``table_describe`` memoizes per (table, column tuple).
+``table_describe`` memoizes per (table, column tuple, compensated mode).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -20,15 +25,11 @@ import torch
 
 from anovos_tpu_torch.ops.reductions import masked_moments
 from anovos_tpu_torch.ops.segment import cat_valid_mask, code_histograms
+from anovos_tpu_torch.ops.streaming import _chunk_stats, _pairwise_merge
 from anovos_tpu_torch.shared.table import Table
 
 # the percentile grid every consumer shares (measures_of_percentiles order)
 PCTL_QS = (0.0, 0.01, 0.05, 0.10, 0.25, 0.50, 0.75, 0.90, 0.95, 0.99, 1.0)
-
-# at and above this many rows the JAX package takes its compensated moments
-# path, which this port does not have yet; the moments kernel's f32 counts
-# are exact only below it
-_COMPENSATED_ROWS = 1 << 24
 
 _INT64_MAX = torch.iinfo(torch.int64).max
 
@@ -88,6 +89,80 @@ def describe_numeric(X: torch.Tensor, M: torch.Tensor) -> Dict[str, torch.Tensor
     }
 
 
+_COMPENSATED_CHUNK = 1 << 16
+
+
+def chunk_view(X: torch.Tensor, M: torch.Tensor, chunk: int = _COMPENSATED_CHUNK):
+    """The column-major chunk view of a (rows, k) block: (k·c, chunk) f32
+    values, each column shifted by its first valid finite value, and their
+    mask, the tail of each column padded with mask False; and the (k,)
+    shift.  Row j·c + i of the view is chunk i of column j."""
+    rows, k = X.shape
+    Xc, Mc = X.t().to(torch.float32), M.t()
+    first = torch.gather(Xc, 1, Mc.to(torch.uint8).argmax(dim=1, keepdim=True))[:, 0]
+    shift = torch.where(Mc.any(dim=1) & torch.isfinite(first), first, 0.0)
+    c = -(-rows // chunk)
+    Xv = torch.zeros((k, c * chunk), dtype=torch.float32, device=X.device)
+    Mv = torch.zeros((k, c * chunk), dtype=torch.bool, device=X.device)
+    torch.sub(Xc, shift[:, None], out=Xv[:, :rows])
+    Mv[:, :rows] = Mc
+    return Xv.view(k * c, chunk), Mv.view(k * c, chunk), shift
+
+
+def compensated_moments(X: torch.Tensor, M: torch.Tensor,
+                        chunk: int = _COMPENSATED_CHUNK) -> Dict[str, np.ndarray]:
+    """Chunked Chan moments of a (rows, k) block: count, mean, variance
+    (sample), stddev, skewness and kurtosis (excess) as float64 host arrays.
+
+    Each column is shifted by its first valid value (exact in f32 for the
+    values within a factor of two of it), cut into ``chunk``-row chunks
+    (the tail padded with mask False) and laid out as one column-major
+    (k·chunks, chunk) block, so one moments-kernel launch centres every
+    chunk on its own mean in f32; the chunks then merge pairwise in
+    float64 on the host and the shift is added back.  The f32 error stays
+    that of one chunk instead of growing with the row count."""
+    rows, k = X.shape
+    if rows == 0:
+        nank = np.full(k, np.nan)
+        return {"count": np.zeros(k, np.int64), "mean": nank.copy(), "variance": nank.copy(),
+                "stddev": nank.copy(), "skewness": nank.copy(), "kurtosis": nank.copy()}
+    Xv, Mv, shift = chunk_view(X, M, chunk)
+    c = Xv.shape[0] // k
+    parts = {f: v.reshape(k, c) for f, v in _chunk_stats(Xv, Mv).items()}
+    agg = _pairwise_merge([{f: v[:, i] for f, v in parts.items()} for i in range(c)])
+    n = agg["n"]
+    safe_n = np.maximum(n, 1.0)
+    m2p = agg["M2"] / safe_n
+    with np.errstate(invalid="ignore", divide="ignore"):
+        var_samp = np.where(n > 1, agg["M2"] / np.maximum(n - 1.0, 1.0), np.nan)
+        skew = np.where(m2p > 0, (agg["M3"] / safe_n) / np.power(np.maximum(m2p, 1e-308), 1.5), np.nan)
+        kurt = np.where(m2p > 0, (agg["M4"] / safe_n) / np.maximum(m2p * m2p, 1e-308) - 3.0, np.nan)
+    return {
+        "count": n.astype(np.int64),
+        "mean": np.where(n > 0, agg["mean"] + shift.to(torch.float64).cpu().numpy(), np.nan),
+        "variance": var_samp,
+        "stddev": np.sqrt(var_samp),
+        "skewness": np.where(n > 0, skew, np.nan),
+        "kurtosis": np.where(n > 0, kurt, np.nan),
+    }
+
+
+# at and above this many rows the f32 count alone exhausts the significand
+_COMPENSATED_AUTO_ROWS = 1 << 24
+
+
+def _compensated_enabled(rows: int) -> bool:
+    """``ANOVOS_COMPENSATED_MOMENTS`` read per call: ``1``/``true``/``always``
+    on, ``0``/``false``/``never`` off, otherwise (``auto``) on at and above
+    2^24 logical rows."""
+    mode = os.environ.get("ANOVOS_COMPENSATED_MOMENTS", "auto").lower()
+    if mode in ("1", "true", "always"):
+        return True
+    if mode in ("0", "false", "never"):
+        return False
+    return rows >= _COMPENSATED_AUTO_ROWS
+
+
 def float_order_key(v: torch.Tensor) -> torch.Tensor:
     """float64 → int64 key whose order is the float order (negative floats
     flip every bit but the sign); -0.0 and +0.0 get distinct keys, as in
@@ -141,20 +216,23 @@ _CAT_SHARED_MAX_VOCAB = 1024
 def table_describe(idf: Table, num_cols: List[str], cat_cols: List[str]) -> Tuple[dict, dict]:
     """Memoized description: (numeric dict of host arrays, cat dict with
     per-column count/nunique/mode_code/mode_count).  The cache lives on
-    the Table instance; every transformation makes a new Table."""
-    if num_cols and idf.nrows >= _COMPENSATED_ROWS:
-        raise NotImplementedError(
-            f"table_describe: {idf.nrows} rows needs the compensated moments path "
-            "(ops/describe.compensated_moments), which the port does not have yet; "
-            "see ROADMAP.md")
+    the Table instance; every transformation makes a new Table.  The
+    compensated mode is part of the cache key, so a change of
+    ``ANOVOS_COMPENSATED_MOMENTS`` is not served the other mode's
+    moments."""
     cache = idf.__dict__.setdefault("_describe_cache", {})
-    key = (tuple(num_cols), tuple(cat_cols))
+    compensated = bool(num_cols) and _compensated_enabled(idf.nrows)
+    key = (tuple(num_cols), tuple(cat_cols), compensated)
     if key in cache:
         return cache[key]
     num_out: dict = {}
     if num_cols:
         X, M = idf.numeric_block(num_cols)
         num_out = {k: v.cpu().numpy() for k, v in describe_numeric(X, M).items()}
+        if compensated:
+            comp = compensated_moments(X, M)
+            for kk in ("mean", "variance", "stddev", "skewness", "kurtosis"):
+                num_out[kk] = comp[kk]
         wide = [c for c in num_cols if idf.columns[c].is_wide]
         if wide:
             # exact order statistics overwrite the f32 ones; moments stay f32

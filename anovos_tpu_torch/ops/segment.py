@@ -72,6 +72,16 @@ def code_counts(codes: torch.Tensor, M: torch.Tensor, vocab_size: int) -> torch.
     return torch.bincount(codes[valid].to(torch.int64), minlength=vocab_size)[:vocab_size].to(torch.float32)
 
 
+def code_label_counts(codes: torch.Tensor, M: torch.Tensor, y: torch.Tensor,
+                      vocab_size: int) -> torch.Tensor:
+    """Per-code sum of a row weight or 0/1 label y (rows,) over the valid
+    rows of ONE categorical column: (vocab_size,) float64, so event counts
+    stay exact past 2^24 rows a code."""
+    valid = cat_valid_mask(codes, M)
+    return torch.bincount(codes[valid].to(torch.int64), weights=y[valid].to(torch.float64),
+                          minlength=vocab_size)[:vocab_size]
+
+
 def code_histograms(C: torch.Tensor, M: torch.Tensor, nbins: int) -> torch.Tensor:
     """Categorical codes (rows, k), −1 null → (k, nbins) f32 counts."""
     k = C.shape[1]

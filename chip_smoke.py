@@ -65,7 +65,27 @@ Phases, in order; any failure exits non-zero:
    the invalid counts against a Python reference of the auto rules, the
    sampled sides within 5 binomial sigma of 100,000 and their PSI below
    0.1, distinct counts against pandas, the join against ``pandas.merge``
-   and every file read back equal; both B1 and B2 must have been launched.
+   and every file read back equal; both B1 and B2 must have been launched;
+7. association and the stats edges: on phase 3's Table, each step timed on
+   the host clock ending in a device sync and its kernel launches counted:
+   ``correlation_matrix`` with TF32 switched on globally around the call,
+   ``IV_calculation`` and ``IG_calculation`` (label income, event '>50K',
+   10 equal-frequency bins), ``variable_clustering`` on its 100,000-row
+   sample, ``attribute_binning`` equal_range with 10 bins of every numeric
+   column, ``monotonic_binning`` of age and hours-per-week,
+   ``cat_to_num_transformer`` label encoding (the arguments of
+   ``config/configs_full.yaml:105-138``), ``uniqueCount_computation`` exact
+   and approximate (rsd 0.05); then the three moment measures on a numeric
+   Table of 2^24 + 12,345 rows x 9 columns, which take the compensated
+   moments.  Then B1 at this path's two new shapes (one 4,000,000-row
+   column; the compensated moments' (2,313 x 65,536) chunk view).  Checked
+   against float64 numpy/pandas: correlation within 1e-5; IV and IG equal
+   to 4 decimals; clusters equal to the port's VarClus on a float64
+   correlation of the same sample (RS_Ratio within 1e-3); bin ids and label
+   codes exact; approximate distinct counts within 3 x rsd of exact with
+   registers equal to the CPU's; the compensated moments within ten times
+   PERF.md's compensated bands, the plain f32 error printed beside them;
+   B1 must have been launched.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -98,7 +118,8 @@ GEO_MIN_SAMPLES = "500,1100,100"
 PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_default": ("masked_moments",),
                 "geo_grid_16384": ("masked_moments", "neighbor_counts"),
-                "quality": ("masked_moments", "binned_histograms")}
+                "quality": ("masked_moments", "binned_histograms"),
+                "association": ("masked_moments",)}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -132,6 +153,25 @@ QUALITY_CONFIG = {
         "treatment_configs": {"method_type": "median", "pre_existing_model": False,
                               "model_path": "NA", "output_mode": "replace"}},
 }
+# phase 7: config/configs_full.yaml's cat_to_num_transformer and
+# association_evaluator blocks (a copy, as QUALITY_CONFIG; a CPU test holds
+# them equal), the columns monotonic_binning searches, the sketch's rsd,
+# variable_clustering's default sample and the compensated-moments table
+CAT_TO_NUM_CONFIG = {"list_of_cols": "all", "drop_cols": "ifa", "method_type": "unsupervised",
+                     "encoding": "label_encoding"}
+_ENCODING = {"bin_method": "equal_frequency", "bin_size": 10, "monotonicity_check": 0}
+ASSOC_CONFIG = {
+    "correlation_matrix": {"list_of_cols": "all", "drop_cols": ["ifa"]},
+    "IV_calculation": {"list_of_cols": "all", "drop_cols": "ifa", "label_col": "income",
+                       "event_label": ">50K", "encoding_configs": _ENCODING},
+    "IG_calculation": {"list_of_cols": "all", "drop_cols": "ifa", "label_col": "income",
+                       "event_label": ">50K", "encoding_configs": _ENCODING},
+    "variable_clustering": {"list_of_cols": "all", "drop_cols": "ifa|income"},
+}
+MONOTONIC_COLS = ("age", "hours-per-week")
+HLL_RSD = 0.05
+VARCLUS_SAMPLE = 100_000
+COMP_ROWS = (1 << 24) + 12_345
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -365,6 +405,27 @@ def check_moments_twice(torch, X, M, what: str):
     torch.cuda.synchronize()
     check(torch.equal(a, b), f"masked_moments differs between two runs at {what}")
     return a
+
+
+def b1_row(torch, Xc, Mc, path: str, what: str) -> dict:
+    """B1 at a path's own (k, rows) shape and data: twice with the same
+    bits, against its plain version within its allowance, timed warm and
+    with a cold L2 beside the plain version and its byte bound."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    k, rows = Xc.shape
+    acc = check_moments_twice(torch, Xc, Mc, what)
+    share = moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
+    warm = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc))
+    cold = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc), cold=True)
+    plain_ms = cuda_ms(torch, lambda: masked_moments_plain(Xc, Mc), 2)
+    b_ms, b_by = b1_bound(k, rows)
+    print(f"kernel masked_moments at the {path} path ({k} x {rows}, {what}): warm {spread(warm)}, "
+          f"cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); error as "
+          f"share of allowance {share}", flush=True)
+    return {"path": path, "shape": [k, rows], "ms": warm["median"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
+            "err_share_of_allowance": share}
 
 
 def phase_kernels(torch, seed: int, k_num: int) -> dict:
@@ -899,23 +960,8 @@ def geo_path_kernels(torch, table, ll_cols, sub: np.ndarray, eps_values) -> dict
     against their plain versions: B1 on the lat/lon block of the table (as
     ``ll_gh_cols`` calls it), B3 on the grid sample centred in numpy f32
     (as ``cluster.neighbor_counts`` centres it) at every eps of the grid."""
-    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
-
     X, M = table.numeric_block(ll_cols)
-    Xc, Mc = X.t().contiguous(), M.t().contiguous()
-    k, rows = Xc.shape
-    acc = check_moments_twice(torch, Xc, Mc, "the geo block")
-    share = moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
-    warm = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc))
-    cold = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc), cold=True)
-    plain_ms = cuda_ms(torch, lambda: masked_moments_plain(Xc, Mc), 2)
-    b_ms, b_by = b1_bound(k, rows)
-    b1 = {"path": "geo", "shape": [k, rows], "ms": warm["median"], "plain_ms": plain_ms,
-          "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
-          "err_share_of_allowance": share}
-    print(f"kernel masked_moments at the geo path ({k} x {rows}, lat/lon): warm {spread(warm)}, "
-          f"cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); error as "
-          f"share of allowance {share}", flush=True)
+    b1 = b1_row(torch, X.t().contiguous(), M.t().contiguous(), "geo", "lat/lon")
 
     x32 = np.asarray(sub, np.float32)
     xc = torch.from_numpy(x32 - x32.mean(axis=0, keepdims=True)).cuda()
@@ -1176,26 +1222,12 @@ def quality_path_kernels(torch, outlier_in, tgt, src) -> dict:
     from anovos_tpu_torch.data_ingest.data_sampling import data_sample
     from anovos_tpu_torch.drift_stability.drift_detector import drift_device_args
     from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
-    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
 
     num_all, _, _ = outlier_in.attribute_type_segregation()
     cols = [c for c in num_all if c not in QUALITY_CONFIG["outlier_detection"]["drop_cols"]]
     sub = data_sample(outlier_in, fraction=OUTLIER_SAMPLE / outlier_in.nrows, seed_value=11)
     X, M = sub.numeric_block(cols)
-    Xc, Mc = X.t().contiguous(), M.t().contiguous()
-    k, rows = Xc.shape
-    acc = check_moments_twice(torch, Xc, Mc, "the outlier sample")
-    share = moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
-    warm = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc))
-    cold = kernel_times(torch, lambda: masked_moments_cols(Xc, Mc), cold=True)
-    plain_ms = cuda_ms(torch, lambda: masked_moments_plain(Xc, Mc), 2)
-    b_ms, b_by = b1_bound(k, rows)
-    b1 = {"path": "quality", "shape": [k, rows], "ms": warm["median"], "plain_ms": plain_ms,
-          "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
-          "err_share_of_allowance": share}
-    print(f"kernel masked_moments at the quality path ({k} x {rows}, outlier sample): warm "
-          f"{spread(warm)}, cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}); error as share of allowance {share}", flush=True)
+    b1 = b1_row(torch, X.t().contiguous(), M.t().contiguous(), "quality", "outlier sample")
 
     p = SAMPLE_SIZE / tgt.nrows
     (datas, masks, cuts, *_), _ = drift_device_args(data_sample(tgt, fraction=p, seed_value=42),
@@ -1352,6 +1384,322 @@ def phase_quality(torch, seed: int, table, df) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: association and the stats edges
+# ---------------------------------------------------------------------------
+def timed_launches(torch, walls: dict, launches: dict, name: str, fn):
+    """``timed`` that also keeps the step's own kernel launches."""
+    from anovos_tpu_torch.ops import kernels
+
+    before = dict(kernels.LAUNCHES)
+    result = timed(torch, walls, name, fn)
+    launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    return result
+
+
+def iv_ig_reference(df, label: str, event: str, bins: int) -> dict:
+    """IV and IG of every column but the label in float64 numpy: numeric
+    columns binned at numpy's 'lower' quantiles j/bins of their f32 values
+    (a value's bin: searchsorted side='left' on the f32 edges), then groups
+    of the distinct bins or categories and one null group; 4 decimals."""
+    import pandas as pd
+
+    lab = df[label].notna().to_numpy()
+    y = (df[label] == event).to_numpy(np.float64)
+    total_event = y[lab].sum() / len(df)
+    total_entropy = -(total_event * np.log2(total_event) + (1 - total_event) * np.log2(1 - total_event))
+    out = {}
+    for c in df.columns:
+        if c == label:
+            continue
+        s = df[c]
+        if s.dtype.kind == "f" or s.dtype.kind in "iu":
+            x = s.to_numpy(np.float32)
+            valid = ~np.isnan(x)
+            edges = np.quantile(x[valid], [j / bins for j in range(1, bins)], method="lower")
+            group = np.where(valid, np.searchsorted(edges.astype(np.float32), x, side="left"), -1)
+        else:
+            valid = s.notna().to_numpy()
+            group = np.full(len(s), -1)
+            group[valid] = pd.factorize(s[valid].astype(str), sort=True)[0]
+        g = np.where(group >= 0, group, group.max() + 1)[lab]
+        tot = np.bincount(g).astype(np.float64)
+        l1 = np.bincount(g, weights=y[lab])
+        keep = tot > 0
+        l1, l0 = l1[keep], tot[keep] - l1[keep]
+        nev, ev = l0 / l0.sum(), l1 / l1.sum()
+        woe = np.where((nev != 0) & (ev != 0), np.log(np.maximum(nev, 1e-300) / np.maximum(ev, 1e-300)),
+                       np.log(((l0 + 0.5) / l0.sum()) / ((l1 + 0.5) / l1.sum())))
+        seg, rate = (l0 + l1) / (l0 + l1).sum(), l1 / (l0 + l1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ent = -seg * (rate * np.log2(rate) + (1 - rate) * np.log2(1 - rate))
+        ent = np.where((rate > 0) & (rate < 1), ent, np.nan)
+        out[c] = (round(float(np.sum((nev - ev) * woe)), 4), round(float(total_entropy - np.nansum(ent)), 4))
+    return out
+
+
+def frequency_codes(s) -> dict:
+    """Label codes by frequency, most frequent first, count ties to the
+    category that sorts first."""
+    vc = s.dropna().astype(str).value_counts()
+    return {v: i for i, (v, _) in enumerate(sorted(vc.items(), key=lambda kv: (-kv[1], kv[0])))}
+
+
+def varclus_reference(sample, cols) -> "pd.DataFrame":
+    """VarClus over the float64 correlation of the sample as
+    ``variable_clustering`` prepares it: columns with fewer than two
+    distinct values dropped, categories label-encoded by frequency, nulls
+    filled with the column mean."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer.association_eval_varclus import VarClus
+
+    pdf = sample.to_pandas()
+    cols = [c for c in cols if pdf[c].nunique() >= 2]
+    enc = {}
+    for c in cols:
+        s = pdf[c]
+        if pd.api.types.is_numeric_dtype(s):
+            s = s.astype(np.float32).astype(np.float64)
+        else:
+            s = s.map(frequency_codes(s)).astype(np.float64)
+        enc[c] = s.fillna(np.float64(np.float32(s.mean())))
+    C = pd.DataFrame(enc).corr().to_numpy()
+    rs = VarClus(pd.DataFrame(C, columns=cols, index=cols), maxeigval2=1.0).fit().rsquare_table()
+    return pd.DataFrame({"Cluster": rs["Cluster"], "Attribute": rs["Variable"], "RS_Ratio": rs["RS_Ratio"]})
+
+
+def comp_frame(seed: int):
+    """COMP_ROWS rows x 9 f32 columns, 1% nulls each: three normals (one at
+    1e5 with spread 3), a uniform and five skewed ones."""
+    g = np.random.default_rng(seed + 7)
+    n = COMP_ROWS
+    gens = {"n_1e5": lambda: g.normal(1e5, 3, n), "n_1e3": lambda: g.normal(1e3, 1, n),
+            "n_m50": lambda: g.normal(-50, 10, n), "unif": lambda: g.uniform(0, 1, n),
+            "expo": lambda: g.exponential(5, n), "lognorm": lambda: g.lognormal(0, 1, n),
+            "gamma": lambda: g.gamma(2, 3, n), "expo_1e4": lambda: 1e4 + g.exponential(2, n),
+            "poisson": lambda: g.poisson(4, n)}
+    data = {}
+    for name, gen in gens.items():
+        v = gen().astype(np.float32)
+        v[g.random(n) < 0.01] = np.nan
+        data[name] = v
+    return data
+
+
+def f64_moments(v: np.ndarray) -> dict:
+    v = v.astype(np.float64)
+    m = v.mean()
+    d = v - m
+    m2 = (d * d).mean()
+    return {"mean": m, "variance": v.var(ddof=1), "skewness": (d ** 3).mean() / m2 ** 1.5,
+            "kurtosis": (d ** 4).mean() / m2 ** 2 - 3.0}
+
+
+def check_compensated(comp: dict, plain: dict, data: dict, cols) -> dict:
+    """Compensated moments against float64 numpy on the same f32 values,
+    with ten times PERF.md's compensated bands in the form
+    tests/test_compensated_moments.py gives them (the larger of a relative
+    and an absolute bound): mean ≤ 1e-7 relative, variance ≤ 1e-6 relative,
+    skewness and kurtosis ≤ max(5e-7 relative, 2.5e-5 absolute).  Returns
+    each error, absolute and relative, with the plain f32 whole-column one
+    beside it."""
+    out = {}
+    for j, c in enumerate(cols):
+        v = data[c]
+        ref = f64_moments(v[~np.isnan(v)])
+        out[c] = {}
+        for k, rel, floor in (("mean", 1e-7, 0.0), ("variance", 1e-6, 0.0),
+                              ("skewness", 5e-7, 2.5e-5), ("kurtosis", 5e-7, 2.5e-5)):
+            err = abs(float(comp[k][j]) - ref[k])
+            check(err <= max(rel * abs(ref[k]), floor),
+                  f"compensated {k} of {c}: {comp[k][j]} vs float64 {ref[k]}")
+            err_f32 = abs(float(plain[k][j]) - ref[k])
+            out[c][k] = {"abs": err, "rel": err / abs(ref[k]), "plain_f32_abs": err_f32,
+                         "plain_f32_rel": err_f32 / abs(ref[k])}
+    return out
+
+
+def phase_assoc(torch, seed: int, table, df) -> dict:
+    """Phase 7 on the 4M-row Table of phase 3 and its frame ``df``, then on
+    a numeric Table of 2^24 + 12,345 rows."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer import association_evaluator as ae
+    from anovos_tpu_torch.data_analyzer import stats_generator as sg
+    from anovos_tpu_torch.data_analyzer.stats_generator import _exact_bits
+    from anovos_tpu_torch.data_ingest.data_sampling import data_sample
+    from anovos_tpu_torch.data_transformer import transformers as tr
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.ops.describe import (chunk_view, compensated_moments, describe_numeric,
+                                               table_describe)
+    from anovos_tpu_torch.ops.hll import hll_registers, precision_for_rsd
+    from anovos_tpu_torch.ops.reductions import masked_moments
+    from anovos_tpu_torch.ops.segment import cat_valid_mask
+    from anovos_tpu_torch.shared.table import Table
+
+    walls, launches = {}, {}
+    out = {"rows": table.nrows, "walls_s": walls, "launches_by_step": launches}
+    num_cols, cat_cols, _ = table.attribute_type_segregation()
+    flags = torch.backends.cuda.matmul
+    os.environ["ANOVOS_COMPENSATED_MOMENTS"] = "auto"  # the default: 2^24 rows and more
+
+    kernels.reset_launches()
+    tf32_before = flags.allow_tf32
+    flags.allow_tf32 = True  # the caller's global TF32: correlation_matrix must not use it
+    try:
+        corr = timed_launches(torch, walls, launches, "correlation_matrix",
+                              lambda: ae.correlation_matrix(table, **ASSOC_CONFIG["correlation_matrix"]))
+        check(flags.allow_tf32, "correlation_matrix changed the caller's TF32 setting")
+    finally:
+        flags.allow_tf32 = tf32_before
+    iv = timed_launches(torch, walls, launches, "IV_calculation",
+                        lambda: ae.IV_calculation(table, **ASSOC_CONFIG["IV_calculation"]))
+    ig = timed_launches(torch, walls, launches, "IG_calculation",
+                        lambda: ae.IG_calculation(table, **ASSOC_CONFIG["IG_calculation"]))
+    vc = timed_launches(torch, walls, launches, "variable_clustering",
+                        lambda: ae.variable_clustering(table, **ASSOC_CONFIG["variable_clustering"]))
+    binned = timed_launches(torch, walls, launches, "attribute_binning_equal_range",
+                            lambda: tr.attribute_binning(table, num_cols, method_type="equal_range",
+                                                         bin_size=BIN_SIZE))
+    mono = timed_launches(torch, walls, launches, "monotonic_binning",
+                          lambda: tr.monotonic_binning(table, MONOTONIC_COLS, label_col="income",
+                                                       event_label=">50K"))
+    encoded = timed_launches(torch, walls, launches, "cat_to_num_transformer",
+                             lambda: tr.cat_to_num_transformer(table, **CAT_TO_NUM_CONFIG))
+    exact_u = timed_launches(torch, walls, launches, "uniqueCount_exact",
+                             lambda: sg.uniqueCount_computation(table))
+    approx_u = timed_launches(torch, walls, launches, "uniqueCount_approx",
+                              lambda: sg.uniqueCount_computation(table, compute_approx_unique_count=True,
+                                                                 rsd=HLL_RSD))
+    # the stats edge: 2^24 + 12,345 rows (set-up not timed)
+    comp_data = comp_frame(seed)
+    big = Table.from_numpy(comp_data)
+    torch.cuda.synchronize()
+    big_cols = list(comp_data)
+    big_frames = {}
+    for fn in ("measures_of_centralTendency", "measures_of_dispersion", "measures_of_shape"):
+        big_frames[fn] = timed_launches(torch, walls, launches, f"{fn}_{COMP_ROWS}",
+                                        lambda: getattr(sg, fn)(big))
+    out["launches"] = dict(kernels.LAUNCHES)
+    for name in PATH_KERNELS["association"]:
+        check(out["launches"][name] > 0, f"kernel {name} was not launched on the association path")
+    vc_b1 = launches["variable_clustering"]["masked_moments"]
+    mono_b1 = launches["monotonic_binning"]["masked_moments"]
+    comp_b1 = sum(launches[f"{fn}_{COMP_ROWS}"]["masked_moments"] for fn in big_frames)
+    check(vc_b1 >= 1 and 1 <= mono_b1 <= 19 * len(MONOTONIC_COLS) and comp_b1 >= 1,
+          f"B1 launches: variable_clustering {vc_b1}, monotonic_binning {mono_b1}, compensated {comp_b1}")
+    out["seconds"] = sum(walls.values())
+    print("association: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+    print("association: kernel launches per step " + json.dumps(
+        {k: v for k, v in launches.items() if any(v.values())}), flush=True)
+
+    # after the timed steps (not counted): B1 at this path's two new shapes
+    X, M = table.numeric_block([MONOTONIC_COLS[0]])
+    b1_mono = b1_row(torch, X.t().contiguous(), M.t().contiguous(), "association",
+                     f"monotonic_binning's {MONOTONIC_COLS[0]} column")
+    Xb, Mb = big.numeric_block(big_cols)
+    Xv, Mv, _ = chunk_view(Xb, Mb)
+    b1_comp = b1_row(torch, Xv, Mv, "association", "the compensated moments' column-major chunk view")
+    b1_comp["view_copy_ms"] = cuda_ms(torch, lambda: chunk_view(Xb, Mb), 5)
+    b1_comp["function_bound_ms"] = bound(COMP_ROWS * len(big_cols) * 5, 0)[0]
+    del Xv, Mv
+    # where the first compensated measure's wall goes: the f32 describe
+    # (moments, one device sort, order statistics) and the compensated moments
+    for name, fn in (("describe_numeric", describe_numeric), ("compensated_moments", compensated_moments)):
+        timed(torch, out.setdefault("split_s", {}), name, lambda: fn(Xb, Mb))
+    print(f"association: the chunk view's build {b1_comp['view_copy_ms']:.4f} ms; the function's "
+          f"byte bound {b1_comp['function_bound_ms']:.5f} ms; at {COMP_ROWS} rows describe_numeric "
+          f"{out['split_s']['describe_numeric']:.3f} s, compensated_moments "
+          f"{out['split_s']['compensated_moments']:.3f} s", flush=True)
+    out["kernels"] = {"masked_moments": [b1_comp, b1_mono]}
+
+    # the checks (float64 numpy/pandas)
+    t0 = time.perf_counter()
+    f32 = {c: df[c].to_numpy(np.float32) for c in num_cols}
+    ref = pd.DataFrame({c: f32[c].astype(np.float64) for c in num_cols}).dropna().corr()
+    got = corr.set_index("attribute").loc[ref.index, ref.columns].to_numpy()
+    out["corr_max_abs_err"] = float(np.abs(got - ref.to_numpy()).max())
+    check(out["corr_max_abs_err"] <= 1e-5, f"correlation off float64 by {out['corr_max_abs_err']}")
+
+    ref_ivig = iv_ig_reference(df.drop(columns=[ASSOC_CONFIG["IV_calculation"]["drop_cols"]],
+                                       errors="ignore"), "income", ">50K", BIN_SIZE)
+    for frame, i, name in ((iv, 0, "iv"), (ig, 1, "ig")):
+        gotd = dict(zip(frame["attribute"], frame[name]))
+        check(set(gotd) == set(ref_ivig), f"{name} columns {sorted(gotd)}")
+        bad = {c: (gotd[c], r[i]) for c, r in ref_ivig.items() if gotd[c] != r[i]}
+        check(not bad, f"{name} differs from float64 pandas: {bad}")
+    out["iv_max"] = float(iv["iv"].max())
+
+    sample = data_sample(table, fraction=float(VARCLUS_SAMPLE) / table.nrows, method_type="random")
+    vc_drop = ASSOC_CONFIG["variable_clustering"]["drop_cols"].split("|")
+    vref = varclus_reference(sample, [c for c in num_cols + cat_cols if c not in vc_drop])
+    check(vc["Cluster"].tolist() == vref["Cluster"].tolist()
+          and vc["Attribute"].tolist() == vref["Attribute"].tolist(),
+          f"variable_clustering clusters differ from the float64 VarClus:\n{vc}\n{vref}")
+    out["varclus_rs_ratio_max_err"] = float(np.abs(vc["RS_Ratio"] - vref["RS_Ratio"]).max())
+    check(out["varclus_rs_ratio_max_err"] <= 1e-3, f"RS_Ratio off by {out['varclus_rs_ratio_max_err']}")
+    out["varclus_clusters"] = int(vc["Cluster"].nunique())
+
+    for c in num_cols:
+        x = f32[c]
+        valid = ~np.isnan(x)
+        lo, hi = float(x[valid].min()), float(x[valid].max())
+        edges = np.float32(lo + np.arange(1, BIN_SIZE) * ((hi - lo) / BIN_SIZE))
+        exp = np.searchsorted(edges, x[valid], side="left") + 1
+        check(np.array_equal(binned.columns[c].data.cpu().numpy()[valid], exp), f"equal-range bins of {c}")
+    out["monotonic_bins"] = {}
+    for c in MONOTONIC_COLS:
+        x = f32[c]
+        valid = ~np.isnan(x)
+        got_b = mono.columns[c].data.cpu().numpy()[valid]
+        n = int(got_b.max())
+        lo, hi = float(x[valid].min()), float(x[valid].max())
+        edges = np.float32(lo + np.arange(1, n) * ((hi - lo) / n))
+        check(np.array_equal(got_b, np.searchsorted(edges, x[valid], side="left") + 1),
+              f"monotonic bins of {c} ({n} bins)")
+        out["monotonic_bins"][c] = n
+
+    for c in cat_cols:
+        if c in CAT_TO_NUM_CONFIG["drop_cols"].split("|"):
+            continue
+        codes = frequency_codes(df[c])
+        valid = df[c].notna().to_numpy()
+        exp = df[c][valid].astype(str).map(codes).to_numpy()
+        col = encoded.columns[c]
+        check(col.kind == "num" and np.array_equal(col.data.cpu().numpy()[valid], exp)
+              and np.array_equal(col.mask.cpu().numpy(), valid), f"label codes of {c}")
+
+    ex = exact_u.set_index("attribute")["unique_values"]
+    ap = approx_u.set_index("attribute")["unique_values"]
+    rel = (ap - ex).abs() / ex
+    check(bool((rel <= 3 * HLL_RSD).all()), f"approx distinct counts off: {dict(rel)}")
+    out["approx_unique_max_rel_err"] = float(rel.max())
+    cols_u = list(ap.index)
+    Xh = torch.stack([_exact_bits(table.columns[c]) for c in cols_u], dim=1)
+    Mh = torch.stack([cat_valid_mask(table.columns[c].data, table.columns[c].mask)
+                      if table.columns[c].kind == "cat" else table.columns[c].mask for c in cols_u], dim=1)
+    p = precision_for_rsd(HLL_RSD)
+    check(torch.equal(hll_registers(Xh, Mh, p).cpu(), hll_registers(Xh.cpu(), Mh.cpu(), p)),
+          "HLL registers on the card differ from the CPU's")
+
+    num_out, _ = table_describe(big, big_cols, [])
+    plain = {k: v.cpu().numpy() for k, v in masked_moments(Xb, Mb).items()}
+    out["compensated_errors"] = check_compensated(num_out, plain, comp_data, big_cols)
+    cen = big_frames["measures_of_centralTendency"].set_index("attribute")
+    check(all(cen.loc[c, "mean"] == np.round(num_out["mean"][j], 4) for j, c in enumerate(big_cols)),
+          "the central tendency frame does not carry the compensated means")
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"association: correlation within {out['corr_max_abs_err']:.2e} of float64 with TF32 on; "
+          f"IV and IG equal to float64 pandas to 4 decimals; VarClus {out['varclus_clusters']} clusters "
+          f"as the float64 VarClus (RS_Ratio within {out['varclus_rs_ratio_max_err']:.2e}); bins and "
+          f"label codes exact (monotonic bins {out['monotonic_bins']}); approx distinct counts within "
+          f"{out['approx_unique_max_rel_err']:.4f} of exact, registers equal to the CPU's; "
+          f"compensated moments at {COMP_ROWS} rows within their bands ({out['checks_s']:.1f} s of "
+          f"checks)", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -1441,14 +1789,19 @@ def main() -> None:
     geo_kernels = geo.pop("kernels")
     print("geo " + json.dumps({k: v for k, v in geo.items() if k != "launches"}), flush=True)
     quality = phase_quality(torch, args.seed, table, df)
-    del table, df
     quality_kernels = quality.pop("kernels")
     print("quality " + json.dumps({k: v for k, v in quality.items() if k != "launches"}), flush=True)
+    assoc = phase_assoc(torch, args.seed, table, df)
+    del table, df
+    assoc_kernels = assoc.pop("kernels")
+    print("association " + json.dumps({k: v for k, v in assoc.items() if k != "launches"}), flush=True)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
+    kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
     kres["binned_histograms"]["other_shapes"] = [quality_kernels["binned_histograms"]]
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
-                                                     "quality": quality["launches"]}, sass)
-    print(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "quality": quality["launches"],
+                                                     "association": assoc["launches"]}, sass)
+    print(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -416,3 +416,79 @@ def test_cuda_quality_and_sampled_drift_launch_the_kernels(tmp_path):
                      source_path=str(tmp_path))
     assert kernels.LAUNCHES["binned_histograms"] == 2
     assert np.isfinite(odf[["PSI", "HD", "JSD", "KS"]].to_numpy(np.float64)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_moments_on_the_compensated_view():
+    """B1 over the column-major (columns × chunks, 65,536) view the
+    compensated moments build: a column with a whole chunk null and a
+    tail padded with mask False, equal to the plain version within B1's
+    allowance; the empty chunk gives n = 0 and mean 0."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    _require_cuda()
+    chunk, rows = 1 << 16, 3 * (1 << 16) + 777
+    X, M = moment_inputs(rows, seed=6)
+    M[chunk:2 * chunk, 1] = False
+    X[~M] = 0.0
+    k, c = X.shape[1], 4
+    Xv = torch.zeros((k, c * chunk), dtype=torch.float32, device="cuda")
+    Mv = torch.zeros((k, c * chunk), dtype=torch.bool, device="cuda")
+    Xv[:, :rows] = torch.from_numpy(X.T.copy()).cuda()
+    Mv[:, :rows] = torch.from_numpy(M.T.copy()).cuda()
+    Xv, Mv = Xv.view(k * c, chunk), Mv.view(k * c, chunk)
+    got = masked_moments_cols(Xv, Mv).cpu().numpy()
+    torch.cuda.synchronize()
+    exp = masked_moments_plain(Xv, Mv).cpu().numpy()
+    assert_moments_close(got, exp, rtol=1e-5)
+    empty = 1 * c + 1
+    assert got[0, empty] == 0 and got[1, empty] == 0 and got[2, empty] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_correlation_matrix_with_tf32_on_globally():
+    """TF32 enabled for the whole process: correlation_matrix still
+    computes in f32, within 1e-5 of float64 complete-case Pearson."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer.association_evaluator import correlation_matrix
+    from anovos_tpu_torch.shared.table import Table
+
+    _require_cuda()
+    g = np.random.default_rng(8)
+    n = 200_000
+    a = g.normal(0, 1, n)
+    df = pd.DataFrame({"a": a, "b": 0.9 * a + g.normal(0, 0.4, n), "c": g.exponential(3, n),
+                       "d": 2015 + np.round(3 * a + g.normal(0, 1, n))})
+    df.loc[g.random(n) < 0.05, "b"] = np.nan
+    t = Table.from_pandas(df, device="cuda")
+    flags = torch.backends.cuda.matmul
+    before = flags.fp32_precision
+    flags.fp32_precision = "tf32"
+    try:
+        got = correlation_matrix(t).set_index("attribute")
+        assert flags.fp32_precision == "tf32"
+    finally:
+        flags.fp32_precision = before
+    ref = df.astype(np.float32).astype(np.float64).dropna().corr()
+    np.testing.assert_allclose(got.loc[ref.index, ref.columns].to_numpy(), ref.to_numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_hll_registers_equal_the_cpu():
+    from anovos_tpu_torch.ops.hll import hll_registers
+
+    _require_cuda()
+    g = np.random.default_rng(2)
+    X = g.normal(0, 5, (300_000, 3)).astype(np.float32)
+    X[::9, 0] = -0.0
+    X[::10, 0] = 0.0
+    M = g.random((300_000, 3)) > 0.05
+    C = g.integers(-9, 90_000, (300_000, 2)).astype(np.int32)
+    for A in (X, C):
+        B = M[:, : A.shape[1]]
+        for p in (4, 9, 16):
+            cpu = hll_registers(torch.from_numpy(A), torch.from_numpy(B), p)
+            gpu = hll_registers(torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda(), p)
+            assert torch.equal(gpu.cpu(), cpu), p

@@ -80,20 +80,31 @@ def test_describe_exact_values_of_wide_columns(tables):
 
 
 def test_unsupported_paths_raise(tables):
+    """The approx distinct count runs (tests/test_torch_hll.py holds it
+    against the JAX package); an rsd at or below 0 raises."""
     from anovos_tpu_torch.data_analyzer.stats_generator import uniqueCount_computation
 
     _, pt = tables
-    with pytest.raises(NotImplementedError):
-        uniqueCount_computation(pt, compute_approx_unique_count=True)
+    approx = uniqueCount_computation(pt, compute_approx_unique_count=True)
+    assert list(approx["attribute"]) == list(uniqueCount_computation(pt)["attribute"])
+    with pytest.raises(ValueError):
+        uniqueCount_computation(pt, compute_approx_unique_count=True, rsd=0)
 
 
-def test_describe_refuses_compensated_size():
-    """At 2^24 rows the JAX package takes its compensated moments, which the
-    port does not have: asking for numeric columns there raises."""
-    from types import SimpleNamespace
+def test_describe_refuses_compensated_size(monkeypatch):
+    """At 2^24 logical rows the port no longer refuses: ``table_describe``
+    takes the compensated moments (the threshold reads ``nrows``, so a
+    small table claiming 2^24 rows shows it)."""
+    from anovos_tpu_torch.ops import describe
+    from anovos_tpu_torch.shared.table import Table
 
-    from anovos_tpu_torch.ops.describe import table_describe
-
-    big = SimpleNamespace(nrows=1 << 24)
-    with pytest.raises(NotImplementedError, match="compensated"):
-        table_describe(big, ["x"], [])
+    monkeypatch.setenv("ANOVOS_COMPENSATED_MOMENTS", "auto")
+    calls = []
+    real = describe.compensated_moments
+    monkeypatch.setattr(describe, "compensated_moments", lambda X, M: calls.append(X.shape) or real(X, M))
+    t = Table.from_numpy({"x": np.arange(100, dtype=np.float32)}, device="cpu")
+    describe.table_describe(t, ["x"], [])
+    assert calls == []
+    t.nrows = 1 << 24
+    num, _ = describe.table_describe(t, ["x"], [])
+    assert calls == [(100, 1)] and num["mean"].dtype == np.float64 and num["mean"][0] == 49.5
