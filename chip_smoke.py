@@ -44,8 +44,10 @@ Phases, in order; any failure exits non-zero:
    Then the kernels at the shapes and on the data this path gave them (the
    moments kernel on the lat/lon block, the neighbour-count kernel on the
    centred 16,384-point grid sample at every eps) against their plain
-   versions, timed.  The neighbour counts and the DBSCAN labels of every
-   combo are checked against float64 numpy/scipy, the k-means centers
+   versions, timed.  The neighbour counts at every eps and the DBSCAN
+   labels of a seeded sample of 10 of the 35 combos are checked against
+   float64 numpy/scipy (every combo's labels against the analyzer's
+   frame), the k-means centers
    against a float64 Lloyd run from the same start, and every expected
    file must exist;
 6. quality: on phase 3's Table, each step timed on the host clock ending
@@ -85,7 +87,25 @@ Phases, in order; any failure exits non-zero:
    codes exact; approximate distinct counts within 3 x rsd of exact with
    registers equal to the CPU's; the compensated moments within ten times
    PERF.md's compensated bands, the plain f32 error printed beside them;
-   B1 must have been launched.
+   B1 must have been launched;
+8. time series: phase 3's Table with the same synthesized rows' ``ifa``,
+   ``dt_1`` and ``dt_2`` added (the ``configs_basic`` schema), each step
+   timed on the host clock ending in a device sync: ``ts_preprocess`` with
+   ``configs_basic.yaml``'s ``timeseries_analyzer`` arguments,
+   ``ts_analyzer`` with ``configs_full.yaml``'s, ``aggregator`` at
+   ``%Y-%m`` and ``%Y-%m-%d`` (all seven aggregates of the 9 numeric
+   columns), ``window_aggregator`` rolling (window 3) and expanding (mean,
+   min, max of age and fnlwgt) with and without ``partition_col
+   ="workclass"``, ``lagged_ts`` (ts_diff in days), ``timeUnits_extraction
+   (..., "all")``, the 16 boundary snaps and predicates, and
+   ``apply_offset_table`` against a fixed transition table.  Checked
+   against float64 pandas/numpy on all rows: dt_1 and dt_2 converted with
+   ``pandas.to_datetime``'s seconds and no other column converted; every
+   ``ts_*`` file (counts, min, max and median exact, means within 1e-4 +
+   1e-5·|mean|, decomposition and ADF/KPSS from the same count series);
+   aggregator sums, means and stddev within 1e-5 relative; windows and lags
+   equal to pandas' rolling/expanding/shift; calendar fields equal to
+   pandas ``.dt``; every returned tensor on the card; no kernel launched.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -114,6 +134,8 @@ GEO_RECORDS = 100_000  # geospatial_autodetection's max_analysis_records default
 GEO_B3_SAMPLE = 16_384
 GEO_EPS = "0.3,0.5,0.05"
 GEO_MIN_SAMPLES = "500,1100,100"
+# DBSCAN combos of the 35 whose labels are bracketed by float64 (seeded)
+GEO_BRACKETED = 10
 # the kernels each path must launch
 PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_default": ("masked_moments",),
@@ -172,6 +194,22 @@ MONOTONIC_COLS = ("age", "hours-per-week")
 HLL_RSD = 0.05
 VARCLUS_SAMPLE = 100_000
 COMP_ROWS = (1 << 24) + 12_345
+# phase 8: config/configs_basic.yaml's and configs_full.yaml's
+# timeseries_analyzer blocks (copies, as QUALITY_CONFIG; a CPU test holds
+# them equal), the synthesized columns added to phase 3's Table, and the
+# aggregates, window columns and formats the transformer steps use
+TS_BASIC_CONFIG = {"auto_detection": True, "id_col": "ifa", "tz_offset": "local",
+                   "inspection": False, "analysis_level": "daily", "max_days": 3600}
+TS_FULL_CONFIG = dict(TS_BASIC_CONFIG, inspection=True)
+TS_EXTRA = ("ifa", "dt_1", "dt_2")
+TS_AGGS = ("count", "min", "max", "sum", "mean", "median", "stddev")
+TS_FORMATS = ("%Y-%m", "%Y-%m-%d")
+TS_WINDOW_COLS = ("age", "fnlwgt")
+TS_WINDOW_AGGS = ("mean", "min", "max")
+TS_PREDICATES = ("is_monthStart", "is_monthEnd", "is_yearStart", "is_yearEnd", "is_quarterStart",
+                 "is_quarterEnd", "is_yearFirstHalf", "is_leapYear", "is_weekend")
+TS_SNAPS = ("start_of_month", "end_of_month", "start_of_year", "end_of_year", "start_of_quarter",
+            "end_of_quarter")
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -578,8 +616,9 @@ def check_stats(df, frames: dict, num_cols, cat_cols) -> None:
 
 
 def phase_path(torch, seed: int):
-    """The main path; returns its figures, the 4M-row Table and the frame
-    it was read from (phase 6 goes on with both)."""
+    """The main path; returns its figures, the 4M-row Table, the frame it
+    was read from (phases 6-8 go on with both) and the synthesized rows'
+    id and date columns (phase 8 adds them to the Table)."""
     import pandas as pd
 
     from examples._data import synthesize
@@ -591,8 +630,10 @@ def phase_path(torch, seed: int):
     from anovos_tpu_torch.ops.drift_kernels import drift_side_full
 
     t0 = time.perf_counter()
-    df = synthesize(ROWS, seed=seed).drop(columns=DROP)
+    full = synthesize(ROWS, seed=seed)
     t_synth = time.perf_counter() - t0
+    df, extra = full.drop(columns=DROP), full[list(TS_EXTRA)]
+    del full
     out = {"rows": ROWS, "synth_s": t_synth}
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "income")
@@ -671,7 +712,7 @@ def phase_path(torch, seed: int):
         out["psi_device_ms"] = cuda_ms(
             torch, lambda: (drift_side_full(*args_t), drift_side_full(*args_s)), 10)
         print(f"path: drift device pass (both sides) {out['psi_device_ms']:.3f} ms", flush=True)
-    return out, table, df
+    return out, table, df, extra
 
 
 # ---------------------------------------------------------------------------
@@ -847,7 +888,7 @@ def kmeans_float64_check(pts: np.ndarray, km) -> dict:
             "count_diff": int(np.abs(km["count"].to_numpy() - cnt).sum())}
 
 
-def dbscan_float64_check(sub: np.ndarray, eps_values, ms_eff, db) -> dict:
+def dbscan_float64_check(sub: np.ndarray, eps_values, ms_eff, db, bracketed) -> dict:
     """On the grid sample ``sub`` of the B3 route, against float64 numpy and
     scipy.
 
@@ -858,13 +899,16 @@ def dbscan_float64_check(sub: np.ndarray, eps_values, ms_eff, db) -> dict:
 
     Labels: a float64 DBSCAN that counts only the pairs certainly within
     eps (d² ≤ eps² − tol) and one that counts every pair possibly within
-    it (d² ≤ eps² + tol) bracket the port's graph, so for every combo
+    it (d² ≤ eps² + tol) bracket the port's graph, so for each combo in
+    ``bracketed`` (a seeded sample of (eps index, min_samples index) pairs:
+    the brackets' components are most of this check's time)
     (a) lo-core ⊆ port core ⊆ hi-core; (b) points of one lo component
     share one port label; (c) port core points of one label lie in one hi
     component; (d) a labelled non-core point has a core neighbour of its
     label within eps² + tol; (e) a non-core point with a lo-core point
-    within eps² − tol is labelled.  The labels are recomputed with the
-    port (the analyzer's calls) and must give the analyzer's frame ``db``."""
+    within eps² − tol is labelled.  The labels of every combo are
+    recomputed with the port (the analyzer's calls) and must give the
+    analyzer's frame ``db``."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
 
@@ -935,6 +979,8 @@ def dbscan_float64_check(sub: np.ndarray, eps_values, ms_eff, db) -> dict:
             check(int(row["n_clusters"]) == len(set(lab[lab >= 0]))
                   and float(row["noise_pct"]) == round(float((lab < 0).mean()), 4),
                   f"analyzer frame differs from a rerun at eps={e}, ms={ms}")
+            if (a, b) not in bracketed:
+                continue
             core_lo, core_p, core_hi = c_lo >= ms, kc >= ms, c_hi >= ms
             what = f"DBSCAN at eps={e}, ms={ms} against float64"
             check(bool((core_p >= core_lo).all() and (core_hi >= core_p).all()), f"{what}: (a) core sets")
@@ -1067,7 +1113,10 @@ def phase_geo(torch, seed: int) -> dict:
     frac = len(sub) / len(pts)
     m0, m1, mstep = (int(float(x)) for x in GEO_MIN_SAMPLES.split(","))
     ms_eff = [max(2, int(round(m * frac))) for m in range(m0, m1 + 1, mstep)]
-    out["dbscan_check"] = dbscan_float64_check(sub, eps_values, ms_eff, db)
+    combos = [(a, b) for a in range(len(eps_values)) for b in range(len(ms_eff))]
+    pick = np.random.default_rng(seed + 5).choice(len(combos), GEO_BRACKETED, replace=False)
+    out["dbscan_check"] = dbscan_float64_check(sub, eps_values, ms_eff, db,
+                                               {combos[i] for i in pick})
     out["float64_checks_s"] = time.perf_counter() - t0
     print(f"geo: k-means vs float64 Lloyd {out['kmeans_check']}; B3 route vs float64 "
           f"{out['dbscan_check']}; charts {out['charts_s']:.2f} s", flush=True)
@@ -1700,6 +1749,355 @@ def phase_assoc(torch, seed: int, table, df) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: time series
+# ---------------------------------------------------------------------------
+def ts_secs(values) -> np.ndarray:
+    """datetime64 or date-string values (no nulls) → int64 epoch seconds."""
+    import pandas as pd
+
+    return pd.to_datetime(pd.Series(values)).to_numpy().astype("datetime64[s]").astype(np.int64)
+
+
+def day_strings(days) -> np.ndarray:
+    return np.asarray(days, np.int64).astype("datetime64[D]").astype(str)
+
+
+def on_card(tables, tensors=()) -> bool:
+    return all(c.data.is_cuda and c.mask.is_cuda and (c.exact is None or c.exact.is_cuda)
+               for t in tables for c in t.columns.values()) and all(x.is_cuda for x in tensors)
+
+
+def dst_table():
+    """A fixed transition table built on the host: US Eastern time's rule
+    (second Sunday of March 07:00 UTC to −4 h, first Sunday of November
+    06:00 UTC to −5 h), 2014-2026, as int32 transitions and offsets."""
+    def first_sunday(y: int, m: int) -> int:
+        d = np.datetime64(f"{y}-{m:02d}-01").astype(np.int64)
+        return int(d + (6 - (d + 3) % 7) % 7)  # Mon = 0, Sunday = 6
+
+    tr, off = [], [-18000]
+    for y in range(2014, 2027):
+        tr += [(first_sunday(y, 3) + 7) * 86400 + 7 * 3600, first_sunday(y, 11) * 86400 + 6 * 3600]
+        off += [-14400, -18000]
+    return np.asarray(tr, np.int32), np.asarray(off, np.int32)
+
+
+def f32_equal(csv_values, ref) -> bool:
+    """CSV text of f32 values against f32 references, NaN equal to NaN."""
+    got = np.asarray(csv_values, np.float64).astype(np.float32)
+    ref = np.asarray(ref, np.float64).astype(np.float32)
+    return bool(np.array_equal(got, ref, equal_nan=True))
+
+
+def mean_err(got, ref) -> float:
+    """Largest |got − ref| / (1e-4 + 1e-5·|ref|): at most 1 within the band."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    ok = ~np.isnan(ref)
+    check(bool(np.array_equal(np.isnan(got), ~ok)), "mean nulls differ")
+    return float((np.abs(got[ok] - ref[ok]) / (1e-4 + 1e-5 * np.abs(ref[ok]))).max(initial=0.0))
+
+
+def bucket_reference(X64, key, labels=None):
+    """Per-bucket count/min/max/median/mean of every column of ``X64`` in
+    the viz files' row order (column, then bucket): a long frame."""
+    import pandas as pd
+
+    g = X64.groupby(key)
+    stats = {a: getattr(g, a)() for a in ("count", "min", "max", "median", "mean")}
+    parts = []
+    for c in X64.columns:
+        cnt = stats["count"][c]
+        keep = cnt.index[cnt > 0]
+        parts.append(pd.DataFrame({"bucket": keep if labels is None else [labels[k] for k in keep],
+                                   "attribute": c, **{a: stats[a][c][keep].to_numpy() for a in stats}}))
+    return pd.concat(parts, ignore_index=True)
+
+
+def check_viz_frame(got, ref, daily: bool) -> float:
+    """A ts_num_* file against ``bucket_reference``: keys and counts exact,
+    min/max/median the f32 values rounded to 4 decimals, mean in its band;
+    returns the mean's error in band units."""
+    key = "date" if daily else "bucket"
+    check(len(got) == len(ref) and got[key].astype(str).tolist() == [str(b) for b in ref["bucket"]]
+          and got["attribute"].tolist() == ref["attribute"].tolist(), f"{key}s of a viz file")
+    check(bool((got["count"].astype(np.int64) == ref["count"]).all()), "viz counts")
+    for a in ("min", "max", "median"):
+        r32 = ref[a].to_numpy().astype(np.float32)
+        exp = (np.round(r32, 4) if daily else [round(float(x), 4) for x in r32])
+        check(f32_equal(got[a], exp), f"viz {a}")
+    err = mean_err(got["mean"], ref["mean"])
+    check(err <= 1, f"viz means off by {err:.3f} of their band")
+    return err
+
+
+def check_ts_files(tmp: str, col: str, secs: np.ndarray, X64, cat_codes: dict) -> dict:
+    """Every ts_* file of one ts column against float64 pandas/numpy
+    (``X64``: the numeric columns' f32 values as float64; ``cat_codes``:
+    the first 10 categorical columns, each as ``pandas.factorize`` codes
+    and values)."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer.ts_analyzer import adf_test, kpss_test, seasonal_decompose_ma
+
+    rd = lambda name: pd.read_csv(os.path.join(tmp, f"{name}_{col}.csv"), keep_default_na=False)  # noqa: E731
+    ts = pd.Series(secs.astype("datetime64[s]"))
+    day = secs // 86400
+    udays, ucnt = np.unique(day, return_counts=True)
+    daily = rd("ts_daily")
+    check(daily["yyyymmdd_col"].tolist() == day_strings(udays).tolist()
+          and daily["count"].tolist() == ucnt.tolist(), f"ts_daily of {col}")
+    hour, dow = ts.dt.hour.to_numpy(), ts.dt.dayofweek.to_numpy()
+    for name, key, vals in (("ts_hourly", "hour", hour), ("ts_weekly", "dayofweek", dow)):
+        k, n = np.unique(vals, return_counts=True)
+        f = rd(name)
+        check(f[key].tolist() == k.tolist() and f["count"].tolist() == n.tolist(), f"{name} of {col}")
+    dp_names = np.array(["late_hours", "early_hours", "work_hours", "evening_hours", "night_hours"])
+    dp = np.digitize(hour, [6, 10, 17, 21])
+    k, n = np.unique(dp_names[dp], return_counts=True)
+    f = rd("ts_daypart")
+    check(f["daypart"].tolist() == k.tolist() and f["count"].tolist() == n.tolist(), f"ts_daypart of {col}")
+
+    errs = {}
+    ref = bucket_reference(X64, day)
+    ref["bucket"] = day_strings(ref["bucket"].to_numpy())
+    errs["daily"] = check_viz_frame(rd("ts_num_daily"), ref, daily=True)
+    errs["hourly"] = check_viz_frame(rd("ts_num_hourly"), bucket_reference(X64, dp, list(dp_names)), False)
+    errs["weekly"] = check_viz_frame(rd("ts_num_weekly"), bucket_reference(
+        X64, dow, ["Mon", "Tue", "Wed", "Thu", "Fri", "Sat", "Sun"]), False)
+
+    cat = rd("ts_cat_daily")
+    check(cat["attribute"].unique().tolist() == list(cat_codes), f"ts_cat_daily columns of {col}")
+    d0, nd = udays[0], udays[-1] - udays[0] + 1
+    for c, (codes, uniq) in cat_codes.items():
+        rows = cat[cat["attribute"] == c]
+        vc = np.bincount(codes, minlength=len(uniq))
+        top = [x for x in rows["category"].unique() if x != "Others"]
+        is_top = np.isin(uniq, top)
+        check(len(top) == min(10, len(uniq))
+              and vc[is_top].min() >= (vc[~is_top].max() if (~is_top).any() else 0),
+              f"top categories of {c} by {col}")
+        labels = top + ["Others"]
+        lab_of = np.array([labels.index(u) if u in top else len(top) for u in uniq])
+        exp = np.bincount((day - d0) * len(labels) + lab_of[codes], minlength=nd * len(labels))
+        got = np.zeros(nd * len(labels), np.int64)
+        gd = np.array(rows["date"].tolist(), "datetime64[D]").astype(np.int64) - d0
+        np.add.at(got, gd * len(labels) + rows["category"].map(labels.index).to_numpy(), rows["count"].to_numpy())
+        check(bool(np.array_equal(got, exp)) and len(rows) == np.count_nonzero(exp),
+              f"ts_cat_daily of {c} by {col}")
+
+    dec = seasonal_decompose_ma(ucnt, period=7)
+    trend, seas, resid = dec
+    exp_dec = pd.DataFrame({"date": day_strings(udays), "observed": ucnt, "trend": np.round(trend, 4),
+                            "seasonal": np.round(seas, 4), "residual": np.round(resid, 4)})
+    with open(os.path.join(tmp, f"ts_decompose_{col}.csv")) as fh:
+        check(fh.read() == exp_dec.to_csv(index=False), f"ts_decompose of {col}")
+    exp_st = pd.DataFrame([{"attribute": col, **adf_test(ucnt), **kpss_test(ucnt)}])
+    with open(os.path.join(tmp, f"ts_stationarity_{col}.csv")) as fh:
+        check(fh.read() == exp_st.to_csv(index=False), f"ts_stationarity of {col}")
+
+    stats = pd.read_csv(os.path.join(tmp, "ts_stats.csv")).set_index("attribute").loc[col]
+    check(int(stats["eligible"]) == 1 and int(stats["span_days"]) == (secs.max() - secs.min()) // 86400
+          and int(stats["distinct_days"]) == len(udays) and float(stats["null_pct"]) == 0.0
+          and stats["min_ts"] == str(ts.min()) and stats["max_ts"] == str(ts.max()), f"ts_stats of {col}")
+    land = pd.read_csv(os.path.join(tmp, "ts_landscape.csv")).set_index("attribute").loc[col]
+    check(int(land["records"]) == len(secs) and int(land["distinct_days"]) == len(udays)
+          and float(land["avg_records_per_day"]) == round(len(secs) / len(udays), 2)
+          and int(land["max_records_per_day"]) == ucnt.max()
+          and float(land["weekend_pct"]) == round(float((dow >= 5).mean()), 4)
+          and land["top_daypart"] == pd.Series(dp_names[dp]).mode().iloc[0]
+          and land["start"] == str(ts.min()) and land["end"] == str(ts.max()), f"ts_landscape of {col}")
+    return errs
+
+
+def check_ts_aggregate(agg, fmt: str, secs: np.ndarray, X64, num_cols) -> float:
+    """An aggregator frame against float64 pandas: counts, min, max and
+    median (the f32 mean of two values) exact, sum, mean and stddev within
+    1e-5 relative; returns the largest relative error."""
+    unit = {"%Y-%m": "datetime64[M]", "%Y-%m-%d": "datetime64[D]"}[fmt]
+    key = secs.astype("datetime64[s]").astype(unit)
+    g = X64.groupby(key.astype(np.int64))
+    check(agg["dt_1"].tolist() == np.unique(key).astype(str).tolist(), f"aggregator {fmt} keys")
+    worst = 0.0
+    for a in TS_AGGS:
+        ref = getattr(g, "std" if a == "stddev" else a)()
+        for c in num_cols:
+            got, r = agg[f"{c}_{a}"].to_numpy(np.float64), ref[c].to_numpy(np.float64)
+            if a in ("count", "min", "max", "median"):
+                check(f32_equal(got, r), f"aggregator {fmt} {c}_{a}")
+            else:
+                ok = ~np.isnan(r)
+                check(bool(np.array_equal(np.isnan(got), ~ok)), f"aggregator {fmt} {c}_{a} nulls")
+                rel = np.abs(got[ok] - r[ok]) / np.maximum(np.abs(r[ok]), 1e-30)
+                worst = max(worst, float(rel.max(initial=0.0)))
+    check(worst <= 1e-5, f"aggregator {fmt}: relative error {worst:.3e} above 1e-5")
+    return worst
+
+
+def check_ts_window(out, window_type: str, part: str, secs, df) -> float:
+    """window_aggregator's columns against pandas sort_values + rolling /
+    expanding: min and max exact, mean within 1e-6 relative."""
+    import pandas as pd
+
+    codes = pd.Categorical(df[part]).codes if part else np.zeros(len(secs), np.int8)
+    order = np.lexsort((secs, codes))
+    got = out.select([f"{c}_{a}_{window_type}" for c in TS_WINDOW_COLS for a in TS_WINDOW_AGGS]).to_pandas()
+    worst = 0.0
+    for c in TS_WINDOW_COLS:
+        s = pd.Series(df[c].to_numpy(np.float32).astype(np.float64)[order])
+        grp = s.groupby(codes[order])
+        win = grp.rolling(3, min_periods=3) if window_type == "rolling" else grp.expanding(1)
+        for a in TS_WINDOW_AGGS:
+            ref = np.empty(len(secs))
+            ref[order] = getattr(win, a)().reset_index(level=0, drop=True).sort_index().to_numpy()
+            g = got[f"{c}_{a}_{window_type}"].to_numpy(np.float64)
+            ok = ~np.isnan(ref)
+            check(bool(np.array_equal(np.isnan(g), ~ok)), f"window {window_type} {part} {c}_{a} nulls")
+            if a == "mean":
+                rel = np.abs(g[ok] - ref[ok]) / np.maximum(np.abs(ref[ok]), 1e-30)
+                worst = max(worst, float(rel.max(initial=0.0)))
+            else:
+                check(f32_equal(g, ref), f"window {window_type} {part} {c}_{a}")
+    check(worst <= 1e-6, f"window {window_type} {part}: mean off by {worst:.3e}")
+    return worst
+
+
+def phase_timeseries(torch, seed: int, table, df, extra) -> dict:
+    """Phase 8 on phase 3's Table with the synthesized rows' ifa, dt_1 and
+    dt_2 added (the configs_basic schema)."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer import ts_analyzer as tsa
+    from anovos_tpu_torch.data_ingest.ts_auto_detection import ts_preprocess
+    from anovos_tpu_torch.data_transformer import datetime as dt
+    from anovos_tpu_torch.ops import datetime_kernels as dk
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.table import host_to_column
+
+    out = {"rows": ROWS}
+    walls = out["walls_s"] = {}
+    t0 = time.perf_counter()
+    t = table
+    for c in TS_EXTRA:  # set-up, not timed: dictionary-encode the strings
+        t = t.with_column(c, host_to_column(extra[c].to_numpy(dtype=object), ROWS, table.device))
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    num_cols, _, _ = table.attribute_type_segregation()
+    tr_h, off_h = dst_table()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        basic, full = TS_BASIC_CONFIG, TS_FULL_CONFIG
+        tsd = timed(torch, walls, "ts_preprocess", lambda: ts_preprocess(
+            t, basic["id_col"], output_path=tmp, tz_offset=basic["tz_offset"], run_type="local"))
+        timed(torch, walls, "ts_analyzer", lambda: tsa.ts_analyzer(
+            tsd, full["id_col"], max_days=full["max_days"], output_path=tmp,
+            output_type=full["analysis_level"], tz_offset=full["tz_offset"], run_type="local"))
+        aggs = {fmt: timed(torch, walls, f"aggregator {fmt}",
+                           lambda: dt.aggregator(tsd, num_cols, list(TS_AGGS), "dt_1", fmt))
+                for fmt in TS_FORMATS}
+        windows = {(wt, part): timed(torch, walls, f"window_aggregator {wt}{' by ' + part if part else ''}",
+                                     lambda: dt.window_aggregator(tsd, list(TS_WINDOW_COLS), list(TS_WINDOW_AGGS),
+                                                                  "dt_1", wt, 3, partition_col=part))
+                   for wt in ("rolling", "expanding") for part in ("", "workclass")}
+        lagged = timed(torch, walls, "lagged_ts", lambda: dt.lagged_ts(
+            tsd, "dt_1", lag=1, output_type="ts_diff", tsdiff_unit="days"))
+        units = timed(torch, walls, "timeUnits_extraction", lambda: dt.timeUnits_extraction(tsd, "dt_1", "all"))
+
+        def calendar():
+            res = {n: getattr(dt, n)(tsd, "dt_2", output_mode="append") for n in TS_SNAPS + TS_PREDICATES}
+            res["is_selectedHour"] = dt.is_selectedHour(tsd, "dt_2", 22, 4)
+            return res
+        cal = timed(torch, walls, "boundaries and predicates (16)", calendar)
+        tr, off = torch.from_numpy(tr_h).cuda(), torch.from_numpy(off_h).cuda()
+        shifted = timed(torch, walls, "apply_offset_table",
+                        lambda: dk.apply_offset_table(tsd["dt_1"].data, tr, off))
+        out["launches"] = dict(kernels.LAUNCHES)
+        out["seconds"] = sum(walls.values())
+        check(all(n == 0 for n in out["launches"].values()),
+              f"the time-series path launched kernels: {out['launches']}")
+        print("timeseries: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+        # where ts_analyzer's wall goes, for one of its two columns (after
+        # the timed steps): its three parts that reach the card; the rest
+        # is host frames, CSV writes and the decomposition
+        split = out["ts_analyzer_split_s"] = {}
+        _, cat_cols, _ = tsd.attribute_type_segregation()
+        cal1 = timed(torch, split, "calendar counts", lambda: tsa._calendar(tsd, "dt_1"))
+        timed(torch, split, "numeric viz, 3 grains", lambda: tsa._ts_num_viz_all(tsd, "dt_1", num_cols, cal1))
+        timed(torch, split, "categorical viz", lambda: tsa._cat_viz(tsd, "dt_1", cat_cols[:10]))
+        print("timeseries: ts_analyzer's parts for dt_1 " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
+
+        # the checks (float64 pandas/numpy on all rows)
+        t0 = time.perf_counter()
+        results = [tsd, lagged, units, *windows.values(), *cal.values()]
+        check(on_card(results, [shifted]), "a ts function returned a tensor off the card")
+        secs = {c: ts_secs(extra[c].to_numpy()) for c in ("dt_1", "dt_2")}
+        for c in TS_EXTRA[1:]:
+            col = tsd[c]
+            check(col.kind == "ts" and bool(col.mask.all()), f"{c} not converted")
+            check(bool(np.array_equal(col.data.cpu().numpy().astype(np.int64), secs[c])),
+                  f"{c}: seconds differ from pandas.to_datetime")
+        check([c for c in tsd.col_names if tsd[c].kind == "ts"] == ["dt_1", "dt_2"]
+              and all(tsd[c] is t[c] for c in tsd.col_names if c not in ("dt_1", "dt_2")),
+              "ts_preprocess changed another column")
+        det = pd.read_csv(os.path.join(tmp, "ts_cols_stats.csv")).set_index("attribute")
+        check(set(det.index[det["status"] == "converted"]) == {"dt_1", "dt_2"}
+              and (det.loc[["dt_1", "dt_2"], "parsed_fraction"] == 1.0).all(), "ts_cols_stats.csv")
+        cat_src = lambda c: extra[c] if c in TS_EXTRA else df[c]  # noqa: E731
+        cat_codes = {c: pd.factorize(cat_src(c).astype(str).to_numpy()) for c in cat_cols[:10]}
+        X64 = df[num_cols].astype(np.float32).astype(np.float64)
+        out["viz_mean_err_band_units"] = {c: check_ts_files(tmp, c, secs[c], X64, cat_codes)
+                                          for c in ("dt_1", "dt_2")}
+        out["aggregator_max_rel_err"] = {fmt: check_ts_aggregate(aggs[fmt], fmt, secs["dt_1"], X64, num_cols)
+                                         for fmt in TS_FORMATS}
+        out["window_mean_max_rel_err"] = {f"{wt} {part}".strip(): check_ts_window(w, wt, part, secs["dt_1"], df)
+                                          for (wt, part), w in windows.items()}
+        s1 = pd.Series(secs["dt_1"])
+        srt = s1.sort_values(kind="stable")
+        diff = ((srt - srt.shift(1)) / 86400).astype(np.float32).sort_index().to_numpy()
+        check(f32_equal(lagged.select(["dt_1_lag1_diff"]).to_pandas()["dt_1_lag1_diff"], diff),
+              "lagged_ts against pandas shift")
+        ts1 = pd.Series(secs["dt_1"].astype("datetime64[s]"))
+        got_u = units.select([c for c in units.col_names if c.startswith("dt_1_")]).to_pandas()
+        for u, ref in (("year", ts1.dt.year), ("month", ts1.dt.month), ("day", ts1.dt.day),
+                       ("hour", ts1.dt.hour), ("minute", ts1.dt.minute), ("second", ts1.dt.second),
+                       ("dayofweek", ts1.dt.dayofweek + 1), ("dayofyear", ts1.dt.dayofyear),
+                       ("weekofyear", ts1.dt.isocalendar().week), ("quarter", ts1.dt.quarter)):
+            check(bool(np.array_equal(got_u[f"dt_1_{u}"].to_numpy(np.int64), ref.to_numpy(np.int64))),
+                  f"timeUnits_extraction {u} against pandas .dt")
+        ts2 = pd.Series(secs["dt_2"].astype("datetime64[s]"))
+        m = secs["dt_2"].astype("datetime64[s]").astype("datetime64[M]")
+        q0 = (m.astype(np.int64) - m.astype(np.int64) % 3).astype("datetime64[M]")
+        y0 = m.astype("datetime64[Y]")
+        day_s = lambda x: x.astype("datetime64[D]").astype("datetime64[s]")  # noqa: E731
+        snaps = {"start_of_month": day_s(m), "end_of_month": day_s(m + 1) - 86400,
+                 "start_of_year": day_s(y0), "end_of_year": day_s(y0 + 1) - 86400,
+                 "start_of_quarter": day_s(q0), "end_of_quarter": day_s(q0 + 3) - 86400}
+        for n, ref in snaps.items():
+            col = [c for c in cal[n].col_names if c not in tsd.col_names][0]
+            check(bool(np.array_equal(cal[n][col].data.cpu().numpy().astype(np.int64),
+                                      ref.astype(np.int64))), f"{n} against numpy")
+        preds = {"is_monthStart": ts2.dt.is_month_start, "is_monthEnd": ts2.dt.is_month_end,
+                 "is_yearStart": ts2.dt.is_year_start, "is_yearEnd": ts2.dt.is_year_end,
+                 "is_quarterStart": ts2.dt.is_quarter_start, "is_quarterEnd": ts2.dt.is_quarter_end,
+                 "is_yearFirstHalf": ts2.dt.month <= 6, "is_leapYear": ts2.dt.is_leap_year,
+                 "is_weekend": ts2.dt.dayofweek >= 5,
+                 "is_selectedHour": (ts2.dt.hour >= 22) | (ts2.dt.hour <= 4)}
+        for n, ref in preds.items():
+            col = [c for c in cal[n].col_names if c not in tsd.col_names][0]
+            check(bool(np.array_equal(cal[n][col].data.cpu().numpy(), ref.to_numpy().astype(np.int32))),
+                  f"{n} against pandas")
+        idx = np.searchsorted(tr_h, secs["dt_1"], side="right")
+        check(bool(np.array_equal(shifted.cpu().numpy().astype(np.int64), secs["dt_1"] + off_h[idx])),
+              "apply_offset_table against numpy searchsorted")
+        out["checks_s"] = time.perf_counter() - t0
+    print(f"timeseries: dt_1 and dt_2 detected and analyzed, every ts file, the aggregator at "
+          f"{', '.join(TS_FORMATS)}, 4 window runs, lags, calendar fields, 16 boundaries and "
+          f"predicates and the offset table checked against float64 pandas/numpy on {ROWS} rows "
+          f"({out['checks_s']:.1f} s of checks)", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -1782,7 +2180,7 @@ def main() -> None:
           "float32 matmuls must not run in TF32")
     k_num = 9  # numeric columns of the income schema after the bench's drops
     kres = phase_kernels(torch, args.seed, k_num)
-    path, table, df = phase_path(torch, args.seed)
+    path, table, df, extra = phase_path(torch, args.seed)
     print("path " + json.dumps({k: v for k, v in path.items() if k != "launches"}), flush=True)
     b3_blobs = phase_geo_kernels(torch, args.seed)
     geo = phase_geo(torch, args.seed)
@@ -1792,16 +2190,19 @@ def main() -> None:
     quality_kernels = quality.pop("kernels")
     print("quality " + json.dumps({k: v for k, v in quality.items() if k != "launches"}), flush=True)
     assoc = phase_assoc(torch, args.seed, table, df)
-    del table, df
     assoc_kernels = assoc.pop("kernels")
     print("association " + json.dumps({k: v for k, v in assoc.items() if k != "launches"}), flush=True)
+    ts = phase_timeseries(torch, args.seed, table, df, extra)
+    del table, df, extra
+    print("timeseries " + json.dumps(ts), flush=True)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
     kres["binned_histograms"]["other_shapes"] = [quality_kernels["binned_histograms"]]
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
-                                                     "association": assoc["launches"]}, sass)
-    print(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "association": assoc["launches"],
+                                                     "timeseries": ts["launches"]}, sass)
+    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -492,3 +492,48 @@ def test_cuda_hll_registers_equal_the_cpu():
             cpu = hll_registers(torch.from_numpy(A), torch.from_numpy(B), p)
             gpu = hll_registers(torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda(), p)
             assert torch.equal(gpu.cpu(), cpu), p
+
+
+@pytest.mark.cuda
+def test_cuda_timeseries_path_stays_on_the_card_and_equals_the_cpu(tmp_path):
+    """ts_preprocess, ts_analyzer and the datetime transformers on a CUDA
+    Table: every column they return lives on the card, and the results
+    equal the same calls on the CPU (sums within 1e-6 relative: the card
+    adds in another order)."""
+    import os
+
+    import pandas as pd
+
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_analyzer.ts_analyzer import ts_analyzer
+    from anovos_tpu_torch.data_ingest.ts_auto_detection import ts_preprocess
+    from anovos_tpu_torch.data_transformer import datetime as dt
+    from anovos_tpu_torch.shared.table import Table
+
+    _require_cuda()
+    df = synthesize(50_000, seed=6).drop(columns=["empty", "logfnl"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        t = ts_preprocess(Table.from_pandas(df, device=dev), "ifa", output_path=str(out))
+        ts_analyzer(t, "ifa", max_days=3600, output_path=str(out))
+        t = dt.timeUnits_extraction(t, "dt_1", "all")
+        t = dt.window_aggregator(t, "age|fnlwgt", "mean|stddev|min|median", "dt_1", "rolling", 3,
+                                 partition_col="workclass")
+        t = dt.window_aggregator(t, "age", "sum|max", "dt_2", "expanding")
+        t = dt.lagged_ts(t, "dt_1", lag=1, output_type="ts_diff")
+        t = dt.is_monthEnd(dt.start_of_quarter(t, "dt_2", output_mode="append"), "dt_1")
+        agg = dt.aggregator(t, "age|fnlwgt", "count|sum|mean|median|stddev", "dt_1", "%Y-%m")
+        runs[dev] = (t, agg, out)
+    (tg, ag, og), (tc, ac, oc) = runs["cuda"], runs["cpu"]
+    assert tg.col_names == tc.col_names
+    assert all(c.data.device.type == "cuda" and c.mask.device.type == "cuda" for c in tg.columns.values())
+    pd.testing.assert_frame_equal(ag, ac, rtol=1e-6)
+    pd.testing.assert_frame_equal(tg.to_pandas(), tc.to_pandas(), rtol=1e-6)
+    names = sorted(os.listdir(oc))
+    assert sorted(os.listdir(og)) == names and len(names) == 2 * 10 + 3
+    for n in names:
+        if n.startswith("ts_num_"):
+            pd.testing.assert_frame_equal(pd.read_csv(og / n), pd.read_csv(oc / n), rtol=1e-6)
+        else:
+            assert (og / n).read_text() == (oc / n).read_text(), n

@@ -81,3 +81,18 @@ def test_chip_smoke_runs_the_config_block():
 
     assert chip_smoke.QUALITY_CONFIG == QUALITY_CONFIG
     assert list(chip_smoke.QUALITY_CONFIG) == list(QUALITY_CONFIG)
+
+
+@pytest.mark.parametrize("config,name", [("configs_basic.yaml", "TS_BASIC_CONFIG"),
+                                         ("configs_full.yaml", "TS_FULL_CONFIG")])
+def test_chip_smoke_runs_the_timeseries_block(config, name):
+    """chip_smoke.py's copies of the two configs' timeseries_analyzer
+    blocks are the files'."""
+    import pathlib
+
+    import yaml
+
+    import chip_smoke
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "config" / config
+    assert getattr(chip_smoke, name) == yaml.safe_load(path.read_text())["timeseries_analyzer"]
