@@ -105,7 +105,27 @@ Phases, in order; any failure exits non-zero:
    1e-5·|mean|, decomposition and ADF/KPSS from the same count series);
    aggregator sums, means and stddev within 1e-5 relative; windows and lags
    equal to pandas' rolling/expanding/shift; calendar fields equal to
-   pandas ``.dt``; every returned tensor on the card; no kernel launched.
+   pandas ``.dt``; every returned tensor on the card; no kernel launched;
+9. runner: ``anovos_tpu_torch.workflow.main`` on ``config/configs_basic.yaml``'s
+   blocks (a copy, ``BASIC_CONFIG``), its input 1,000,000 synthesized rows of
+   the full income schema as parquet and its join side every row's
+   ifa/age/workclass as avro, in a temporary working directory: read, join
+   (inner, so all 1,000,000 rows go on), timestamp detection, the basic
+   report (seven stats measures, seven quality checks, IV/IG, the charts
+   and the HTML) and the final write, each block's wall from
+   ``workflow.block_times()``.  Then the kernels on the inputs the runner
+   gave them (recorded as it ran), against their plain versions, timed.
+   Checked against float64 pandas/numpy: every CSV and chart the basic
+   report writes exists; the stats CSVs with phase 3's bands, skewness and
+   kurtosis within 2e-3 + 2e-3·|x|; duplicates, null rows, null columns,
+   IDness and modes exact; each outlier count inside the counts of fences
+   1% off the float64 fence; invalid entries against the auto rules'
+   reference; IV/IG equal to 4 decimals; every numeric ``freqDist_`` chart
+   equal to a numpy digitize against the deciles the chart used, and every
+   ``eventDist_`` chart's rates within 1e-6 of the label counts a bin or a
+   category; dt_1 and dt_2 converted; the HTML's six tabs; the final
+   dataset equal to the pandas inner join; no block failed; both B1 and B2
+   launched by the runner.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -141,7 +161,8 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_default": ("masked_moments",),
                 "geo_grid_16384": ("masked_moments", "neighbor_counts"),
                 "quality": ("masked_moments", "binned_histograms"),
-                "association": ("masked_moments",)}
+                "association": ("masked_moments",),
+                "runner": ("masked_moments", "binned_histograms")}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -210,6 +231,38 @@ TS_PREDICATES = ("is_monthStart", "is_monthEnd", "is_yearStart", "is_yearEnd", "
                  "is_quarterEnd", "is_yearFirstHalf", "is_leapYear", "is_weekend")
 TS_SNAPS = ("start_of_month", "end_of_month", "start_of_year", "end_of_year", "start_of_quarter",
             "end_of_quarter")
+# phase 9: config/configs_basic.yaml (a copy, as QUALITY_CONFIG; a CPU test
+# holds basic_config() equal to the file after the same path substitution),
+# the rows synthesized for it and its join side's rows
+BASIC_CONFIG = {
+    "input_dataset": {
+        "read_dataset": {"file_path": None, "file_type": "parquet"},
+        "delete_column": ["logfnl"],
+        "select_column": None,
+        "rename_column": {"list_of_cols": ["marital-status", "education-num"],
+                          "list_of_newcols": ["marital_status", "education_num"]},
+        "recast_column": {"list_of_cols": ["age", "education_num"], "list_of_dtypes": ["float", "float"]},
+    },
+    "join_dataset": {
+        "join_cols": "ifa",
+        "join_type": "inner",
+        "dataset1": {"read_dataset": {"file_path": None, "file_type": "avro"},
+                     "rename_column": {"list_of_cols": "age|workclass",
+                                       "list_of_newcols": "dupl_age|dupl_workclass"}},
+    },
+    "timeseries_analyzer": TS_BASIC_CONFIG,
+    "anovos_basic_report": {
+        "basic_report": True,
+        "report_args": {"id_col": "ifa", "label_col": "income", "event_label": ">50K",
+                        "skip_corr_matrix": True, "output_path": "report_stats"},
+    },
+    "write_main": {"file_path": "output", "file_type": "parquet", "file_configs": {"mode": "overwrite"}},
+}
+RUNNER_ROWS = 1_000_000
+RUNNER_SIDE_ROWS = RUNNER_ROWS  # every row joins, so the report profiles them all
+# the basic report's tabs
+BASIC_TABS = ("Executive Summary", "Wiki", "Descriptive Statistics", "Quality Check",
+              "Attribute Associations", "Drift &amp; Stability")
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -464,6 +517,28 @@ def b1_row(torch, Xc, Mc, path: str, what: str) -> dict:
     return {"path": path, "shape": [k, rows], "ms": warm["median"], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
             "err_share_of_allowance": share}
+
+
+def b2_row(torch, Xc, Mc, cuts, nbins: int, path: str, what: str) -> dict:
+    """B2 at a path's own (k, rows) shape, data and cutoffs: equal to its
+    plain version, timed warm and with a cold L2 beside the plain version
+    and its bound."""
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+
+    k, rows = Xc.shape
+    got = binned_histograms_cols(Xc, Mc, cuts, nbins)
+    plain = binned_histograms_plain(Xc, Mc, cuts, nbins)
+    check(torch.equal(got, plain), f"binned_histograms differs from plain at the {path} path")
+    warm = kernel_times(torch, lambda: binned_histograms_cols(Xc, Mc, cuts, nbins))
+    cold = kernel_times(torch, lambda: binned_histograms_cols(Xc, Mc, cuts, nbins), cold=True)
+    plain_ms = cuda_ms(torch, lambda: binned_histograms_plain(Xc, Mc, cuts, nbins), 3)
+    b_ms, b_by = b2_bound(k, rows, nbins, int(Mc.sum().item()))
+    print(f"kernel binned_histograms at the {path} path ({k} x {rows}, {nbins} bins, {what}): warm "
+          f"{spread(warm)}, cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}); exact", flush=True)
+    return {"path": path, "shape": [k, rows, nbins], "ms": warm["median"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
+            "max_abs_err": float((got - plain).abs().max().item())}
 
 
 def phase_kernels(torch, seed: int, k_num: int) -> dict:
@@ -1270,7 +1345,6 @@ def quality_path_kernels(torch, outlier_in, tgt, src) -> dict:
     draws as the path's)."""
     from anovos_tpu_torch.data_ingest.data_sampling import data_sample
     from anovos_tpu_torch.drift_stability.drift_detector import drift_device_args
-    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
 
     num_all, _, _ = outlier_in.attribute_type_segregation()
     cols = [c for c in num_all if c not in QUALITY_CONFIG["outlier_detection"]["drop_cols"]]
@@ -1284,21 +1358,7 @@ def quality_path_kernels(torch, outlier_in, tgt, src) -> dict:
                                                     BIN_SIZE)
     Xc = torch.stack([d.to(torch.float32) for d in datas]).contiguous()
     Mc = torch.stack(list(masks)).contiguous()
-    cuts = cuts.contiguous()
-    k, rows = Xc.shape
-    got = binned_histograms_cols(Xc, Mc, cuts, BIN_SIZE)
-    plain = binned_histograms_plain(Xc, Mc, cuts, BIN_SIZE)
-    check(torch.equal(got, plain), "binned_histograms differs from plain at the quality path")
-    warm = kernel_times(torch, lambda: binned_histograms_cols(Xc, Mc, cuts, BIN_SIZE))
-    cold = kernel_times(torch, lambda: binned_histograms_cols(Xc, Mc, cuts, BIN_SIZE), cold=True)
-    plain_ms = cuda_ms(torch, lambda: binned_histograms_plain(Xc, Mc, cuts, BIN_SIZE), 3)
-    b_ms, b_by = b2_bound(k, rows, BIN_SIZE, int(Mc.sum().item()))
-    b2 = {"path": "quality", "shape": [k, rows, BIN_SIZE], "ms": warm["median"], "plain_ms": plain_ms,
-          "bound_ms": b_ms, "bound_by": b_by, "warm": warm, "cold": cold,
-          "max_abs_err": float((got - plain).abs().max().item())}
-    print(f"kernel binned_histograms at the quality path ({k} x {rows}, {BIN_SIZE} bins, sampled "
-          f"drift target): warm {spread(warm)}, cold L2 {spread(cold)}, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by}); exact", flush=True)
+    b2 = b2_row(torch, Xc, Mc, cuts.contiguous(), BIN_SIZE, "quality", "sampled drift target")
     return {"masked_moments": b1, "binned_histograms": b2}
 
 
@@ -2098,6 +2158,384 @@ def phase_timeseries(torch, seed: int, table, df, extra) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the YAML runner and the basic report
+# ---------------------------------------------------------------------------
+def basic_config(main_dir: str, join_dir: str) -> dict:
+    """BASIC_CONFIG with its two read paths pointed at ``main_dir`` and
+    ``join_dir``."""
+    import copy
+
+    cfg = copy.deepcopy(BASIC_CONFIG)
+    cfg["input_dataset"]["read_dataset"]["file_path"] = main_dir
+    cfg["join_dataset"]["dataset1"]["read_dataset"]["file_path"] = join_dir
+    return cfg
+
+
+def runner_reference(full, side_rows):
+    """The pandas counterpart of the config's ingest: ``logfnl`` deleted,
+    two columns renamed, age and education_num recast to f32, the inner
+    join with the side (its age and workclass renamed) on ifa, dt_1 and
+    dt_2 parsed by ``pandas.to_datetime``."""
+    import pandas as pd
+
+    ref = full.drop(columns=["logfnl"]).rename(
+        columns={"marital-status": "marital_status", "education-num": "education_num"})
+    for c in ("age", "education_num"):
+        ref[c] = ref[c].astype(np.float32).astype(np.float64)
+    side = full.iloc[side_rows][["ifa", "age", "workclass"]].rename(
+        columns={"age": "dupl_age", "workclass": "dupl_workclass"})
+    ref = ref.merge(side, on="ifa", how="inner").sort_values("ifa").reset_index(drop=True)
+    for c in ("dt_1", "dt_2"):
+        ref[c] = pd.to_datetime(ref[c])
+    return ref
+
+
+class KernelInputs:
+    """While in its ``with`` block, records a copy of every argument list
+    the kernel wrappers are given through the modules that call them
+    (``ops/reductions`` and ``ops/streaming`` for B1, ``ops/drift_kernels``
+    for B2), then calls the wrapper itself: the inputs a path gave each
+    kernel, to hold it against its plain version after the path ran."""
+
+    SITES = (("reductions", "masked_moments_cols", "masked_moments"),
+             ("streaming", "masked_moments_cols", "masked_moments"),
+             ("drift_kernels", "binned_histograms_cols", "binned_histograms"))
+
+    def __init__(self, torch):
+        import importlib
+
+        self.torch = torch
+        self.seen = {"masked_moments": [], "binned_histograms": []}
+        self.sites = [(importlib.import_module(f"anovos_tpu_torch.ops.{m}"), attr, name)
+                      for m, attr, name in self.SITES]
+        self.saved = []
+
+    def __enter__(self):
+        def recorder(fn, name):
+            def call(*args):
+                self.seen[name].append(tuple(a.clone() if self.torch.is_tensor(a) else a for a in args))
+                return fn(*args)
+            return call
+
+        for mod, attr, name in self.sites:
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, recorder(getattr(mod, attr), name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        self.saved = []
+
+
+def check_runner_files(ref, rdir: str) -> int:
+    """Every file the basic report writes: its 17 CSVs, a ``freqDist_``
+    chart for each numeric and string column but the id, an ``eventDist_``
+    chart for each but the id and the label, and the HTML."""
+    from anovos_tpu_torch.data_report.basic_report_generation import QUALITY_FUNCS, STATS_FUNCS
+
+    cols = [c for c in ref.columns if c != "ifa" and ref[c].dtype.kind != "M"]
+    want = ([f + ".csv" for f in STATS_FUNCS + QUALITY_FUNCS
+             + ("IV_calculation", "IG_calculation", "data_type")]
+            + ["freqDist_" + c for c in cols] + ["eventDist_" + c for c in cols if c != "income"]
+            + ["ml_anovos_report.html"])
+    missing = [f for f in want if not os.path.exists(os.path.join(rdir, f))]
+    check(not missing, f"the basic report did not write {missing}")
+    return len(want)
+
+
+def check_runner_stats(ref, rdir: str) -> None:
+    """The basic report's seven stats CSVs against float64 pandas, with
+    phase 3's bands (``check_stats``)."""
+    import pandas as pd
+
+    read = lambda name: pd.read_csv(os.path.join(rdir, name + ".csv"))  # noqa: E731
+    cols = [c for c in ref.columns if c != "ifa"]
+    num_cols = [c for c in cols if ref[c].dtype.kind == "f"]
+    cat_cols = [c for c in cols if pd.api.types.is_string_dtype(ref[c])]
+    summary = dict(zip(read("global_summary")["metric"], read("global_summary")["value"]))
+    check(int(float(summary["rows_count"])) == len(ref) and int(float(summary["columns_count"])) == len(cols),
+          f"global_summary {summary}")
+    counts = read("measures_of_counts").set_index("attribute")
+    check(sorted(counts.index) == sorted(cols), "measures_of_counts columns")
+    for c in cols:
+        check(int(counts.loc[c, "fill_count"]) == int(ref[c].notna().sum()), f"fill_count of {c}")
+    card = read("measures_of_cardinality").set_index("attribute")
+    for c in num_cols + cat_cols:
+        exp = ref[c].dropna().astype(str).nunique() if c in cat_cols else ref[c].nunique()
+        check(int(card.loc[c, "unique_values"]) == int(exp), f"unique_values of {c}")
+    cen = read("measures_of_centralTendency").set_index("attribute")
+    disp = read("measures_of_dispersion").set_index("attribute")
+    pct = read("measures_of_percentiles").set_index("attribute")
+    shape = read("measures_of_shape").set_index("attribute")
+    for c in num_cols:
+        v = ref[c].dropna().to_numpy(np.float64)
+        if not len(v):  # the all-null column: no moments
+            check(bool(np.isnan(cen.loc[c, "mean"])), f"mean of the all-null {c}")
+            continue
+        m, sd = v.mean(), v.std(ddof=1)
+        check(abs(cen.loc[c, "mean"] - m) <= 1e-4 + 1e-5 * abs(m), f"mean of {c}: {cen.loc[c, 'mean']} vs {m}")
+        check(abs(disp.loc[c, "stddev"] - sd) <= 1e-4 + 1e-4 * sd, f"stddev of {c}")
+        check(pct.loc[c, "min"] == np.round(v.min(), 4) and pct.loc[c, "max"] == np.round(v.max(), 4),
+              f"min/max of {c}")
+        d = v - m
+        m2 = (d ** 2).mean()
+        ref_shape = {"skewness": (d ** 3).mean() / m2 ** 1.5, "kurtosis": (d ** 4).mean() / m2 ** 2 - 3}
+        for k, exp in ref_shape.items():
+            check(abs(shape.loc[c, k] - exp) <= 2e-3 + 2e-3 * abs(exp), f"{k} of {c}: {shape.loc[c, k]} vs {exp}")
+    for c in cat_cols:
+        vc = ref[c].dropna().astype(str).value_counts()
+        best = sorted(vc.items(), key=lambda kv: (-kv[1], kv[0]))[0]
+        check(cen.loc[c, "mode"] == best[0] and int(cen.loc[c, "mode_rows"]) == best[1], f"mode of {c}")
+
+
+def check_runner_quality(ref, rdir: str) -> dict:
+    """The basic report's quality CSVs: duplicates, null rows and IDness
+    against pandas, each outlier count inside the counts of fences 1% off
+    the float64 fence, invalid entries against the auto rules' reference."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer.quality_checker import _DEFAULT_DETECTION
+
+    read = lambda name: pd.read_csv(os.path.join(rdir, name + ".csv"), keep_default_na=False,  # noqa: E731
+                                    na_values=[""])
+    body = ref.drop(columns=["ifa"])
+    as_str = lambda col: col.astype(str).where(col.notna()) if col.dtype.kind not in "fiu" else col  # noqa: E731
+    dup = read("duplicate_detection").set_index("metric")["value"]
+    check(int(dup["duplicate_rows"]) == int(body.duplicated().sum()) == 0, f"duplicates {dict(dup)}")
+    nr = read("nullRows_detection")
+    exp = body.isna().sum(axis=1).value_counts().sort_index()
+    check(nr["null_cols_count"].tolist() == exp.index.tolist() and nr["row_count"].tolist() == exp.tolist(),
+          "nullRows counts differ from pandas")
+    nc = read("nullColumns_detection").set_index("attribute")  # the columns with a null
+    has_null = [c for c in body.columns if body[c].isna().any()]
+    check(sorted(nc.index) == sorted(has_null), f"nullColumns columns {sorted(nc.index)} vs {has_null}")
+    for c in has_null:
+        miss = int(body[c].isna().sum())
+        check(int(nc.loc[c, "missing_count"]) == miss
+              and abs(nc.loc[c, "missing_pct"] - miss / len(body)) <= 5e-5 + 1e-12, f"nullColumns of {c}")
+    bias = read("biasedness_detection")
+    check(len(bias) > 0, "biasedness_detection is empty")
+    for _, r in bias.iterrows():
+        vc = as_str(body[r["attribute"]]).value_counts()
+        if vc.empty:  # the all-null column: no mode
+            check(int(r["mode_rows"]) == 0 and np.isnan(r["mode_pct"]), f"biasedness of {r['attribute']}")
+            continue
+        check(int(r["mode_rows"]) == int(vc.max())
+              and abs(r["mode_pct"] - vc.max() / vc.sum()) <= 5e-5 + 1e-12, f"biasedness of {r['attribute']}")
+    for _, r in read("IDness_detection").iterrows():
+        col = as_str(body[r["attribute"]])
+        n = col.notna().sum()
+        check(int(r["unique_values"]) == col.nunique()
+              and (n == 0 or abs(r["IDness"] - col.nunique() / n) <= 5e-5 + 1e-12),
+              f"IDness of {r['attribute']}")
+    out = {"outlier_upper": {}}
+    got = read("outlier_detection").set_index("attribute")["upper_outliers"]
+    for c in [c for c in body.columns if body[c].dtype.kind == "f"]:
+        v = body[c].dropna().to_numpy(np.float64)
+        if not len(v):  # the all-null column: nothing to flag
+            check(int(got.get(c, 0)) == 0, f"outliers in the all-null {c}")
+            continue
+        hi = upper_bound_f64(v, _DEFAULT_DETECTION)
+        if hi is None:
+            check(c not in got.index, f"outlier: {c} not skewed in float64")
+            continue
+        x = v.astype(np.float32)
+        lo_n, hi_n = int((x > hi + 0.01 * abs(hi)).sum()), int((x > hi - 0.01 * abs(hi)).sum())
+        check(lo_n <= int(got[c]) <= hi_n, f"outlier count of {c}: {got[c]} outside [{lo_n}, {hi_n}]")
+        out["outlier_upper"][c] = int(got[c])
+    out["invalid"] = {}
+    for _, r in read("invalidEntries_detection").iterrows():
+        c = r["attribute"]
+        entries = r["invalid_entries"]
+        bad = [b for b in entries.split("|") if b] if isinstance(entries, str) else []
+        check(all(auto_invalid(b) for b in bad), f"invalid entries of {c}: {bad[:5]}")
+        col = body[c]
+        if col.dtype.kind == "f":
+            x = col.dropna().to_numpy(np.float32)
+            n = int(np.isin(x, np.array(bad, np.float64).astype(np.float32)).sum())
+        else:
+            vc = col.dropna().astype(str).value_counts()
+            n = int(sum(k for v, k in vc.items() if auto_invalid(v)))
+            check(n == int(col.isin(bad).sum()), f"invalid entries of {c} miss a value")
+        check(n == int(r["invalid_count"]), f"invalid count of {c}: {r['invalid_count']} vs {n}")
+        if n:
+            out["invalid"][c] = n
+    return out
+
+
+def check_runner_charts(ref, rdir: str) -> int:
+    """Every numeric freqDist_ chart's counts equal to a numpy digitize of
+    the column's f32 values against the cutoffs the chart used (numpy's
+    'lower' deciles); the all-null column's all zero."""
+    n = 0
+    for c in ref.columns:
+        if ref[c].dtype.kind != "f" or c == "income":
+            continue
+        with open(os.path.join(rdir, "freqDist_" + c)) as f:
+            got = json.load(f)["data"][0]["y"]
+        x = ref[c].dropna().to_numpy(np.float32)
+        if len(x):
+            edges = np.quantile(x, [j / BIN_SIZE for j in range(1, BIN_SIZE)], method="lower")
+            exp = np.bincount(np.searchsorted(edges.astype(np.float32), x, side="left"), minlength=BIN_SIZE)
+        else:
+            exp = np.zeros(BIN_SIZE, np.int64)
+        check([float(v) for v in exp] == got, f"freqDist_{c}: {got} vs {exp.tolist()}")
+        n += 1
+    check(n > 0, "no numeric chart checked")
+    return n
+
+
+def check_runner_event_charts(ref, rdir: str, label: str, event: str) -> int:
+    """Every ``eventDist_`` chart's rates within 1e-6 of float64 label
+    counts over the rows whose label is valid: a numeric column's bins by a
+    numpy digitize against the same deciles as its ``freqDist_`` chart, a
+    string column's categories by pandas."""
+    import pandas as pd
+
+    valid = ref[label].notna().to_numpy()
+    y = (ref[label] == event).to_numpy()[valid]
+    n = 0
+    for c in ref.columns:
+        if c in ("ifa", label) or ref[c].dtype.kind == "M":
+            continue
+        with open(os.path.join(rdir, "eventDist_" + c)) as f:
+            data = json.load(f)["data"][0]
+        col = ref[c][valid]
+        have = col.notna().to_numpy()
+        if ref[c].dtype.kind == "f":
+            x = ref[c].dropna().to_numpy(np.float32)
+            rate = np.zeros(BIN_SIZE)
+            if len(x):
+                edges = np.quantile(x, [j / BIN_SIZE for j in range(1, BIN_SIZE)], method="lower")
+                b = np.searchsorted(edges.astype(np.float32), col.to_numpy(np.float32)[have], side="left")
+                tot = np.bincount(b, minlength=BIN_SIZE)
+                rate = np.where(tot > 0, np.bincount(b, weights=y[have], minlength=BIN_SIZE) / np.maximum(tot, 1), 0)
+            exp = dict(zip([str(j + 1) for j in range(BIN_SIZE)], rate))
+        else:  # every category of the column, 0 where no row has a valid label
+            rate = pd.Series(y[have], dtype=np.float64).groupby(col[have].astype(str).to_numpy()).mean()
+            exp = {k: float(rate.get(k, 0.0)) for k in ref[c].dropna().astype(str).unique()}
+        got = dict(zip(data["x"], data["y"]))
+        check(len(got) == len(data["x"]) and set(got) == set(exp),
+              f"eventDist_{c}: bins {sorted(got)[:5]} vs {sorted(exp)[:5]}")
+        bad = [k for k in exp if abs(got[k] - exp[k]) > 1e-6]
+        check(not bad, f"eventDist_{c}: rates of {bad[:5]} differ from float64")
+        n += 1
+    return n
+
+
+def phase_runner(torch, seed: int) -> dict:
+    """Phase 9: ``workflow.main`` on configs_basic.yaml's blocks, its
+    input RUNNER_ROWS synthesized rows as parquet and its join side
+    (RUNNER_SIDE_ROWS rows' ifa/age/workclass) as avro, in a temporary
+    working directory; then B1 and B2 on the inputs the runner gave them."""
+    import pandas as pd
+
+    from examples._data import synthesize
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.data_ingest.data_ingest import write_dataset
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.table import Table
+
+    out = {"rows": RUNNER_ROWS, "side_rows": RUNNER_SIDE_ROWS}
+    t0 = time.perf_counter()
+    full = synthesize(RUNNER_ROWS, seed=seed + 9)
+    side_rows = np.arange(0, RUNNER_ROWS, RUNNER_ROWS // RUNNER_SIDE_ROWS)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_dir, join_dir = os.path.join(tmp, "income"), os.path.join(tmp, "join")
+        os.makedirs(main_dir)
+        full.to_parquet(os.path.join(main_dir, "part-00000.parquet"), index=False)
+        side = Table.from_pandas(full.iloc[side_rows][["ifa", "age", "workclass"]].reset_index(drop=True))
+        write_dataset(side, join_dir, "avro")
+        del side
+        run_dir = os.path.join(tmp, "run")
+        os.makedirs(run_dir)
+        torch.cuda.synchronize()
+        out["setup_s"] = time.perf_counter() - t0
+
+        kernels.reset_launches()
+        os.chdir(run_dir)
+        try:
+            with KernelInputs(torch) as given:
+                t0 = time.perf_counter()
+                workflow.main(basic_config(main_dir, join_dir), "local")
+                torch.cuda.synchronize()
+                out["wall_s"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        out["launches"] = dict(kernels.LAUNCHES)
+        out["block_times_s"] = workflow.block_times()
+        print("runner: block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in out["block_times_s"].items())
+              + f"; workflow.main {out['wall_s']:.3f} s", flush=True)
+        print(f"runner: kernel launches {out['launches']}", flush=True)
+        for name in PATH_KERNELS["runner"]:
+            check(out["launches"][name] > 0, f"kernel {name} was not launched by the runner")
+        check(workflow.degraded_sections() == {}, f"runner blocks failed: {workflow.degraded_sections()}")
+        check(list(out["block_times_s"]) == ["join_dataset", "timeseries_analyzer", "Basic Report"],
+              f"runner blocks {list(out['block_times_s'])}")
+
+        # after the run (not counted): each kernel on the inputs the runner
+        # gave it, against its plain version, timed
+        for name, calls in given.seen.items():
+            check(len(calls) == out["launches"][name], f"{name}: {len(calls)} calls recorded, "
+                  f"{out['launches'][name]} launches")
+        out["kernels"] = {
+            "masked_moments": [b1_row(torch, Xc, Mc, "runner", f"launch {i + 1} of {len(given.seen['masked_moments'])}")
+                               for i, (Xc, Mc) in enumerate(given.seen["masked_moments"])],
+            "binned_histograms": [b2_row(torch, Xc, Mc, cuts, nbins, "runner", "the numeric charts")
+                                  for Xc, Mc, cuts, nbins in given.seen["binned_histograms"]]}
+        del given
+
+        # the checks (float64 pandas/numpy)
+        t0 = time.perf_counter()
+        ref = runner_reference(full, side_rows)
+        del full
+        rdir = os.path.join(run_dir, "report_stats")
+        final = pd.read_parquet(os.path.join(run_dir, "output", "final_dataset"))
+        final = final.sort_values("ifa").reset_index(drop=True)
+        for c in ("dt_1", "dt_2"):
+            final[c] = final[c].astype("datetime64[s]").astype(np.int64)
+            ref[c] = ref[c].astype("datetime64[s]")
+        try:
+            pd.testing.assert_frame_equal(
+                final, ref.assign(dt_1=ref["dt_1"].astype(np.int64), dt_2=ref["dt_2"].astype(np.int64)),
+                check_dtype=False)
+        except AssertionError as e:
+            fail(f"runner: final_dataset differs from the pandas inner join: {e}")
+        out["joined_rows"] = len(final)
+        del final
+        det = pd.read_csv(os.path.join(run_dir, "ts_cols_stats.csv")).set_index("attribute")
+        check(set(det.index[det["status"] == "converted"]) == {"dt_1", "dt_2"}
+              and (det.loc[["dt_1", "dt_2"], "parsed_fraction"] == 1.0).all(), "ts_cols_stats.csv")
+        out["files_checked"] = check_runner_files(ref, rdir)
+        check_runner_stats(ref, rdir)
+        out.update(check_runner_quality(ref, rdir))
+        ivs = pd.read_csv(os.path.join(rdir, "IV_calculation.csv")).set_index("attribute")["iv"]
+        igs = pd.read_csv(os.path.join(rdir, "IG_calculation.csv")).set_index("attribute")["ig"]
+        iv_cols = [c for c in ref.columns if c not in ("ifa", "dt_1", "dt_2", "empty")]
+        iv_ref = iv_ig_reference(ref[iv_cols], "income", ">50K", BIN_SIZE)
+        check(sorted(ivs.index) == sorted(list(iv_ref) + ["empty"]), "IV columns")
+        for c, (iv, ig) in iv_ref.items():
+            check(round(float(ivs[c]), 4) == iv and round(float(igs[c]), 4) == ig,
+                  f"IV/IG of {c}: {ivs[c]}, {igs[c]} vs {iv}, {ig}")
+        check(ivs["empty"] == 0 and igs["empty"] == 0, "IV/IG of the all-null column")
+        out["charts_checked"] = check_runner_charts(ref, rdir)
+        out["event_charts_checked"] = check_runner_event_charts(ref, rdir, "income", ">50K")
+        with open(os.path.join(rdir, "ml_anovos_report.html")) as f:
+            html = f.read()
+        check(html.count("onclick='showTab(") == len(BASIC_TABS)
+              and all(f">{t}</button>" in html for t in BASIC_TABS), "the report's tabs")
+        out["checks_s"] = time.perf_counter() - t0
+    print(f"runner: configs_basic on {RUNNER_ROWS} rows joined with {RUNNER_SIDE_ROWS} avro rows "
+          f"({out['joined_rows']} rows profiled): {out['files_checked']} files written; stats, quality, "
+          f"IV/IG, {out['charts_checked']} numeric frequency charts, {out['event_charts_checked']} "
+          f"event-rate charts, dt_1/dt_2, the report's {len(BASIC_TABS)} tabs and the final dataset "
+          f"checked ({out['checks_s']:.1f} s of checks)", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -2195,14 +2633,20 @@ def main() -> None:
     ts = phase_timeseries(torch, args.seed, table, df, extra)
     del table, df, extra
     print("timeseries " + json.dumps(ts), flush=True)
+    runner = phase_runner(torch, args.seed)
+    runner_kernels = runner.pop("kernels")
+    print("runner " + json.dumps({k: v for k, v in runner.items() if k != "launches"}), flush=True)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
-    kres["binned_histograms"]["other_shapes"] = [quality_kernels["binned_histograms"]]
+    kres["masked_moments"]["other_shapes"] += runner_kernels["masked_moments"]
+    kres["binned_histograms"]["other_shapes"] = ([quality_kernels["binned_histograms"]]
+                                                 + runner_kernels["binned_histograms"])
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
                                                      "association": assoc["launches"],
-                                                     "timeseries": ts["launches"]}, sass)
-    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "timeseries": ts["launches"],
+                                                     "runner": runner["launches"]}, sass)
+    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

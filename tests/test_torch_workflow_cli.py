@@ -1,0 +1,115 @@
+"""The port's entry point, ``python -m anovos_tpu_torch <config.yaml>
+[run_type] [auth_key_json]``, and the runner's guards: the usage line,
+``--resume`` refused, blocks not ported yet refused before any work, the
+device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
+importable without a YAML reader.  Also ``chip_smoke.py``'s copy of
+``config/configs_basic.yaml`` held equal to the file.
+"""
+
+import os
+import subprocess
+import sys
+
+import pandas as pd
+import pytest
+
+from _torch_port import torch_cpu_runtime  # noqa: F401  (autouse fixture)
+from test_torch_workflow import basic_config, load_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_cli(*args, cwd=REPO, code=""):
+    """``python -m anovos_tpu_torch args`` (or ``python -c code``) with
+    the repo importable and no CUDA device visible."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-c", code] if code else [sys.executable, "-m", "anovos_tpu_torch", *args]
+    return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=120)
+
+
+def test_no_argument_prints_the_usage_line():
+    res = run_cli()
+    assert res.returncode == 1
+    assert "usage: python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json]" in res.stderr
+
+
+def test_resume_is_refused():
+    res = run_cli("config/configs_basic.yaml", "local", "--resume")
+    assert res.returncode == 1
+    assert "--resume" in res.stderr and "Queue A item 10" in res.stderr
+
+
+@pytest.mark.parametrize("argv,expected", [
+    (["c.yaml"], ("c.yaml", "local", {})),
+    (["c.yaml", "emr"], ("c.yaml", "emr", {})),
+    (["c.yaml", "ak8s", '{"fs.azure.sas": "?sv=x"}'], ("c.yaml", "ak8s", {"fs.azure.sas": "?sv=x"})),
+    (["c.yaml", "ak8s", "bare-token"], ("c.yaml", "ak8s", {"auth_key": "bare-token"})),
+    (["c.yaml", "ak8s", "5"], ("c.yaml", "ak8s", {"auth_key": "5"})),
+])
+def test_arguments_parse_as_main_py_parses_them(argv, expected):
+    """A JSON auth dict is taken as it is; anything else is wrapped."""
+    from anovos_tpu_torch.__main__ import parse_args
+
+    assert parse_args(["prog", *argv]) == expected
+
+
+def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
+    """Without a CUDA device the entry point raises instead of running on
+    the CPU (it has no device flag, as the JAX CLI has none)."""
+    import yaml
+
+    data = tmp_path / "data"
+    data.mkdir()
+    pd.DataFrame({"a": [1.0, 2.0], "b": ["x", "y"]}).to_parquet(data / "part-00000.parquet")
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(yaml.safe_dump({"input_dataset": {"read_dataset": {
+        "file_path": str(data), "file_type": "parquet"}}}))
+    res = run_cli(str(cfg), "local", cwd=str(tmp_path))
+    assert res.returncode != 0
+    assert "CUDA device requested" in res.stderr
+
+
+@pytest.mark.parametrize("block,item", [("transformers", "Queue A item 8"),
+                                        ("streaming_analysis", "Queue A item 10"),
+                                        ("continuous_analysis", "Queue A item 10"),
+                                        ("write_feast_features", "Queue A item 10")])
+def test_unported_blocks_raise_before_any_work(block, item):
+    """The config's input path does not exist: the refusal comes first."""
+    from anovos_tpu_torch import workflow
+
+    cfg = load_config("configs_full.yaml")
+    cfg.pop("transformers")
+    cfg[block] = {"anything": {}}
+    with pytest.raises(NotImplementedError, match=item):
+        workflow.main(cfg, "local")
+
+
+def test_basic_report_skips_the_analytics_blocks():
+    """With basic_report true the later analytics keys are skipped, so a
+    transformers block there is not refused; write_feast_features is."""
+    from anovos_tpu_torch.workflow import _check_ported
+
+    cfg = load_config("configs_full.yaml")
+    _check_ported(cfg, basic_report=True)
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        _check_ported(cfg, basic_report=False)
+    with pytest.raises(NotImplementedError, match="write_feast_features"):
+        _check_ported(dict(cfg, write_feast_features={}), basic_report=True)
+
+
+def test_workflow_imports_without_a_yaml_reader():
+    res = run_cli(code="import sys; sys.modules['yaml'] = None; "
+                       "import anovos_tpu_torch.workflow, anovos_tpu_torch.__main__; print('ok')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_chip_smoke_runs_the_basic_config():
+    """chip_smoke.py keeps its own copy of config/configs_basic.yaml (the
+    GPU machine may lack a YAML reader): after the same path substitution
+    it is the file's, in the file's order."""
+    import chip_smoke
+
+    got = chip_smoke.basic_config("/data/main", "/data/join")
+    exp = basic_config("/data/main", "/data/join")
+    assert got == exp and list(got) == list(exp)
