@@ -13,7 +13,7 @@ def parse_args(argv):
     with the usage line when there is no config."""
     if "--resume" in argv:
         sys.exit("--resume is not supported by anovos_tpu_torch: the port has no cache store "
-                 "yet (ROADMAP.md Queue A item 10)\n" + USAGE)
+                 "yet (ROADMAP.md Queue A item 4)\n" + USAGE)
     if len(argv) < 2:
         sys.exit(USAGE)
     run_type = argv[2] if len(argv) > 2 else "local"

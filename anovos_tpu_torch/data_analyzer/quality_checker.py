@@ -26,6 +26,8 @@ from anovos_tpu_torch.data_analyzer import stats_generator as sg
 from anovos_tpu_torch.data_ingest.data_ingest import read_dataset
 from anovos_tpu_torch.data_ingest.data_sampling import data_sample
 from anovos_tpu_torch.data_transformer.model_io import load_model_df, save_model_df
+from anovos_tpu_torch.data_transformer.imputers import (auto_imputation, imputation_matrixFactorization,
+                                                        imputation_sklearn)
 from anovos_tpu_torch.data_transformer.transformers import _emit, imputation_MMM
 from anovos_tpu_torch.ops.quantiles import masked_quantiles
 from anovos_tpu_torch.ops.reductions import masked_moments
@@ -158,9 +160,10 @@ def nullColumns_detection(
     stats_mode: dict = {},
     print_impact=False,
 ) -> Tuple[Table, pd.DataFrame]:
-    """Missing values per column, treated by row_removal, column_removal or
-    MMM.  The model-based KNN, regression, MF and auto imputers are not
-    ported yet and raise NotImplementedError (ROADMAP.md Queue A item 9)."""
+    """Missing values per column, treated by row_removal, column_removal,
+    MMM or the model-based imputers: KNN and regression
+    (``imputation_sklearn``), MF (``imputation_matrixFactorization``) and
+    auto (``auto_imputation``)."""
     if stats_missing:
         stats = read_dataset(**stats_missing).to_pandas()[["attribute", "missing_count", "missing_pct"]]
     else:
@@ -206,11 +209,15 @@ def nullColumns_detection(
             odf = idf.drop(list(stats.loc[stats["missing_pct"] > float(threshold), "attribute"]))
         elif treatment_method == "MMM":
             odf = imputation_MMM(idf, list_of_cols=cols, stats_missing=stats_missing, **cfg)
-        else:
-            raise NotImplementedError(
-                f"nullColumns_detection: treatment_method={treatment_method!r} needs the "
-                "model-based imputers (data_transformer/imputers.py), which the port does not "
-                "have yet (ROADMAP.md Queue A item 9)")
+        elif treatment_method in ("KNN", "regression"):
+            cfg.setdefault("method_type", treatment_method)
+            odf = imputation_sklearn(idf, list_of_cols=[c for c in cols if idf.columns[c].kind == "num"],
+                                     **cfg)
+        elif treatment_method == "MF":
+            odf = imputation_matrixFactorization(
+                idf, list_of_cols=[c for c in cols if idf.columns[c].kind == "num"], **cfg)
+        else:  # auto
+            odf = auto_imputation(idf, list_of_cols=cols, stats_missing=stats_missing, **cfg)
     if print_impact:
         logger.info(stats.to_string(index=False))
     return odf, stats

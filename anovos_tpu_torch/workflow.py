@@ -11,9 +11,9 @@ caller's thread, and writes every artifact before the next block starts
 (the JAX runner's ``ANOVOS_TPU_EXECUTOR=sequential`` mode).  It has no
 DAG scheduler, cache store, resume, chaos, failover, ingest guard or obs
 manifest.  Blocks it cannot run yet raise ``NotImplementedError`` before
-any work starts: ``transformers`` (which holds the latent features) and
-``streaming_analysis``, ``continuous_analysis`` and
-``write_feast_features``.
+any work starts: ``streaming_analysis``, ``continuous_analysis`` and
+``write_feast_features``, and a ``transformers`` sub-block that calls one
+of the geospatial transformers.
 
 Each block's wall time is logged under the JAX runner's labels and kept
 for :func:`block_times`.
@@ -65,11 +65,17 @@ MAINFUNC_TO_ARGS = {
 # config blocks the port cannot run yet, and the ROADMAP.md Queue A item
 # that ports them
 NOT_PORTED = {
-    "transformers": "Queue A item 8 (transformers and latent features)",
-    "streaming_analysis": "Queue A item 10 (streaming and scale layers)",
-    "continuous_analysis": "Queue A item 10 (streaming and scale layers)",
-    "write_feast_features": "Queue A item 10 (feature_store)",
+    "streaming_analysis": "Queue A item 4 (streaming and scale layers)",
+    "continuous_analysis": "Queue A item 4 (streaming and scale layers)",
+    "write_feast_features": "Queue A item 4 (feature_store)",
 }
+# functions of the JAX package's data_transformer a transformers block may
+# name that the port has not yet, and their Queue A item
+NOT_PORTED_TRANSFORMERS = dict.fromkeys(
+    ("geo_format_latlon", "geo_format_cartesian", "geo_format_geohash", "location_distance",
+     "geohash_precision_control", "location_in_country", "location_in_polygon", "centroid",
+     "weighted_centroid", "rog_calculation", "reverse_geocoding"),
+    "Queue A item 3 (the geospatial transformers)")
 
 _BLOCK_TIMES: dict = {}
 _DEGRADED: dict = {}
@@ -204,8 +210,9 @@ def _drift_source_matches_input(all_configs: dict) -> bool:
 
 
 def _check_ported(all_configs: dict, basic_report: bool) -> None:
-    """Raise before any work for a block the port cannot run yet (blocks
-    the basic report skips are not run, so they do not raise then)."""
+    """Raise before any work for a block, or a transformers function, the
+    port cannot run yet (blocks the basic report skips are not run, so they
+    do not raise then)."""
     for key, item in NOT_PORTED.items():
         if all_configs.get(key) is None:
             continue
@@ -213,6 +220,14 @@ def _check_ported(all_configs: dict, basic_report: bool) -> None:
             continue
         raise NotImplementedError(
             f"config block {key!r} is not ported to anovos_tpu_torch yet; see ROADMAP.md {item}")
+    if basic_report:
+        return
+    for group in (all_configs.get("transformers") or {}).values():
+        for fn in (group or {}):
+            if fn in NOT_PORTED_TRANSFORMERS:
+                raise NotImplementedError(
+                    f"transformers function {fn!r} is not ported to anovos_tpu_torch yet; see "
+                    f"ROADMAP.md {NOT_PORTED_TRANSFORMERS[fn]}")
 
 
 def _best_effort(section: str, fn, *args, **kwargs):
@@ -410,6 +425,19 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         else:
                             save(df_stats, write_stats, "drift_detector/stability_index")
                     _log_block_time(f"{key}, {subkey}", t1)
+
+            if key == "transformers":
+                for subkey, value in args.items():
+                    if value is None:
+                        continue
+                    for fn, fn_args in value.items():
+                        if fn_args is None:
+                            continue
+                        t1 = time.monotonic()
+                        extra_args = stats_args(all_configs, fn, run_type, auth_key)
+                        df = getattr(transformers, fn)(df, **fn_args, **extra_args)
+                        df = save(df, write_intermediate, "data_transformer/transformers/" + fn)
+                        _log_block_time(f"{key}, {fn}", t1)
 
             if key == "report_preprocessing":
                 for subkey, value in args.items():

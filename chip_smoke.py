@@ -125,7 +125,37 @@ Phases, in order; any failure exits non-zero:
    ``eventDist_`` chart's rates within 1e-6 of the label counts a bin or a
    category; dt_1 and dt_2 converted; the HTML's six tabs; the final
    dataset equal to the pandas inner join; no block failed; both B1 and B2
-   launched by the runner.
+   launched by the runner;
+10. transformers: (a) on phase 3's Table, each step timed on the host clock
+   ending in a device sync with its kernel launches counted:
+   ``config/configs_full.yaml``'s six transformer steps chained
+   (feature_transformation sqrt, attribute_binning, outlier_categories,
+   cat_to_num_supervised, IQR_standardization, PCA_latentFeatures), then
+   z_standardization, normalization, boxcox_transformation with the λ
+   search, expression_parser on two expressions and fitted_state → JSON →
+   from_state().apply for the 10 servable families; checked on all rows
+   against float64 numpy/pandas: sqrt values and nulls, the keep sets
+   against a pandas value_counts cumsum, the target rates equal to a
+   pandas groupby mean at 4 decimals, median and IQR equal to numpy's
+   'lower' quantiles, the z and min-max parameters in phase 3's bands,
+   PCA's k, components and projections against float64 ``eigh``, each
+   boxcox λ equal to the float64 KS argmin where the margin exceeds f32
+   noise, the expressions, every served apply equal to its batch apply;
+   (b) autoencoder_latentFeatures at n = 9, k = 4 with
+   ``configs_segmentation_unsupervised``'s sample (500,000) and batch
+   (256), AE_EPOCHS epochs: the validation MSE below the first epoch's and
+   the mean predictor's, the model.npz round trip bit-equal, the card's
+   latents equal a CPU forward, 3 Adam steps equal to the CPU's; (c) KNN,
+   regression, MF and auto imputation on a 1,000,000-row table with 5%
+   nulls in three columns, checked against float64 (KNN on seeded query
+   rows whose donors f32 distances decide, the ridge by least squares),
+   MF's observed-cell error and auto's choice against the CPU port's on
+   the same holdout; (d) ``workflow.main`` on all of ``configs_full.yaml``
+   (a copy, ``FULL_CONFIG``) over 200,000 synthesized rows: the six
+   intermediate datasets written, the final dataset equal to the same
+   chain of direct calls, no block failed.  B1 must have been launched;
+   B1 and B2 equal their plain versions on every input the phase gave
+   them on the card.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -143,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -162,7 +193,8 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_grid_16384": ("masked_moments", "neighbor_counts"),
                 "quality": ("masked_moments", "binned_histograms"),
                 "association": ("masked_moments",),
-                "runner": ("masked_moments", "binned_histograms")}
+                "runner": ("masked_moments", "binned_histograms"),
+                "transformers": ("masked_moments",)}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -263,6 +295,86 @@ RUNNER_SIDE_ROWS = RUNNER_ROWS  # every row joins, so the report profiles them a
 # the basic report's tabs
 BASIC_TABS = ("Executive Summary", "Wiki", "Descriptive Statistics", "Quality Check",
               "Attribute Associations", "Drift &amp; Stability")
+# phase 10: config/configs_full.yaml whole (a copy, as BASIC_CONFIG; a CPU
+# test holds full_config() equal to the file after the same substitution:
+# the read paths and the two dictionaries, NA here), and the sizes and
+# bands of its four parts
+_INCOME_ETL = {
+    "delete_column": ["logfnl", "empty", "dt_2"],
+    "rename_column": {"list_of_cols": ["marital-status", "education-num"],
+                      "list_of_newcols": ["marital_status", "education_num"]},
+    "recast_column": {"list_of_cols": ["age", "education_num"], "list_of_dtypes": ["float", "float"]},
+}
+_CSV_READ = {"file_type": "csv", "file_configs": {"header": True, "delimiter": ",", "inferSchema": True}}
+FULL_TRANSFORMERS = {
+    "numerical_mathops": {"feature_transformation": {"list_of_cols": "all", "drop_cols": [],
+                                                     "method_type": "sqrt"}},
+    "numerical_binning": {"attribute_binning": {"list_of_cols": "all", "drop_cols": [],
+                                                "method_type": "equal_frequency", "bin_size": 10,
+                                                "bin_dtype": "numerical"}},
+    "categorical_outliers": {"outlier_categories": {"list_of_cols": "all", "drop_cols": ["ifa", "income"],
+                                                    "coverage": 0.9, "max_category": 20}},
+    "categorical_encoding": {"cat_to_num_supervised": {"list_of_cols": "all", "drop_cols": ["ifa"],
+                                                       "label_col": "income", "event_label": ">50K"}},
+    "numerical_rescaling": {"IQR_standardization": {"list_of_cols": "all"}},
+    "numerical_latentFeatures": {"PCA_latentFeatures": {"list_of_cols": "all", "explained_variance_cutoff": 0.95,
+                                                        "standardization": False, "imputation": True}},
+}
+FULL_CONFIG = {
+    "input_dataset": {"read_dataset": {"file_path": None, "file_type": "parquet"},
+                      "delete_column": _INCOME_ETL["delete_column"], "select_column": None,
+                      "rename_column": _INCOME_ETL["rename_column"],
+                      "recast_column": _INCOME_ETL["recast_column"]},
+    "timeseries_analyzer": TS_FULL_CONFIG,
+    "geospatial_controller": {"geospatial_analyzer": {
+        "auto_detection_analyzer": True, "id_col": "ifa", "max_analysis_records": GEO_RECORDS,
+        "top_geo_records": 100, "max_cluster": 20, "eps": GEO_EPS, "min_samples": GEO_MIN_SAMPLES}},
+    "anovos_basic_report": {"basic_report": False},
+    "stats_generator": {"metric": ["global_summary", "measures_of_counts", "measures_of_centralTendency",
+                                   "measures_of_cardinality", "measures_of_percentiles",
+                                   "measures_of_dispersion", "measures_of_shape"],
+                        "metric_args": {"list_of_cols": "all", "drop_cols": ["ifa"]}},
+    "quality_checker": QUALITY_CONFIG,
+    "cat_to_num_transformer": CAT_TO_NUM_CONFIG,
+    "association_evaluator": ASSOC_CONFIG,
+    "drift_detector": {
+        "drift_statistics": {
+            "configs": {"list_of_cols": "all", "drop_cols": ["ifa", "income"], "method_type": "all",
+                        "threshold": 0.1, "bin_method": "equal_range", "bin_size": BIN_SIZE,
+                        "pre_existing_source": False, "source_path": "NA"},
+            "source_dataset": {"read_dataset": {"file_path": None, "file_type": "parquet"}, **_INCOME_ETL}},
+        "stability_index": {
+            "configs": {"metric_weightages": {"mean": 0.5, "stddev": 0.3, "kurtosis": 0.2},
+                        "existing_metric_path": "", "appended_metric_path": "si_metrics", "threshold": 2},
+            **{f"dataset{i}": {"read_dataset": {"file_path": None, **_CSV_READ}} for i in range(1, 5)}}},
+    "report_preprocessing": {"master_path": "report_stats", "charts_to_objects": {
+        "list_of_cols": "all", "drop_cols": "ifa", "label_col": "income", "event_label": ">50K",
+        "bin_method": "equal_frequency", "bin_size": BIN_SIZE, "drift_detector": True, "outlier_charts": False,
+        "source_path": "NA"}},
+    "report_generation": {"master_path": "report_stats", "id_col": "ifa", "label_col": "income",
+                          "corr_threshold": 0.4, "iv_threshold": 0.02, "drift_threshold_model": 0.1,
+                          "dataDict_path": "NA", "metricDict_path": "NA", "final_report_path": "report_stats"},
+    "transformers": FULL_TRANSFORMERS,
+    "write_intermediate": {"file_path": "intermediate_data", **_CSV_READ,
+                           "file_configs": {"mode": "overwrite", **_CSV_READ["file_configs"]}},
+    "write_main": {"file_path": "output", "file_type": "parquet", "file_configs": {"mode": "overwrite"}},
+    "write_stats": {"file_path": "stats", "file_type": "parquet", "file_configs": {"mode": "overwrite"}},
+}
+# 10b: configs_segmentation_unsupervised's autoencoder sample and batch;
+# the epochs cut from 100 (PERF.md section 4)
+AE_SAMPLE = 500_000
+AE_BATCH = 256
+AE_EPOCHS = 10
+# 10c: the imputers' table, its nulled columns, the KNN query rows checked
+# against float64, and the bound on MF's standardized observed-cell RMSE
+# (a rank-10 fit of 11 columns, 9 of them independent, leaves about a
+# third of a σ)
+IMPUTE_ROWS = 1_000_000
+IMPUTE_COLS = ["age", "fnlwgt", "hours-per-week"]
+KNN_QUERIES = 300
+MF_RMSE_BOUND = 0.5
+# 10d: the rows of configs_full's input (cut from 4M, PERF.md section 4)
+FULL_ROWS = 200_000
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -2536,6 +2648,738 @@ def phase_runner(torch, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the transformers, the latent features, the model imputers and
+# configs_full through the runner
+# ---------------------------------------------------------------------------
+def full_config(main_dir: str, si_dirs) -> dict:
+    """FULL_CONFIG with its read paths pointed at ``main_dir`` (input and
+    drift source) and the four stability ``si_dirs``."""
+    import copy
+
+    cfg = copy.deepcopy(FULL_CONFIG)
+    cfg["input_dataset"]["read_dataset"]["file_path"] = main_dir
+    cfg["drift_detector"]["drift_statistics"]["source_dataset"]["read_dataset"]["file_path"] = main_dir
+    for i, d in enumerate(si_dirs):
+        cfg["drift_detector"]["stability_index"][f"dataset{i + 1}"]["read_dataset"]["file_path"] = d
+    return cfg
+
+
+def tables_equal(torch, a, b) -> bool:
+    """Same columns, kinds, types, vocabularies, values and masks, bit for
+    bit."""
+    if a.col_names != b.col_names or a.nrows != b.nrows:
+        return False
+    for name in a.col_names:
+        x, y = a.columns[name], b.columns[name]
+        if (x.kind, x.dtype_name, x.data.dtype) != (y.kind, y.dtype_name, y.data.dtype):
+            return False
+        if (x.vocab is None) != (y.vocab is None) or (x.vocab is not None and list(x.vocab) != list(y.vocab)):
+            return False
+        if not (torch.equal(x.data, y.data) and torch.equal(x.mask, y.mask)):
+            return False
+    return True
+
+
+def host_values(col) -> np.ndarray:
+    """A numeric column as float64 on the host, NaN where masked."""
+    v = col.data.to(dtype=col.data.dtype).cpu().numpy().astype(np.float64)
+    v[~col.mask.cpu().numpy()] = np.nan
+    return v
+
+
+def keep_set_reference(s, coverage: float, max_category: int):
+    """outlier_categories' keep set in float64 pandas: the values by count
+    (ties by value), kept while the share before them is under the
+    coverage, at most max_category − 1; and whether a cumulative share lies
+    within 1e-6 of the coverage (f32 could then decide otherwise)."""
+    vc = s.dropna().astype(str).value_counts()
+    vc = vc.sort_index().sort_values(ascending=False, kind="stable")
+    cum = (vc / vc.sum()).cumsum().to_numpy()
+    lag = np.concatenate([[0.0], cum[:-1]])
+    sel = ~((cum >= coverage) & (lag >= coverage)) & (np.arange(len(vc)) <= max_category - 2)
+    return set(vc.index[sel]), bool((np.abs(cum - coverage) < 1e-6).any())
+
+
+def check_chain(df, steps: dict, tmp: str) -> dict:
+    """The six configs_full transformer steps against float64 pandas/numpy
+    over all rows (see the module docstring, phase 10a)."""
+    import pandas as pd
+
+    out = {}
+    cfg = FULL_CONFIG["transformers"]
+    # feature_transformation (sqrt): values within one ulp of the float64
+    # root of the f32 value, nulls where the input is null or negative
+    sq = steps["feature_transformation"]
+    worst = 0.0
+    for c in sq.attribute_type_segregation()[0]:
+        x = df[c].to_numpy(np.float64).astype(np.float32).astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            exp = np.sqrt(x).astype(np.float32)
+        col = sq.columns[c]
+        valid = ~np.isnan(exp)
+        check(np.array_equal(col.mask.cpu().numpy(), valid), f"sqrt nulls of {c}")
+        got = col.data.cpu().numpy()[valid]
+        err = np.abs(got.astype(np.float64) - exp[valid]) / np.spacing(exp[valid]).astype(np.float64)
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+    check(worst <= 1.0, f"sqrt off the float64 root by {worst} ulps")
+    out["sqrt_max_ulps"] = worst
+    # outlier_categories: the keep sets
+    oc = cfg["categorical_outliers"]["outlier_categories"]
+    near = []
+    binned = steps["attribute_binning"]
+    oc_out = steps["outlier_categories"]
+    oc_cols = [c for c in binned.attribute_type_segregation()[1] if c not in oc["drop_cols"]]
+    for c in oc_cols:
+        ref, tie = keep_set_reference(df[c], oc["coverage"], oc["max_category"])
+        got = set(oc_out.columns[c].vocab) - {"outlier_categories"}
+        if tie:
+            near.append(c)
+            continue
+        check(got == ref, f"outlier_categories keep set of {c}: {sorted(got)} vs {sorted(ref)}")
+    out["keep_sets_checked"] = len(oc_cols) - len(near)
+    out["keep_sets_near_coverage"] = near
+    # cat_to_num_supervised: rates equal to a pandas groupby mean at 4
+    # decimals, as f32 (rates within 1e-3 of a 4-decimal tie in 1e4 units,
+    # which an f32 quotient may round the other way, are counted apart)
+    sup = steps["cat_to_num_supervised"]
+    lab = df["income"]
+    ties, checked = 0, 0
+    for c in [c for c in oc_cols if c in sup.columns and sup.columns[c].kind == "num"]:
+        kept = set(oc_out.columns[c].vocab) - {"outlier_categories"}
+        mapped = df[c].astype(str).where(df[c].isin(kept), "outlier_categories").where(df[c].notna())
+        ok = mapped.notna() & lab.notna()
+        means = (lab[ok] == ">50K").groupby(mapped[ok]).mean()
+        present = mapped.dropna()
+        enc = sup.columns[c].data.cpu().numpy()
+        for i, v in present.groupby(present, sort=False).head(1).items():
+            t = means[v] * 1e4
+            if abs(t - np.floor(t) - 0.5) < 1e-3:
+                ties += 1
+                continue
+            check(enc[i] == np.float32(np.round(means[v], 4)), f"supervised rate of {c}={v}: {enc[i]} vs {means[v]}")
+            checked += 1
+    out["rates_checked"], out["rates_near_tie"] = checked, ties
+    # IQR_standardization: median and IQR exactly numpy's 'lower' quantiles
+    iqr_in = steps["cat_to_num_supervised"]
+    m = pd.read_parquet(os.path.join(tmp, "chain", "IQR_standardization", "part-00000.parquet")).set_index("attribute")
+    skipped = []
+    for c in iqr_in.attribute_type_segregation()[0]:
+        v = host_values(iqr_in.columns[c]).astype(np.float32)
+        v = v[~np.isnan(v)]
+        if not v.size:  # an all-null column: NaN parameters, skipped
+            check(np.isnan(m.loc[c, "iqr"]), f"IQR of the all-null {c}")
+            skipped.append(c)
+            continue
+        q = np.quantile(v, [0.25, 0.5, 0.75], method="lower")
+        check(m.loc[c, "median"] == q[1] and m.loc[c, "iqr"] == np.float32(q[2] - q[0]),
+              f"IQR parameters of {c}: {m.loc[c, 'median']}, {m.loc[c, 'iqr']} vs {q}")
+        if q[2] == q[0]:
+            skipped.append(c)
+    got_skipped = [c for c in m.index if c not in steps["IQR_standardization"].columns
+                   or steps["IQR_standardization"].columns[c] is iqr_in.columns[c]]
+    check(sorted(got_skipped) == sorted(skipped), f"zero-IQR columns {got_skipped} vs {skipped}")
+    out["iqr_zero_skipped"] = skipped
+    out.update(check_pca(steps["IQR_standardization"], steps["PCA_latentFeatures"], tmp,
+                         cfg["numerical_latentFeatures"]["PCA_latentFeatures"]["explained_variance_cutoff"]))
+    return out
+
+
+def check_pca(pca_in, pca_out, tmp: str, cutoff: float) -> dict:
+    """PCA against float64 numpy on all rows: the nulls filled with the
+    column median (0 for an all-null column), centred, the covariance's eigenvectors; k equal where no
+    cumulative share lies within 1e-4 of the cutoff; each kept component
+    |cos| ≥ 1 − 1e-4; the projections onto the port's components within
+    1e-5 of the column's largest |z| of their float64 product."""
+    import pandas as pd
+
+    cols = pca_in.attribute_type_segregation()[0]
+    X = np.stack([host_values(pca_in.columns[c]) for c in cols], 1).astype(np.float32).astype(np.float64)
+    with np.errstate(all="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        med = np.nan_to_num(np.nanmedian(X, axis=0))  # an all-null column: 0
+    X = np.where(np.isnan(X), med[None, :], X)
+    X -= X.mean(axis=0)
+    ev, vec = np.linalg.eigh(X.T @ X / (len(X) - 1))
+    ev, vec = ev[::-1], vec[:, ::-1]
+    ratio = np.cumsum(ev) / ev.sum()
+    k_ref = int(np.searchsorted(ratio, cutoff) + 1)
+    m = pd.read_parquet(os.path.join(tmp, "chain", "PCA_latentFeatures", "part-00000.parquet"))
+    V = np.stack([np.asarray(r, np.float64) for r in m["loadings"]], 1)
+    k = V.shape[1]
+    if np.abs(ratio - cutoff).min() > 1e-4:
+        check(k == k_ref, f"PCA k {k} vs float64 {k_ref}")
+    cos = np.abs((V * vec[:, :k]).sum(0)) / np.linalg.norm(V, axis=0)
+    check(bool((cos >= 1 - 1e-4).all()), f"PCA components off float64: |cos| {cos}")
+    # the projections onto the port's own components, in float64: what is
+    # left is the f32 centring and product (a component's turn away from
+    # float64's, bounded by the |cos| check, moves a projection by up to
+    # sin θ · |x|: the near-equal variances of the standardized decile
+    # columns leave the eigenvalues close together)
+    Z = X @ V
+    worst = turned = 0.0
+    for i in range(k):
+        got = pca_out.columns[f"latent_{i}"].data.cpu().numpy().astype(np.float64)
+        worst = max(worst, float(np.abs(got - Z[:, i]).max() / np.abs(Z[:, i]).max()))
+        ref = X @ vec[:, i]
+        turned = max(turned, float(np.abs(np.sign((got * ref).sum()) * got - ref).max() / np.abs(ref).max()))
+    check(worst <= 1e-5, f"PCA projections off float64 by {worst} of the column's largest |z|")
+    return {"pca_k": k, "pca_cols": len(cols), "pca_min_cos": float(cos.min()), "pca_proj_rel_err": worst,
+            "pca_proj_vs_float64_components": turned}
+
+
+def boxcox_reference(torch, table, cols) -> tuple:
+    """The boxcox λ search in float64 on the card: for each λ of the grid
+    the KS statistic of the transformed valid values against N(0, 1).
+    Returns (argmin λ per column, margin to the runner-up)."""
+    from anovos_tpu_torch.data_transformer.transformers import _BOXCOX_LAMBDAS
+
+    X, M = table.numeric_block(cols, dtype=torch.float64)
+    ks_all = []
+    for lam in _BOXCOX_LAMBDAS:
+        Y = torch.log(X) if lam == 0.0 else torch.sign(X) * torch.pow(torch.abs(X), lam)
+        ok = M & torch.isfinite(Y)
+        Yc, okc = torch.where(ok, Y, 0.0).t(), ok.t()
+        n = okc.sum(dim=1).to(torch.float64)
+        mean = Yc.sum(dim=1) / torch.clamp_min(n, 1)
+        d = torch.where(okc, Yc - mean[:, None], 0.0)
+        std = torch.sqrt((d * d).sum(dim=1) / torch.clamp_min(n - 1, 1))
+        Z = torch.sort(torch.where(okc, (Yc - mean[:, None]) / torch.clamp_min(std, 1e-300)[:, None],
+                                   float("inf")), dim=1).values
+        pos = torch.arange(1, Z.shape[1] + 1, dtype=torch.float64, device=Z.device)[None, :]
+        cdf = torch.special.ndtr(Z)
+        n1 = torch.clamp_min(n, 1)[:, None]
+        dev = torch.maximum((cdf - pos / n1).abs(), (cdf - (pos - 1) / n1).abs())
+        ks_all.append(torch.where(pos <= n[:, None], dev, 0.0).amax(dim=1).cpu().numpy())
+    ks = np.stack(ks_all)
+    best = np.argmin(ks, axis=0)  # first λ on ties, as the search takes it
+    srt = np.sort(ks, axis=0)
+    return np.array(_BOXCOX_LAMBDAS)[best], srt[1] - srt[0]
+
+
+STATE_CASES = (
+    ("attribute_binning", {"list_of_cols": ["age", "hours-per-week"], "bin_size": 6}),
+    ("z_standardization", {"list_of_cols": ["age", "fnlwgt"]}),
+    ("IQR_standardization", {"list_of_cols": ["hours-per-week"]}),
+    ("normalization", {"list_of_cols": ["fnlwgt", "hours-per-week"], "output_mode": "append"}),
+    ("imputation_MMM", {"list_of_cols": ["age", "workclass"], "method_type": "median"}),
+    ("cat_to_num_unsupervised", {"list_of_cols": ["workclass", "education"], "method_type": "label_encoding"}),
+    ("cat_to_num_supervised", {"list_of_cols": ["workclass"], "label_col": "income", "event_label": ">50K",
+                               "output_mode": "append"}),
+    ("outlier_categories", {"list_of_cols": ["education"], "coverage": 0.8, "max_category": 4}),
+    ("boxcox_transformation", {"list_of_cols": ["hours-per-week", "fnlwgt"]}),
+    ("feature_transformation", {"list_of_cols": ["hours-per-week"], "method_type": "sqrt",
+                                "output_mode": "append"}),
+)
+EXPRESSIONS = ("log(fnlwgt) + age / 10", "(hours-per-week > 40) & (capital-gain > 0)")
+
+
+def phase_transformers_direct(torch, table, df, tmp: str) -> dict:
+    """Phase 10a on phase 3's Table: configs_full's six transformer steps
+    chained, then the scalers, boxcox, expressions and the state contract
+    of the 10 servable families; checks against float64."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_transformer import transformers as tr
+
+    walls, launches = {}, {}
+    out = {"rows": table.nrows, "walls_s": walls, "launches_by_step": launches}
+    num_cols = table.attribute_type_segregation()[0]
+    steps, t = {}, table
+    for group in FULL_CONFIG["transformers"].values():
+        for fn, kw in group.items():
+            kw = dict(kw)
+            if fn in ("outlier_categories", "cat_to_num_supervised", "IQR_standardization", "PCA_latentFeatures"):
+                kw["model_path"] = os.path.join(tmp, "chain")  # its fitted state, for the checks
+            inp = t
+            t = timed_launches(torch, walls, launches, fn, lambda: getattr(tr, fn)(inp, **kw))
+            steps[fn] = t
+    check(on_card(steps.values()), "a transformer step left the card")
+    z = timed_launches(torch, walls, launches, "z_standardization",
+                       lambda: tr.z_standardization(table, num_cols, model_path=os.path.join(tmp, "z")))
+    mm_ = timed_launches(torch, walls, launches, "normalization",
+                         lambda: tr.normalization(table, num_cols, model_path=os.path.join(tmp, "mm")))
+    bx = timed_launches(torch, walls, launches, "boxcox_transformation",
+                        lambda: tr.boxcox_transformation(table, num_cols, output_mode="append"))
+    ex = timed_launches(torch, walls, launches, "expression_parser",
+                        lambda: tr.expression_parser(table, list(EXPRESSIONS)))
+    check(on_card([z, mm_, bx, ex]), "a transformer left the card")
+    states = {}
+    for i, (fam, cfg) in enumerate(STATE_CASES):
+        def fit_state_apply():
+            import json as _json
+
+            state = _json.loads(_json.dumps(tr.fitted_state(table, fam, cfg)))
+            return state, tr.from_state(state).apply(table)
+
+        states[fam] = timed_launches(torch, walls, launches, f"state_{fam}", fit_state_apply)
+    out["seconds"] = sum(walls.values())
+    print("transformers: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+
+    # the checks (float64 numpy/pandas; not timed as steps)
+    t0 = time.perf_counter()
+    for fam, cfg in STATE_CASES:
+        kw = dict(cfg)
+        if tr._STATE_MODEL_FMT.get(fam):
+            kw["model_path"] = os.path.join(tmp, "batch_" + fam)
+        check(tables_equal(torch, states[fam][1], getattr(tr, fam)(table, **kw)),
+              f"from_state apply of {fam} differs from its batch apply")
+    out.update(check_chain(df, steps, tmp))
+    for name, model, fields in (("z_standardization", "z", ("mean", "stddev")),
+                                ("normalization", "mm", ("min", "max"))):
+        m = pd.read_parquet(os.path.join(tmp, model, name, "part-00000.parquet")).set_index("attribute")
+        for c in num_cols:
+            v = df[c].dropna().to_numpy(np.float64).astype(np.float32).astype(np.float64)
+            if name == "z_standardization":
+                mean, sd = v.mean(), v.std(ddof=1)
+                check(abs(m.loc[c, "mean"] - mean) <= 1e-4 + 1e-5 * abs(mean)
+                      and abs(m.loc[c, "stddev"] - sd) <= 1e-4 + 1e-4 * sd, f"z parameters of {c}")
+            else:
+                check(m.loc[c, "min"] == v.min() and m.loc[c, "max"] == v.max(), f"min/max of {c}")
+    lam_got = np.array(states["boxcox_transformation"][0]["model"]["tables"]["boxcox_lambda"]["lambda"])
+    bc_cols = STATE_CASES[8][1]["list_of_cols"]
+    from anovos_tpu_torch.data_transformer.transformers import _boxcox_fit_lambdas
+
+    Xb, Mb = table.numeric_block(num_cols)
+    lam_all = _boxcox_fit_lambdas(Xb, Mb, len(num_cols))
+    check(list(lam_all[[num_cols.index(c) for c in bc_cols]]) == list(lam_got), "boxcox λ of the state")
+    lam_ref, margin = boxcox_reference(torch, table, num_cols)
+    decided = margin > 1e-5
+    bad = {c: (lam_all[j], lam_ref[j]) for j, c in enumerate(num_cols) if decided[j] and lam_all[j] != lam_ref[j]}
+    check(not bad, f"boxcox λ differs from the float64 KS argmin: {bad}")
+    out["boxcox_lambdas"] = dict(zip(num_cols, lam_all.tolist()))
+    out["boxcox_decided"] = int(decided.sum())
+    for j, c in enumerate(num_cols):
+        col = bx.columns[c + "_bxcx"]
+        x = df[c].to_numpy(np.float64).astype(np.float32)
+        with np.errstate(all="ignore"):
+            lam = np.float32(lam_all[j])
+            ref = np.log(x) if lam == 0 else np.sign(x) * np.abs(x) ** lam
+        valid = np.isfinite(ref)
+        check(np.array_equal(col.mask.cpu().numpy(), valid), f"boxcox nulls of {c}")
+        got = col.data.cpu().numpy()[valid].astype(np.float64)
+        check(np.allclose(got, ref[valid].astype(np.float64), rtol=2e-6, atol=0), f"boxcox values of {c}")
+    f = df["fnlwgt"].to_numpy(np.float64).astype(np.float32).astype(np.float64)
+    a = df["age"].to_numpy(np.float64).astype(np.float32).astype(np.float64)
+    e0 = np.log(f) + a / 10
+    got0 = ex.columns[EXPRESSIONS[0]]
+    v0 = ~np.isnan(e0)
+    check(np.array_equal(got0.mask.cpu().numpy(), v0)
+          and np.allclose(got0.data.cpu().numpy()[v0], e0[v0], rtol=1e-6, atol=0), "expression 1")
+    e1 = ((df["hours-per-week"] > 40) & (df["capital-gain"] > 0)).to_numpy(np.float32)
+    check(np.array_equal(ex.columns[EXPRESSIONS[1]].data.cpu().numpy(), e1), "expression 2")
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"transformers: configs_full's six steps, the scalers, boxcox, 2 expressions and 10 served "
+          f"families checked ({out['checks_s']:.1f} s): sqrt within {out['sqrt_max_ulps']:.0f} ulp; keep sets "
+          f"{out['keep_sets_checked']} equal to pandas; {out['rates_checked']} rates equal to a pandas groupby "
+          f"mean ({out['rates_near_tie']} near a tie); IQR exact, zero-IQR {out['iqr_zero_skipped']}; PCA k "
+          f"{out['pca_k']} of {out['pca_cols']}, |cos| ≥ {out['pca_min_cos']:.7f}, projections within "
+          f"{out['pca_proj_rel_err']:.2e} ({out['pca_proj_vs_float64_components']:.2e} on float64's "
+          f"components); boxcox λ {out['boxcox_lambdas']} ({out['boxcox_decided']} decided "
+          f"by more than 1e-5); every from_state apply equal to its batch apply", flush=True)
+    return out
+
+
+class Recorder:
+    """While in its ``with`` block, ``module.attr`` is wrapped so that the
+    first argument of every call (or the instance a class builds) is
+    kept in ``seen``."""
+
+    def __init__(self, module, attr: str, instances: bool = False):
+        self.module, self.attr, self.instances, self.seen = module, attr, instances, []
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.attr)
+        saved, seen = self.saved, self.seen
+        if self.instances:
+            class Recorded(saved):
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    seen.append(self)
+            setattr(self.module, self.attr, Recorded)
+        else:
+            def call(*a, **kw):
+                seen.append(a[0])
+                return saved(*a, **kw)
+            setattr(self.module, self.attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.saved)
+
+
+def adam_parity(torch, ae, X) -> dict:
+    """Three Adam steps on the card and on the CPU from the same fresh
+    parameters on the same batches: losses within 1e-5 relative; every
+    parameter within 1e-5·(1 + |p|) but the dense biases a BatchNorm
+    removes (gradient 0 in exact arithmetic: within 3·lr of the start on
+    both) and the running means (0.01 of those biases' gap a step)."""
+    from anovos_tpu_torch.models.autoencoder import AutoEncoder
+
+    dev = AutoEncoder(ae.n_inputs, ae.n_bottleneck).init_params(X.device)
+    host = AutoEncoder(ae.n_inputs, ae.n_bottleneck).net_from_state(
+        {k: v.cpu() for k, v in dev.state_dict().items()})
+    start = {k: v.cpu().clone() for k, v in dev.state_dict().items()}
+    batches = [X[i * AE_BATCH:(i + 1) * AE_BATCH] for i in range(3)]
+    ld = [float(x) for x in AutoEncoder.train_steps(dev, torch.optim.Adam(dev.parameters(), lr=1e-3), batches)]
+    lh = [float(x) for x in AutoEncoder.train_steps(host, torch.optim.Adam(host.parameters(), lr=1e-3),
+                                                    [b.cpu() for b in batches])]
+    check(np.allclose(ld, lh, rtol=1e-5, atol=0), f"Adam losses card {ld} vs CPU {lh}")
+    worst = 0.0
+    for k, v in dev.state_dict().items():
+        a, b = v.cpu().numpy().astype(np.float64), host.state_dict()[k].numpy().astype(np.float64)
+        if k.startswith("dense.") and k.endswith(".bias") and not k.startswith("dense.out"):
+            s = start[k].numpy()
+            check(np.abs(a - s).max() <= 3e-3 * (1 + 1e-6) and np.abs(b - s).max() <= 3e-3 * (1 + 1e-6), k)
+            continue
+        if k.endswith(".mean"):
+            check(np.abs(a - b).max() <= 1e-5 * (1 + np.abs(b).max()) + 3e-4, k)
+            continue
+        err = float((np.abs(a - b) / (1 + np.abs(b))).max())
+        worst = max(worst, err)
+        check(err <= 1e-5, f"{k} after 3 Adam steps: card vs CPU {err}")
+    return {"adam_losses": ld, "adam_param_rel_err": worst}
+
+
+def phase_autoencoder(torch, table, tmp: str) -> dict:
+    """Phase 10b: autoencoder_latentFeatures at n = 9, k = 4 on phase 3's
+    numeric columns, configs_segmentation_unsupervised's sample and batch,
+    AE_EPOCHS epochs."""
+    from anovos_tpu_torch.data_transformer import latent_features as lf
+    from anovos_tpu_torch.models.autoencoder import AutoEncoder
+
+    walls, launches = {}, {}
+    out = {"walls_s": walls, "launches_by_step": launches, "epochs": AE_EPOCHS}
+    num_cols = table.attribute_type_segregation()[0]
+    mp = os.path.join(tmp, "ae")
+    with Recorder(lf, "AutoEncoder", instances=True) as rec:
+        lat = timed_launches(torch, walls, launches, "autoencoder_latentFeatures",
+                             lambda: lf.autoencoder_latentFeatures(
+                                 table, num_cols, reduction_params=0.5, sample_size=AE_SAMPLE,
+                                 epochs=AE_EPOCHS, batch_size=AE_BATCH, model_path=mp, output_mode="append"))
+    ae = rec.seen[0]
+    out["epoch_s"] = walls["autoencoder_latentFeatures"] / AE_EPOCHS
+    out["history"] = ae.history
+    print(f"autoencoder: {AE_EPOCHS} epochs of {int(AE_SAMPLE * 0.8) // AE_BATCH} steps in "
+          f"{walls['autoencoder_latentFeatures']:.2f} s; validation MSE by epoch "
+          f"{[round(h['val_mse'], 5) for h in ae.history]}", flush=True)
+    t0 = time.perf_counter()
+    k = ae.n_bottleneck
+    check((ae.n_inputs, k) == (9, 4), f"autoencoder width {ae.n_inputs} → {k}")
+    val = [h["val_mse"] for h in ae.history]
+    check(bool(np.isfinite(val).all()) and val[-1] < val[0] and val[-1] < 1.0,
+          f"validation MSE {val[0]} → {val[-1]} (mean predictor 1.0)")
+    latents = [lat.columns[f"latent_{i}"].data for i in range(k)]
+    check(on_card([lat]), "the latents left the card")
+    X, _, _ = lf._prep_block(table, num_cols, True, True)
+    ae2, params = AutoEncoder.load(mp, X.device)
+    Z = ae2.latent(params, X)
+    check(all(torch.equal(Z[:, i], latents[i]) for i in range(k)), "model.npz round trip changed the latents")
+    rows = 200_000
+    host_net = ae2.net_from_state({kk: v.cpu() for kk, v in params.state_dict().items()})
+    Zh = ae2.latent(host_net, X[:rows].cpu()).numpy().astype(np.float64)
+    Zd = Z[:rows].cpu().numpy().astype(np.float64)
+    out["latent_card_vs_cpu"] = float((np.abs(Zd - Zh) / (1 + np.abs(Zh))).max())
+    check(out["latent_card_vs_cpu"] <= 1e-5, f"latents on the card vs the CPU: {out['latent_card_vs_cpu']}")
+    out.update(adam_parity(torch, ae, X))
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"autoencoder: validation MSE {val[0]:.5f} → {val[-1]:.5f}; model.npz round trip bit-equal; card "
+          f"latents within {out['latent_card_vs_cpu']:.2e} of a CPU forward ({rows} rows); 3 Adam steps' "
+          f"losses {out['adam_losses']} equal the CPU's to 1e-5, parameters within "
+          f"{out['adam_param_rel_err']:.2e} ({out['checks_s']:.1f} s of checks)", flush=True)
+    return out
+
+
+def impute_frame(df):
+    """Phase 10c's table: IMPUTE_ROWS of phase 3's numeric columns and two
+    columns linear in age and hours-per-week (correlation about 0.9, so a
+    model beats the mean without making the regression ill-conditioned),
+    with 5% nulls in age, fnlwgt and hours-per-week."""
+    num = df.select_dtypes("number").iloc[:IMPUTE_ROWS].reset_index(drop=True).copy()
+    g = np.random.default_rng(10)
+    n = len(num)
+    num["age_x"] = 0.5 * num["age"].fillna(40.0) + g.normal(0, 5.0, n)
+    num["hours_x"] = 2.0 * num["hours-per-week"] + g.normal(0, 20.0, n)
+    for c in IMPUTE_COLS:
+        num.loc[g.random(n) < 0.05, c] = np.nan
+    return num
+
+
+def knn_reference(Xq, Mq, Xs, Ms, j: int, K: int = 5):
+    """Feature j of each query row by float64 nan-euclidean K-NN over the
+    fit sample (ties toward the lower fit row), and whether the port's f32
+    distances must pick the same donors: the expanded distance of a donor
+    is off by up to 8 ulps of Σ x² + y² over the features both observe
+    (centred on the fit set's mean), so the pick is decided where the K
+    nearest, each at its distance plus that error, stay nearer than every
+    other donor at its distance less its own."""
+    k = Xq.shape[1]
+    mu = np.array([Xs[Ms[:, c], c].mean() for c in range(k)])
+    out, clear = np.zeros(len(Xq)), np.zeros(len(Xq), bool)
+    xs = np.where(Ms, Xs - mu, 0.0)
+    eps = float(np.finfo(np.float32).eps)
+    for i in range(len(Xq)):
+        both = Mq[i][None, :] & Ms
+        xq = np.where(Mq[i], Xq[i] - mu, 0.0)
+        scale = k / np.maximum(both.sum(1), 1)
+        d2 = np.where(both, (xq[None, :] - xs) ** 2, 0.0).sum(1) * scale
+        d2[(both.sum(1) == 0) | ~Ms[:, j]] = np.inf
+        err = 8 * eps * np.where(both, xq[None, :] ** 2 + xs ** 2, 0.0).sum(1) * scale
+        order = np.lexsort((np.arange(len(d2)), d2))
+        top, rest = order[:K], order[K:]
+        rest = rest[np.isfinite(d2[rest])]
+        out[i] = Xs[top, j].mean()
+        clear[i] = not len(rest) or (d2[top] + err[top]).max() < (d2[rest] - err[rest]).min()
+    return out, clear
+
+
+def ridge_reference(torch, X, M, device, iters: int = 10):
+    """The round-robin regression in float64 (on ``device``): each sweep,
+    column j by least squares (``torch.linalg.lstsq``) on the other
+    columns as filled and an intercept, over the rows that observe it, its
+    missing cells refreshed; then the apply, one pass of the fitted
+    columns in order from the mean fill.  Returns (coefs (k, k + 1), the
+    applied matrix) on the host."""
+    X = torch.as_tensor(X, dtype=torch.float64, device=device)
+    M = torch.as_tensor(M, device=device)
+    n, k = X.shape
+    means = torch.where(M, X, 0.0).sum(0) / M.sum(0)
+    ones = torch.ones((n, 1), dtype=torch.float64, device=device)
+    coefs = torch.zeros((k, k + 1), dtype=torch.float64, device=device)
+
+    def design(Xf, j):
+        return torch.cat([Xf[:, [c for c in range(k) if c != j]], ones], 1)
+
+    Xf = torch.where(M, X, means[None, :])
+    for _ in range(iters):
+        for j in range(k):
+            A = design(Xf, j)
+            rows = M[:, j]
+            beta = torch.linalg.lstsq(A[rows], X[rows, j:j + 1]).solution[:, 0]
+            Xf[:, j] = torch.where(M[:, j], X[:, j], A @ beta)
+            coefs[j, [c for c in range(k) if c != j]] = beta[:-1]
+            coefs[j, k] = beta[-1]
+    Xa = torch.where(M, X, means[None, :])
+    for j in range(k):
+        beta = torch.cat([coefs[j, [c for c in range(k) if c != j]], coefs[j, k:]])
+        Xa[:, j] = torch.where(M[:, j], X[:, j], design(Xa, j) @ beta)
+    return coefs.cpu().numpy(), Xa.cpu().numpy()
+
+
+def phase_imputers(torch, df, tmp: str) -> dict:
+    """Phase 10c on an IMPUTE_ROWS table: KNN, regression, MF and auto,
+    each timed, checked against float64 numpy and the CPU port."""
+    from anovos_tpu_torch.data_transformer import imputers as imp
+    from anovos_tpu_torch.ops.als import als_impute
+    from anovos_tpu_torch.ops.reductions import masked_moments
+    from anovos_tpu_torch.shared.table import Table
+
+    frame = impute_frame(df)
+    t = Table.from_pandas(frame)
+    torch.cuda.synchronize()
+    walls, launches = {}, {}
+    out = {"rows": t.nrows, "walls_s": walls, "launches_by_step": launches}
+    knn = timed_launches(torch, walls, launches, "KNN", lambda: imp.imputation_sklearn(t, method_type="KNN"))
+    reg = timed_launches(torch, walls, launches, "regression",
+                         lambda: imp.imputation_sklearn(t, method_type="regression",
+                                                        model_path=os.path.join(tmp, "ridge")))
+    mf = timed_launches(torch, walls, launches, "MF", lambda: imp.imputation_matrixFactorization(t))
+    auto = timed_launches(torch, walls, launches, "auto", lambda: imp.auto_imputation(t, print_impact=False))
+    check(on_card([knn, reg, mf, auto]), "an imputer left the card")
+    print("imputers: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+
+    t0 = time.perf_counter()
+    cols = list(frame.columns)
+    X = frame.to_numpy(np.float64).astype(np.float32).astype(np.float64)
+    M = ~np.isnan(X)
+    X = np.where(M, X, 0.0)
+    tgt = [cols.index(c) for c in IMPUTE_COLS]
+    for o in (knn, reg, mf, auto):
+        for c in IMPUTE_COLS:
+            check(bool(o.columns[c].mask.all()) and bool(torch.isfinite(o.columns[c].data).all()), f"{c} imputed")
+    # KNN: seeded query rows against float64 over the same fit sample,
+    # where f32 distances decide the same donors (knn_reference)
+    pick = np.random.default_rng(42).choice(t.nrows, size=10000, replace=False)
+    g = np.random.default_rng(11)
+    checked = same = queried = 0
+    worst = 0.0
+    for j in tgt:
+        rows = g.choice(np.flatnonzero(~M[:, j]), KNN_QUERIES // len(tgt), replace=False)
+        ref, clear = knn_reference(X[rows], M[rows], X[pick], M[pick], j)
+        got = knn.columns[cols[j]].data.cpu().numpy()[rows].astype(np.float64)
+        err = np.abs(got - ref) / (1 + np.abs(ref))
+        queried += len(rows)
+        same += int((err <= 1e-5).sum())
+        checked += int(clear.sum())
+        if clear.any():
+            worst = max(worst, float(err[clear].max()))
+    check(worst <= 1e-5 and checked >= KNN_QUERIES // 6,
+          f"KNN off float64 by {worst} where its donors are decided ({checked} rows)")
+    out.update(knn_queried=queried, knn_decided=checked, knn_equal_float64=same, knn_rel_err=worst)
+    # regression: coefficients and imputed cells against float64 lstsq
+    blob = np.load(os.path.join(tmp, "ridge", "imputation_sklearn_regression.npz"))
+    coefs64, Xf64 = ridge_reference(torch, X, M, t.device)
+    sd = np.array([X[M[:, j], j].std() for j in range(len(cols))])
+    scaled = np.abs(blob["coefs"][:, :-1] - coefs64[:, :-1]) * sd[None, :] / sd[:, None]
+    out["ridge_coef_err_in_sd"] = float(scaled.max())
+    check(out["ridge_coef_err_in_sd"] <= 1e-3, f"ridge coefficients off float64 by {scaled.max()} σ")
+    worst = 0.0
+    for j in tgt:
+        miss = ~M[:, j]
+        got = reg.columns[cols[j]].data.cpu().numpy()[miss].astype(np.float64)
+        worst = max(worst, float(np.abs(got - Xf64[miss, j]).max() / sd[j]))
+    out["ridge_pred_err_in_sd"] = worst
+    check(worst <= 1e-3, f"ridge imputations off float64 by {worst} σ")
+    # MF: the completion of the observed cells
+    Xt, Mt = t.numeric_block(cols)
+    mom = masked_moments(Xt, Mt)
+    std = torch.where(mom["stddev"] > 0, mom["stddev"], 1.0)
+    Zt = torch.where(Mt, (Xt - mom["mean"]) / std, 0.0)
+    C = als_impute(Zt, Mt, rank=min(10, max(2, len(cols) - 1)), iters=20, reg=0.01)
+    out["mf_observed_rmse_sd"] = float(torch.sqrt(((C - Zt)[Mt] ** 2).mean()))
+    check(np.isfinite(out["mf_observed_rmse_sd"]) and out["mf_observed_rmse_sd"] <= MF_RMSE_BOUND,
+          f"MF observed-cell RMSE {out['mf_observed_rmse_sd']} σ")
+    # auto: the card's choice against the CPU port's on the same holdout
+    card = imp.auto_imputation_scores(t, IMPUTE_COLS)
+    t_cpu = Table.from_pandas(frame, device="cpu")
+    t1 = time.perf_counter()
+    host = imp.auto_imputation_scores(t_cpu, IMPUTE_COLS)
+    out["auto_cpu_s"] = time.perf_counter() - t1
+    best, best_cpu = min(card, key=card.get), min(host, key=host.get)
+    srt = sorted(host.values())
+    out.update(auto_scores_card=card, auto_scores_cpu=host, auto_choice=best)
+    if srt[1] - srt[0] > 1e-4 * srt[0]:
+        check(best == best_cpu, f"auto_imputation chose {best} on the card, {best_cpu} on the CPU")
+    else:
+        check(card[best_cpu] - card[best] <= 1e-4 * card[best], f"auto near tie: {card} vs {host}")
+    direct = imp._candidates(IMPUTE_COLS)[best](t)
+    check(tables_equal(torch, auto, direct), f"auto_imputation's output is not {best}'s")
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"imputers: KNN within {out['knn_rel_err']:.2e} of float64 on the {checked} of {queried} query "
+          f"rows whose donors f32 distances decide ({same} of {queried} equal float64's); ridge coefficients within {out['ridge_coef_err_in_sd']:.2e} σ, "
+          f"imputations {out['ridge_pred_err_in_sd']:.2e} σ of float64; MF observed-cell RMSE "
+          f"{out['mf_observed_rmse_sd']:.4f} σ; auto chose {best} on the card and {best_cpu} on the CPU "
+          f"(CPU scores in {out['auto_cpu_s']:.1f} s) ({out['checks_s']:.1f} s of checks)", flush=True)
+    return out
+
+
+def phase_full_runner(torch, seed: int, tmp: str) -> dict:
+    """Phase 10d: workflow.main on FULL_CONFIG (configs_full.yaml), its
+    input FULL_ROWS synthesized rows as parquet (the drift source too) and
+    four CSV slices of its numeric columns for the stability index."""
+    import pandas as pd
+
+    from examples._data import synthesize
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.data_transformer import transformers as tr
+
+    out = {"rows": FULL_ROWS}
+    full = synthesize(FULL_ROWS, seed=seed + 10)
+    main_dir = os.path.join(tmp, "full_income")
+    os.makedirs(main_dir)
+    full.to_parquet(os.path.join(main_dir, "part-00000.parquet"), index=False)
+    num = full.select_dtypes("number").drop(columns=["empty", "logfnl"])
+    si = []
+    for i in range(4):
+        d = os.path.join(tmp, "full_si", str(i))
+        os.makedirs(d)
+        num.iloc[i * FULL_ROWS // 4:(i + 1) * FULL_ROWS // 4].to_csv(os.path.join(d, "part-00000.csv"), index=False)
+        si.append(d)
+    run_dir = os.path.join(tmp, "full_run")
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    walls, launches = {}, {}
+    out.update(walls_s=walls, launches_by_step=launches)
+    try:
+        with Recorder(tr, "feature_transformation") as rec:
+            timed_launches(torch, walls, launches, "workflow.main",
+                           lambda: workflow.main(full_config(main_dir, si), "local"))
+    finally:
+        os.chdir(cwd)
+    out["wall_s"] = walls["workflow.main"]
+    out["block_times_s"] = workflow.block_times()
+    print("full runner: block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in out["block_times_s"].items())
+          + f"; workflow.main {out['wall_s']:.3f} s", flush=True)
+    check(workflow.degraded_sections() == {}, f"runner blocks failed: {workflow.degraded_sections()}")
+    tdir = os.path.join(run_dir, "intermediate_data", "data_transformer", "transformers")
+    for group in FULL_CONFIG["transformers"].values():
+        for fn in group:
+            check(os.path.isdir(os.path.join(tdir, fn)) and os.listdir(os.path.join(tdir, fn)),
+                  f"no intermediate dataset of {fn}")
+    check(len(rec.seen) == 1, "the runner's transformers block ran feature_transformation once")
+    t = rec.seen[0]
+    for group in FULL_CONFIG["transformers"].values():
+        for fn, kw in group.items():
+            t = getattr(tr, fn)(t, **kw)
+    final = pd.read_parquet(os.path.join(run_dir, "output", "final_dataset"))
+    try:
+        pd.testing.assert_frame_equal(final, t.to_pandas(), check_dtype=False)
+    except AssertionError as e:
+        fail(f"full runner: final_dataset differs from the direct chain: {e}")
+    out["final_columns"] = list(final.columns)
+    print(f"full runner: configs_full on {FULL_ROWS} rows, the six transformer datasets written, the final "
+          f"dataset ({len(final)} rows, {list(final.columns)}) equal to the direct chain, no block failed",
+          flush=True)
+    return out
+
+
+def phase_transformers(torch, seed: int, table, df) -> dict:
+    """Phase 10 (10a-d): the counts are set to 0 before it, and its path's
+    launches are those of its timed steps; then B1 and B2 against their
+    plain versions on every input the phase gave them on the card."""
+    from anovos_tpu_torch.ops import kernels
+
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        with KernelInputs(torch) as given:
+            out["direct"] = phase_transformers_direct(torch, table, df, tmp)
+            out["autoencoder"] = phase_autoencoder(torch, table, tmp)
+            out["imputers"] = phase_imputers(torch, df, tmp)
+            out["runner"] = phase_full_runner(torch, seed, tmp)
+    # the path's launches: those of the timed steps (each step's own, read
+    # before its checks ran)
+    out["launches"] = {name: sum(step[name] for part in out.values() for step in part["launches_by_step"].values())
+                       for name in kernels.LAUNCHES}
+    print(f"transformers: kernel launches {out['launches']}", flush=True)
+    for name in PATH_KERNELS["transformers"]:
+        check(out["launches"][name] > 0, f"kernel {name} was not launched on the transformers path")
+    # after the path (not counted): B1 and B2 on every input the phase gave
+    # them on the card, against their plain versions; timed at each new
+    # shape (the CPU port's calls in 10c's check ran the plain versions)
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    b1 = [a for a in given.seen["masked_moments"] if a[0].is_cuda]
+    b2 = [a for a in given.seen["binned_histograms"] if a[0].is_cuda]
+    rows, timed_shapes = {"masked_moments": [], "binned_histograms": []}, {(9, ROWS)}
+    for i, (Xc, Mc) in enumerate(b1):
+        if tuple(Xc.shape) in timed_shapes:
+            acc = masked_moments_cols(Xc, Mc)
+            moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
+            continue
+        timed_shapes.add(tuple(Xc.shape))
+        rows["masked_moments"].append(b1_row(torch, Xc, Mc, "transformers", f"launch {i + 1} of {len(b1)}"))
+    for i, (Xc, Mc, cuts, nbins) in enumerate(b2):
+        if tuple(Xc.shape) in timed_shapes:
+            check(torch.equal(binned_histograms_cols(Xc, Mc, cuts, nbins),
+                              binned_histograms_plain(Xc, Mc, cuts, nbins)),
+                  "binned_histograms differs from plain on the transformers path")
+            continue
+        timed_shapes.add(tuple(Xc.shape))
+        rows["binned_histograms"].append(b2_row(torch, Xc, Mc, cuts, nbins, "transformers",
+                                                f"launch {i + 1} of {len(b2)}"))
+    out["kernel_calls_checked"] = {"masked_moments": len(b1), "binned_histograms": len(b2)}
+    out["kernels"] = rows
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"transformers: phase 10 in {out['phase_s']:.1f} s, B1 checked on {len(b1)} calls and B2 on "
+          f"{len(b2)}", flush=True)
+    del given
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -2631,22 +3475,29 @@ def main() -> None:
     assoc_kernels = assoc.pop("kernels")
     print("association " + json.dumps({k: v for k, v in assoc.items() if k != "launches"}), flush=True)
     ts = phase_timeseries(torch, args.seed, table, df, extra)
-    del table, df, extra
+    del extra
     print("timeseries " + json.dumps(ts), flush=True)
     runner = phase_runner(torch, args.seed)
     runner_kernels = runner.pop("kernels")
     print("runner " + json.dumps({k: v for k, v in runner.items() if k != "launches"}), flush=True)
+    transform = phase_transformers(torch, args.seed, table, df)
+    del table, df
+    transform_kernels = transform.pop("kernels")
+    print("transformers " + json.dumps({k: v for k, v in transform.items() if k != "launches"}), flush=True)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
     kres["masked_moments"]["other_shapes"] += runner_kernels["masked_moments"]
+    kres["masked_moments"]["other_shapes"] += transform_kernels["masked_moments"]
     kres["binned_histograms"]["other_shapes"] = ([quality_kernels["binned_histograms"]]
-                                                 + runner_kernels["binned_histograms"])
+                                                 + runner_kernels["binned_histograms"]
+                                                 + transform_kernels["binned_histograms"])
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
                                                      "association": assoc["launches"],
                                                      "timeseries": ts["launches"],
-                                                     "runner": runner["launches"]}, sass)
-    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "runner": runner["launches"],
+                                                     "transformers": transform["launches"]}, sass)
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -137,7 +137,8 @@ def test_cat_to_num_transformer_dispatch(frame):
     out = cat_to_num_transformer(pt, drop_cols="income", method_type="unsupervised",
                                  encoding="label_encoding")
     assert out.columns["workclass"].kind == "num"
-    with pytest.raises(NotImplementedError):
-        cat_to_num_transformer(pt, method_type="supervised", label_col="income", event_label=">50K")
+    sup = cat_to_num_transformer(pt, drop_cols="ifa", method_type="supervised", label_col="income",
+                                 event_label=">50K")
+    assert sup.columns["workclass"].kind == "num" and sup.columns["income"].kind == "cat"
     with pytest.raises(TypeError):
         cat_to_num_transformer(pt, method_type="other")

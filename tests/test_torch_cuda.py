@@ -537,3 +537,107 @@ def test_cuda_timeseries_path_stays_on_the_card_and_equals_the_cpu(tmp_path):
             pd.testing.assert_frame_equal(pd.read_csv(og / n), pd.read_csv(oc / n), rtol=1e-6)
         else:
             assert (og / n).read_text() == (oc / n).read_text(), n
+
+
+@pytest.mark.cuda
+def test_cuda_transformers_stay_on_the_card_and_equal_the_cpu():
+    """configs_full's six transformer steps, the scalers and boxcox on the
+    card: every returned column on the card, equal to the same calls on
+    the CPU within 1e-5 relative plus 1e-5 (f32 moments summed in another
+    order move a z-score near 0 by about 1e-7 of its σ); PCA's latents
+    sign-aligned, within 1e-4 of the column's largest value."""
+    import pandas as pd
+
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_transformer import transformers as tr
+    from anovos_tpu_torch.shared.table import Table
+
+    _require_cuda()
+    df = synthesize(50_000, seed=8).drop(columns=["ifa", "dt_1", "dt_2", "empty", "logfnl"])
+    chain = [("feature_transformation", {"method_type": "sqrt"}),
+             ("attribute_binning", {"method_type": "equal_frequency", "bin_size": 10}),
+             ("outlier_categories", {"drop_cols": ["income"], "coverage": 0.9, "max_category": 20}),
+             ("cat_to_num_supervised", {"label_col": "income", "event_label": ">50K"}),
+             ("IQR_standardization", {}), ("PCA_latentFeatures", {"explained_variance_cutoff": 0.95})]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t = Table.from_pandas(df, device=dev)
+        side = [tr.z_standardization(t), tr.normalization(t), tr.boxcox_transformation(t, output_mode="append")]
+        for fn, kw in chain:
+            t = getattr(tr, fn)(t, **kw)
+        runs[dev] = [t] + side
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        assert g.col_names == c.col_names
+        assert all(col.data.is_cuda and col.mask.is_cuda for col in g.columns.values())
+        gp, cp = g.to_pandas(), c.to_pandas()
+        lat = [n for n in gp.columns if n.startswith("latent_")]
+        pd.testing.assert_frame_equal(gp.drop(columns=lat), cp.drop(columns=lat), rtol=1e-5, atol=1e-5)
+        for n in lat:
+            a, b = gp[n].to_numpy(), cp[n].to_numpy()
+            a = a * np.sign((a * b).sum())
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), n
+
+
+def _imputer_frame():
+    import pandas as pd
+
+    g = np.random.default_rng(14)
+    n = 20_000
+    x = g.normal(10, 3, n)
+    df = pd.DataFrame({"x": x, "y": 0.5 * x + g.normal(0, 1, n), "z": g.exponential(2, n)})
+    df.loc[g.random(n) < 0.1, "y"] = np.nan
+    df.loc[g.random(n) < 0.05, "z"] = np.nan
+    return df
+
+
+@pytest.mark.cuda
+def test_cuda_imputers_equal_the_cpu():
+    """The ridge and ALS on the card equal the CPU within 1e-4 of the
+    column's σ (f32 products in another order); KNN equals it on at least
+    99% of the imputed cells within 1e-5 relative: elsewhere two donors
+    lie within f32 rounding of the K-th distance and the devices round
+    them apart (both are float64's pick only where f32 decides it, as
+    chip_smoke.py 10c checks)."""
+    from anovos_tpu_torch.data_transformer import imputers as imp
+    from anovos_tpu_torch.shared.table import Table
+
+    _require_cuda()
+    df = _imputer_frame()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = Table.from_pandas(df, device=dev)
+        out[dev] = [imp.imputation_sklearn(t, method_type="KNN").to_pandas(),
+                    imp.imputation_sklearn(t, method_type="regression").to_pandas(),
+                    imp.imputation_matrixFactorization(t).to_pandas()]
+    (kg, rg, mg), (kc, rc, mc) = out["cuda"], out["cpu"]
+    for c in ("y", "z"):
+        hole = df[c].isna().to_numpy()
+        a, b = kg[c].to_numpy()[hole], kc[c].to_numpy()[hole]
+        assert (np.abs(a - b) <= 1e-5 * np.abs(b)).mean() >= 0.99, c
+        sd = df[c].std()
+        for g_, c_ in ((rg, rc), (mg, mc)):
+            np.testing.assert_allclose(g_[c], c_[c], rtol=0, atol=1e-4 * sd, err_msg=c)
+
+
+@pytest.mark.cuda
+def test_cuda_autoencoder_latents_with_tf32_on_equal_the_cpu():
+    """The autoencoder's latents from the same parameters, with TF32
+    switched on globally around the call (the model pins IEEE f32), equal
+    a CPU forward within 1e-5·(1 + |x|)."""
+    from anovos_tpu_torch.models.autoencoder import AutoEncoder
+
+    _require_cuda()
+    g = np.random.default_rng(15)
+    ae = AutoEncoder(3, 2)
+    net = ae.init_params()
+    X = torch.from_numpy(g.normal(0, 1, (5000, 3)).astype(np.float32))
+    flags = torch.backends.cuda.matmul
+    before = flags.fp32_precision
+    flags.fp32_precision = "tf32"
+    try:
+        got = ae.latent(ae.net_from_state(net.state_dict(), "cuda"), X.cuda()).cpu().numpy()
+        assert flags.fp32_precision == "tf32"
+    finally:
+        flags.fp32_precision = before
+    exp = ae.latent(net, X).numpy()
+    assert np.all(np.abs(got - exp) <= 1e-5 * (1 + np.abs(exp)))

@@ -77,8 +77,38 @@ def test_invalid_entries_on_integer_columns():
 
 @pytest.mark.parametrize("method", ["KNN", "regression", "MF", "auto"])
 def test_model_based_imputers_not_ported_yet(tables, method):
+    """The model-based treatments are ported now (the name is kept): on
+    the quality frame KNN, regression and MF impute its numeric columns as
+    the JAX package does (KNN within 1e-5 relative, the ridge within 2e-4
+    relative, MF's completions, from the port's own ALS draws, finite;
+    the frame's all-null column left out, whose NaN mean would reach every
+    predicted cell in both packages);
+    auto refuses the frame's categorical columns with the JAX package's
+    TypeError (its column resolution takes numeric columns only)."""
+    from anovos_tpu.data_analyzer.quality_checker import nullColumns_detection as jnull
     from anovos_tpu_torch.data_analyzer.quality_checker import nullColumns_detection
 
-    _, pt = tables
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        nullColumns_detection(pt, list_of_cols="all", treatment=True, treatment_method=method)
+    jt, pt = tables
+    kw = dict(list_of_cols="all", drop_cols=["ifa"], treatment=True, treatment_method=method)
+    if method == "auto":
+        with pytest.raises(TypeError, match="non-numerical") as pe:
+            nullColumns_detection(pt, **kw)
+        with pytest.raises(TypeError) as je:
+            jnull(jt, **kw)
+        assert str(pe.value) == str(je.value)
+        return
+    # the all-null column's NaN mean would fill every cell the ridge and MF
+    # predict with NaN, in both packages: they impute the other columns
+    jt, pt = jt.drop(["empty"]), pt.drop(["empty"])
+    (po, ps), (jo, js) = nullColumns_detection(pt, **kw), jnull(jt, **kw)
+    assert_frames_close(ps, js)
+    assert po.col_names == jo.col_names and po.dtypes() == jo.dtypes()
+    num = [c for c in po.col_names if po.columns[c].kind == "num"]
+    g, e = po.to_pandas(), jo.to_pandas()
+    assert not g[num].isna().any().any()
+    if method == "MF":
+        assert_frames_close(g.drop(columns=num), e.drop(columns=num))
+        assert np.isfinite(g[num].to_numpy(np.float64)).all()
+        return
+    tol = 1e-5 if method == "KNN" else 2e-4
+    assert_frames_close(g, e, rtol=tol, atol=tol)

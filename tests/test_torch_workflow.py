@@ -141,7 +141,8 @@ def _assert_json_close(got, exp, exact: bool, where: str) -> None:
         for i, (g, e) in enumerate(zip(got, exp)):
             _assert_json_close(g, e, exact, f"{where}[{i}]")
     elif isinstance(exp, float) and not exact:
-        assert isinstance(got, (int, float)) and abs(got - exp) <= 1e-6, f"{where}: {got} vs {exp}"
+        assert isinstance(got, (int, float)) and (abs(got - exp) <= 1e-6 or np.isnan(got) and np.isnan(exp)), \
+            f"{where}: {got} vs {exp}"
     else:
         assert got == exp, f"{where}: {got!r} vs {exp!r}"
 

@@ -36,7 +36,7 @@ def test_no_argument_prints_the_usage_line():
 def test_resume_is_refused():
     res = run_cli("config/configs_basic.yaml", "local", "--resume")
     assert res.returncode == 1
-    assert "--resume" in res.stderr and "Queue A item 10" in res.stderr
+    assert "--resume" in res.stderr and "Queue A item 4" in res.stderr
 
 
 @pytest.mark.parametrize("argv,expected", [
@@ -69,29 +69,35 @@ def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
     assert "CUDA device requested" in res.stderr
 
 
-@pytest.mark.parametrize("block,item", [("transformers", "Queue A item 8"),
-                                        ("streaming_analysis", "Queue A item 10"),
-                                        ("continuous_analysis", "Queue A item 10"),
-                                        ("write_feast_features", "Queue A item 10")])
+@pytest.mark.parametrize("block,item", [("transformers", "Queue A item 3"),
+                                        ("streaming_analysis", "Queue A item 4"),
+                                        ("continuous_analysis", "Queue A item 4"),
+                                        ("write_feast_features", "Queue A item 4")])
 def test_unported_blocks_raise_before_any_work(block, item):
-    """The config's input path does not exist: the refusal comes first."""
+    """The config's input path does not exist: the refusal comes first.
+    A transformers block is refused for a function the port lacks (a
+    geospatial transformer), not with getattr's AttributeError."""
     from anovos_tpu_torch import workflow
 
     cfg = load_config("configs_full.yaml")
     cfg.pop("transformers")
-    cfg[block] = {"anything": {}}
+    cfg[block] = {"anything": {"location_distance": {}}}
     with pytest.raises(NotImplementedError, match=item):
         workflow.main(cfg, "local")
 
 
 def test_basic_report_skips_the_analytics_blocks():
     """With basic_report true the later analytics keys are skipped, so a
-    transformers block there is not refused; write_feast_features is."""
+    transformers block naming a function the port lacks is not refused
+    there; write_feast_features is.  configs_full's own transformers
+    block is ported."""
     from anovos_tpu_torch.workflow import _check_ported
 
     cfg = load_config("configs_full.yaml")
+    _check_ported(cfg, basic_report=False)
+    cfg["transformers"]["geo"] = {"geo_format_latlon": {"list_of_lat": "latitude"}}
     _check_ported(cfg, basic_report=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         _check_ported(cfg, basic_report=False)
     with pytest.raises(NotImplementedError, match="write_feast_features"):
         _check_ported(dict(cfg, write_feast_features={}), basic_report=True)
@@ -113,3 +119,24 @@ def test_chip_smoke_runs_the_basic_config():
     got = chip_smoke.basic_config("/data/main", "/data/join")
     exp = basic_config("/data/main", "/data/join")
     assert got == exp and list(got) == list(exp)
+
+
+def test_chip_smoke_runs_the_full_config():
+    """chip_smoke.py's copy of config/configs_full.yaml (phase 10d): after
+    the same substitution (the input and drift source, the four stability
+    datasets, the two dictionaries set to NA) it is the file's, blocks and
+    transformer steps in the file's order."""
+    import chip_smoke
+
+    si = [f"/data/si{i}" for i in range(4)]
+    got = chip_smoke.full_config("/data/main", si)
+    exp = load_config("configs_full.yaml")
+    exp["input_dataset"]["read_dataset"]["file_path"] = "/data/main"
+    drift = exp["drift_detector"]
+    drift["drift_statistics"]["source_dataset"]["read_dataset"]["file_path"] = "/data/main"
+    for i, d in enumerate(si):
+        drift["stability_index"][f"dataset{i + 1}"]["read_dataset"]["file_path"] = d
+    exp["report_generation"]["dataDict_path"] = "NA"
+    exp["report_generation"]["metricDict_path"] = "NA"
+    assert got == exp and list(got) == list(exp)
+    assert [list(g) for g in got["transformers"].values()] == [list(g) for g in exp["transformers"].values()]

@@ -1,8 +1,8 @@
-"""The port's YAML runner against the JAX package's on
-``config/configs_full.yaml`` without its ``transformers`` block (the
-analyze → quality → association → drift → report part), the dictionaries
-set to ``NA``, every read path pointed at the same 2,000 synthesized
-income rows and the stability datasets at four CSV slices of them.
+"""The port's YAML runner against the JAX package's on the whole of
+``config/configs_full.yaml`` (analyze → quality → association → drift →
+report → transformers), the dictionaries set to ``NA``, every read path
+pointed at the same 2,000 synthesized income rows and the stability
+datasets at four CSV slices of them.
 
 Parity standard as in ``tests/test_torch_workflow.py``.  Files that carry
 a divergence by design (ROADMAP.md Queue C) are compared by their own
@@ -16,6 +16,10 @@ rule, not value for value:
 - the drift binning model (``attribute_binning``): equal-range cutoffs
   within one f32 ulp (XLA may contract lo + j·width into an FMA), as
   ``tests/test_torch_drift.py`` holds them;
+- the PCA latent columns (``PCA_latentFeatures``' intermediate dataset and
+  the final dataset): ``eigh`` may return a component with either sign, so
+  each column is aligned to the JAX sign, then held to 1e-4·(1 + |x|)
+  plus 2e-5 of the largest latent;
 - the IV/IG group counts' int64/float64 against f32 does not show: every
   group holds fewer than 2^24 rows.
 
@@ -32,15 +36,14 @@ import pandas as pd
 import pytest
 
 from _torch_port import torch_cpu_runtime  # noqa: F401  (autouse fixture)
-from test_torch_workflow import (ROWS, assert_chart_close, assert_dirs_close, income_data, load_config,
-                                 render_both, run_both)
+from test_torch_workflow import (ROWS, assert_chart_close, assert_csv_close, assert_dirs_close, income_data,
+                                 load_config, render_both, run_both, tree)
 
 
 def full_config(data: dict) -> dict:
-    """configs_full.yaml without transformers, its paths pointed at
-    ``income_data``'s files and the dictionaries set to NA."""
+    """configs_full.yaml, its paths pointed at ``income_data``'s files and
+    the dictionaries set to NA."""
     cfg = load_config("configs_full.yaml")
-    del cfg["transformers"]
     cfg["input_dataset"]["read_dataset"]["file_path"] = data["main"]
     drift = cfg["drift_detector"]
     drift["drift_statistics"]["source_dataset"]["read_dataset"]["file_path"] = data["main"]
@@ -78,6 +81,23 @@ def _cutoffs_rule(got_path, exp_path):
 
 KMEANS = {"cluster_output_kmeans_latitude_longitude.csv": _kmeans_rule,
           "geospatial_kmeans_latitude_longitude.csv": _kmeans_rule}
+TRANSFORMERS = ("feature_transformation", "attribute_binning", "outlier_categories", "cat_to_num_supervised",
+                "IQR_standardization", "PCA_latentFeatures")
+
+
+def assert_latents_close(got: pd.DataFrame, exp: pd.DataFrame) -> None:
+    """Two frames with ``latent_<i>`` columns: the other columns equal, each
+    latent column aligned to the JAX sign, then within 1e-4·(1 + |x|) plus
+    2e-5 of the largest latent (a component of a small eigenvalue turns
+    with the covariance's rounding, by its share of the largest one)."""
+    lat = [c for c in exp.columns if c.startswith("latent_")]
+    assert list(got.columns) == list(exp.columns) and lat
+    pd.testing.assert_frame_equal(got.drop(columns=lat), exp.drop(columns=lat), check_dtype=False)
+    scale = float(np.abs(exp[lat].to_numpy(np.float64)).max())
+    for c in lat:
+        g, e = got[c].to_numpy(np.float64), exp[c].to_numpy(np.float64)
+        g = g * (1.0 if (g * e).sum() >= 0 else -1.0)
+        np.testing.assert_allclose(g, e, rtol=1e-4, atol=1e-4 + 2e-5 * scale, err_msg=c)
 
 
 def test_report_stats_tree_matches_jax(runs):
@@ -113,10 +133,37 @@ def test_drift_model_matches_jax(runs):
 
 
 def test_final_dataset_matches_jax(runs):
+    """The transformed table: PCA's latents (the chain ends in it) and the
+    columns it leaves."""
     rel = os.path.join("output", "final_dataset", "part-00000.parquet")
     got, exp = (pd.read_parquet(os.path.join(runs[p], rel)) for p in ("port", "jax"))
-    pd.testing.assert_frame_equal(got, exp)
-    assert len(got) <= ROWS
+    assert got.dtypes.to_dict() == exp.dtypes.to_dict()
+    assert_latents_close(got, exp)
+    assert len(got) <= ROWS and "latent_1" in got.columns
+
+
+def test_intermediate_tree_matches_jax(runs):
+    """Every file under intermediate_data/: the quality checkers' datasets,
+    the drift model and the six transformers' datasets."""
+    got_dir, exp_dir = (os.path.join(runs[p], "intermediate_data") for p in ("port", "jax"))
+    names = tree(exp_dir)
+    assert tree(got_dir) == names
+    for fn in TRANSFORMERS:
+        assert any(n.startswith(f"data_transformer/transformers/{fn}/") for n in names), fn
+    for rel in names:
+        gp, ep = os.path.join(got_dir, rel), os.path.join(exp_dir, rel)
+        if rel.startswith("data_transformer/transformers/PCA_latentFeatures/") and rel.endswith(".csv"):
+            assert_latents_close(pd.read_csv(gp), pd.read_csv(ep))
+        elif rel.endswith(os.path.join("attribute_binning", "part-00000.parquet")):
+            _cutoffs_rule(gp, ep)
+        elif rel.endswith(".csv") and os.path.getsize(ep):
+            assert_csv_close(gp, ep)
+        elif rel.endswith(".csv"):
+            assert os.path.getsize(gp) == 0, rel
+        elif rel.endswith(".parquet"):
+            pd.testing.assert_frame_equal(pd.read_parquet(gp), pd.read_parquet(ep), obj=rel)
+        else:
+            assert os.path.basename(rel) == "_SUCCESS", rel
 
 
 def test_block_times_under_the_jax_labels(runs):
@@ -124,7 +171,8 @@ def test_block_times_under_the_jax_labels(runs):
     for label in ("timeseries_analyzer", "geospatial_controller", "stats_generator, measures_of_counts",
                   "quality_checker, outlier_detection", "association_evaluator, correlation_matrix",
                   "drift_detector, drift_statistics", "drift_detector, stability_index",
-                  "report_preprocessing, charts_to_objects", "report_generation, full_report"):
+                  "report_preprocessing, charts_to_objects", "report_generation, full_report",
+                  *(f"transformers, {fn}" for fn in TRANSFORMERS)):
         assert label in times, label
     assert runs["degraded"] == {}
 
@@ -141,12 +189,16 @@ def test_renderer_bytes_over_the_jax_tree(runs, tmp_path):
 
 
 def test_drift_charts_from_the_jax_drift_model(runs, tmp_path):
-    """The port's charts_to_objects(drift_detector=True) on the port's
-    final table, reading the JAX run's drift model: the JAX drift_* charts."""
+    """The port's charts_to_objects(drift_detector=True) on the table the
+    port's charts saw (the last quality check's dataset, before the
+    transformers), reading the JAX run's drift model: the JAX drift_*
+    charts."""
     from anovos_tpu_torch.data_ingest.data_ingest import read_dataset
     from anovos_tpu_torch.data_report.report_preprocessing import charts_to_objects
 
-    table = read_dataset(os.path.join(runs["port"], "output", "final_dataset"), "parquet")
+    table = read_dataset(os.path.join(runs["port"], "intermediate_data", "data_analyzer", "quality_checker",
+                                      "nullColumns_detection", "dataset"), "csv",
+                         {"header": True, "inferSchema": True})
     cfg = dict(load_config("configs_full.yaml")["report_preprocessing"]["charts_to_objects"])
     cfg["source_path"] = os.path.join(runs["jax"], "intermediate_data")
     charts_to_objects(table, **cfg, master_path=str(tmp_path))
