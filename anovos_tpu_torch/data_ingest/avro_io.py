@@ -1,11 +1,16 @@
-"""Minimal Avro object-container codec, read and write (the port's own copy
-of ``anovos_tpu/data_ingest/avro_io.py``, its pure-Python codec only).
+"""Minimal Avro object-container codec, read and write (counterpart of
+``anovos_tpu/data_ingest/avro_io.py``).
 
-The Avro binary format is varint/zigzag numbers and length-prefixed bytes;
-block compression goes to zlib (deflate) or pyarrow's bundled snappy.  Only
-the schemas Spark writes for flat DataFrames are supported: a top-level
+The Avro binary format is varint/zigzag numbers and length-prefixed bytes.
+Only the schemas Spark writes for flat DataFrames are supported: a top-level
 record of primitive fields, each optionally nullable through a union with
-"null".
+"null".  ``read_avro`` and ``write_avro`` go through the port's C++ codec
+(``shared/native.py``) wherever the header or the frame's dtypes allow, by
+the JAX package's rules: field types boolean, int, long, float, double and
+string, each alone or in a two-branch union with null, and the block codecs
+null, deflate and snappy.  Everything else goes to the pure-Python record
+loops, ``read_avro_records`` and ``write_avro_records``, whose block
+compression goes to zlib (deflate) or pyarrow's bundled snappy.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ import json
 import os
 import struct
 import zlib
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from anovos_tpu_torch.shared import native
 
 _MAGIC = b"Obj\x01"
 
@@ -107,12 +114,8 @@ def _decode_value(buf, ftype):
     raise ValueError(f"unsupported avro type: {ftype}")
 
 
-def read_avro(path: str) -> Dict[str, np.ndarray]:
-    """Read one .avro container file → dict of host column arrays: numeric
-    fields as float64 (int64 when integral without nulls, NaN for null),
-    booleans as bool, everything else as an object array."""
-    with open(path, "rb") as f:
-        raw = f.read()
+def _read_header(raw: bytes, path: str):
+    """(fields, codec, sync, offset of the first block) of a container."""
     buf = io.BytesIO(raw)
     if buf.read(4) != _MAGIC:
         raise ValueError(f"not an avro container: {path}")
@@ -121,14 +124,65 @@ def read_avro(path: str) -> Dict[str, np.ndarray]:
         cnt = _read_long(buf)
         if cnt == 0:
             break
+        if cnt < 0:  # a negative count is followed by the block's size
+            _read_long(buf)
         for _ in range(abs(cnt)):
             k = _read_bytes(buf).decode()
             meta[k] = _read_bytes(buf)
     schema = json.loads(meta["avro.schema"])
     codec = meta.get("avro.codec", b"null").decode()
     sync = buf.read(16)
-    fields = schema["fields"]
+    return schema["fields"], codec, sync, buf.tell()
 
+
+def codec_fields(fields, codec: str) -> Optional[List[Tuple[str, str, int]]]:
+    """The codec's field spec for a header, (name, base type, null branch
+    or −1) a field, or None where the codec does not take the schema or the
+    block codec (the JAX package's ``_try_native_decode`` rules)."""
+    if codec not in native.AVRO_CODECS:
+        return None
+    spec = []
+    for f in fields:
+        base, branches = _field_reader(f["type"])
+        null_idx = -1
+        if base == "union":
+            bases = [_field_reader(b)[0] for b in branches]
+            if len(bases) != 2 or "null" not in bases:
+                return None
+            null_idx = bases.index("null")
+            base = bases[1 - null_idx]
+        if base not in native.AVRO_TYPES:
+            return None
+        spec.append((f["name"], base, null_idx))
+    return spec
+
+
+def read_avro(path: str) -> Dict[str, np.ndarray]:
+    """Read one .avro container file → dict of host column arrays: int and
+    long fields exact int64 without nulls, else float64 with NaN for null;
+    float and double float64; booleans bool (null False); strings
+    dictionary-encoded (:class:`~anovos_tpu_torch.shared.native.NativeEncodedStrings`)
+    through the codec, or object arrays where the Python reader decodes."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    fields, codec, sync, offset = _read_header(raw, path)
+    spec = codec_fields(fields, codec)
+    if spec is not None:
+        return native.native_avro_decode(raw, offset, sync, codec, spec)
+    return _decode_records(raw, fields, codec, sync, offset)
+
+
+def read_avro_records(path: str) -> Dict[str, np.ndarray]:
+    """``read_avro`` through the pure-Python record loop, whatever the
+    schema (strings as object arrays)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    return _decode_records(raw, *_read_header(raw, path))
+
+
+def _decode_records(raw: bytes, fields, codec: str, sync: bytes, offset: int) -> Dict[str, np.ndarray]:
+    buf = io.BytesIO(raw)
+    buf.seek(offset)
     cols: Dict[str, list] = {f["name"]: [] for f in fields}
     while buf.tell() < len(raw):
         try:
@@ -149,11 +203,10 @@ def read_avro(path: str) -> Dict[str, np.ndarray]:
         types = {b for b in ([base] if base != "union" else [
             (_field_reader(x)[0]) for x in branches])} - {"null"}
         vals = cols[name]
-        if types <= {"int", "long", "float", "double"} and types:
-            arr = np.array([np.nan if v is None else v for v in vals], dtype=np.float64)
-            if types <= {"int", "long"} and not np.isnan(arr).any():
-                arr = arr.astype(np.int64)
-            out[name] = arr
+        if types <= {"int", "long"} and types and None not in vals:
+            out[name] = np.array(vals, dtype=np.int64)
+        elif types <= {"int", "long", "float", "double"} and types:
+            out[name] = np.array([np.nan if v is None else v for v in vals], dtype=np.float64)
         elif types == {"boolean"}:
             out[name] = np.array([False if v is None else v for v in vals], dtype=bool)
         else:
@@ -204,10 +257,7 @@ def _encode_value(out, v, ftype) -> None:
         raise ValueError(f"unsupported avro write type {ftype}")
 
 
-def write_avro(df, path: str, codec: str = "deflate", block_rows: int = 16384) -> None:
-    """Write a pandas DataFrame as one Avro container file."""
-    schema = _avro_schema_for(df)
-    sync = os.urandom(16)
+def _header(schema: dict, codec: str, sync: bytes) -> io.BytesIO:
     out = io.BytesIO()
     out.write(_MAGIC)
     meta = {"avro.schema": json.dumps(schema).encode(), "avro.codec": codec.encode()}
@@ -220,6 +270,31 @@ def write_avro(df, path: str, codec: str = "deflate", block_rows: int = 16384) -
         out.write(v)
     _write_long(out, 0)
     out.write(sync)
+    return out
+
+
+def write_avro(df, path: str, codec: str = "deflate", block_rows: int = 16384) -> None:
+    """Write a pandas DataFrame as one Avro container file: through the
+    codec where every column is bool, integer, float or string-like
+    (``native.avro_field_type``) and ``codec`` is null, deflate or snappy,
+    else through :func:`write_avro_records`."""
+    if codec not in native.AVRO_CODECS or any(
+            native.avro_field_type(df[c].dtype) is None for c in df.columns):
+        write_avro_records(df, path, codec, block_rows)
+        return
+    sync = os.urandom(16)
+    out = _header(_avro_schema_for(df), codec, sync)
+    out.write(native.native_avro_encode(df, sync, codec, block_rows))
+    with open(path, "wb") as f:
+        f.write(out.getvalue())
+
+
+def write_avro_records(df, path: str, codec: str = "deflate", block_rows: int = 16384) -> None:
+    """``write_avro`` through the pure-Python record loop (codecs null and
+    deflate), whatever the dtypes."""
+    schema = _avro_schema_for(df)
+    sync = os.urandom(16)
+    out = _header(schema, codec, sync)
     cols = [df[c].tolist() for c in df.columns]
     ftypes = [f["type"] for f in schema["fields"]]
     n = len(df)

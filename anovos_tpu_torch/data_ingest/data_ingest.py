@@ -2,7 +2,7 @@
 of ``anovos_tpu/data_ingest/data_ingest.py``).
 
 ``read_dataset`` decodes CSV, Parquet, JSON or Avro part files on the host
-(pyarrow, pandas, the port's own Avro codec), applies whole-dataset schema
+(pyarrow, pandas, the port's C++ Avro codec), applies whole-dataset schema
 inference and nulls ±inf and values beyond the f32 range (the JAX
 package's default ingest policy), then dictionary-encodes and uploads the
 columns to the runtime's device.  ``write_dataset`` writes Spark-style part
@@ -31,6 +31,7 @@ import torch
 
 from anovos_tpu_torch.data_ingest import avro_io
 from anovos_tpu_torch.ops.segment import masked_nunique
+from anovos_tpu_torch.shared.native import NativeEncodedStrings
 from anovos_tpu_torch.shared.table import Column, Table, host_to_column
 from anovos_tpu_torch.shared.utils import pairwise_reduce, parse_cols
 
@@ -106,22 +107,20 @@ def read_host_frame(files: List[str], file_type: str, cfg: dict) -> pd.DataFrame
 
 
 def _coerce_numeric_strings(decoded: dict) -> dict:
-    """A decoded string column whose every non-null value parses as a
-    number becomes float64 (the JAX package's Avro path does so through
-    its dictionary decoder); the parse runs over the distinct values."""
+    """A codec-decoded string column whose every vocabulary entry parses as
+    a number becomes float64, as the JAX package's Avro path does; the
+    parse runs over the vocabulary only."""
     out = {}
     for name, arr in decoded.items():
-        if arr.dtype == object:
-            isnull = pd.isna(arr)
-            head = pd.Series(arr[~isnull][:1024]).astype(str)
-            if len(head) and pd.to_numeric(head, errors="coerce").notna().all():
-                vocab, inv = np.unique(arr[~isnull].astype(str), return_inverse=True)
-                parsed = pd.to_numeric(pd.Series(vocab), errors="coerce")
-                if parsed.notna().all():
-                    vals = np.full(len(arr), np.nan)
-                    vals[~isnull] = parsed.to_numpy(np.float64)[inv]
-                    out[name] = vals
-                    continue
+        if isinstance(arr, NativeEncodedStrings) and len(arr.vocab):
+            parsed = pd.to_numeric(pd.Series(arr.vocab.astype(str)), errors="coerce")
+            if parsed.notna().all():
+                lut = parsed.to_numpy(np.float64)
+                vals = np.full(len(arr.codes), np.nan)
+                valid = arr.codes >= 0
+                vals[valid] = lut[arr.codes[valid]]
+                out[name] = vals
+                continue
         out[name] = arr
     return out
 

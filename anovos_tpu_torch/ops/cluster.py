@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from anovos_tpu_torch.ops.kernels.neighbor_counts import neighbor_counts_rows, row_sq_norms, sq_dist
+from anovos_tpu_torch.shared.native import native_edge_components_minc
 from anovos_tpu_torch.shared.runtime import get_runtime
 
 _INF = float("inf")
@@ -278,9 +279,10 @@ def dbscan_host_grid(D2: np.ndarray, eps: float, min_samples_list: List[int]) ->
 def dbscan_host_grid_multi(D2: np.ndarray, eps_list: List[float], min_samples_list: List[int]
                            ) -> np.ndarray:
     """DBSCAN labels for the full (eps × min_samples) grid from a
-    precomputed squared-distance matrix: scipy connected components over
-    the core graph plus nearest-core border adoption, the semantics of
-    :func:`dbscan_grid` (dense int labels, −1 noise), on the host.
+    precomputed squared-distance matrix: the host codec's union-find
+    components over the core graph plus nearest-core border adoption, the
+    semantics of :func:`dbscan_grid` (dense int labels, −1 noise), on the
+    host.
 
     The within-eps adjacency is monotone in eps, so the edge list is
     extracted once at max(eps) and every smaller eps filters it; per-eps
@@ -289,9 +291,6 @@ def dbscan_host_grid_multi(D2: np.ndarray, eps_list: List[float], min_samples_li
     over the union border set, and fall back to the full row where the
     prefix is inconclusive.  Returns (len(eps_list), len(min_samples_list),
     n) labels."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
-
     n = len(D2)
     if not eps_list:  # empty grid (e.g. inverted eps range) → empty labels
         return np.full((0, len(min_samples_list), n), -1, np.int64)
@@ -340,10 +339,12 @@ def dbscan_host_grid_multi(D2: np.ndarray, eps_list: List[float], min_samples_li
                 continue
             remap = np.full(n, -1, np.int64)
             remap[ci] = np.arange(len(ci))  # border adoption indexes by core rank
-            ek = edge_min_count >= ms
-            ri, rj = remap[eia[ek]], remap[eja[ek]]
-            g = coo_matrix((np.ones(len(ri), np.int8), (ri, rj)), shape=(len(ci), len(ci)))
-            _, comp = connected_components(g, directed=True, connection="weak")
+            # one union-find pass over the edges whose endpoints are both
+            # core; a core cluster's label is the first-touch rank of its
+            # smallest member, so ranking the core labels gives scipy's
+            # weak-connectivity ids on the graph of the core points
+            _, labels = native_edge_components_minc(eia, eja, edge_min_count, ms, n)
+            _, comp = np.unique(labels[ci], return_inverse=True)
             out[a, b, ci] = comp
             bi = np.nonzero(~core)[0]
             if len(bi) and nn_part is not None:

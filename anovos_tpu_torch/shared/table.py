@@ -5,7 +5,10 @@
   (NaN in the source becomes mask=False, value 0);
 - categorical columns: a host dictionary (``vocab``, the sorted unique
   ``str()`` of the non-null values) and ``int32`` codes on the device,
-  null = code -1 with mask=False;
+  null = code -1 with mask=False.  A column of ``str`` values and nulls is
+  encoded by the host codec from its UTF-8 buffers (``shared/native.py``),
+  any other object column by ``str()`` and ``np.unique``: both give the
+  same codes and vocabulary;
 - timestamp columns: ``int32`` epoch seconds and a mask.
 
 A numeric column whose values do not survive a round trip through f32
@@ -27,6 +30,8 @@ import numpy as np
 import pandas as pd
 import torch
 
+from anovos_tpu_torch.shared import native
+from anovos_tpu_torch.shared.native import NativeEncodedStrings
 from anovos_tpu_torch.shared.runtime import get_runtime
 
 
@@ -70,9 +75,24 @@ def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def host_to_column(arr: np.ndarray, n: int, device: torch.device) -> Column:
+def _cat_column(enc: NativeEncodedStrings, n: int, device: torch.device) -> Column:
+    codes = np.ascontiguousarray(enc.codes[:n], np.int32)
+    return Column("cat", _put(codes, device), _put(codes >= 0, device), vocab=enc.vocab,
+                  dtype_name="string")
+
+
+def host_to_column(arr, n: int, device: torch.device) -> Column:
     """One host array → a Column on ``device``, with the JAX package's
-    encoding rules (``anovos_tpu/shared/table.py`` ``_host_to_column``)."""
+    encoding rules (``anovos_tpu/shared/table.py`` ``_host_to_column``).
+    ``arr``: a numpy array, a pandas extension array, or a string column the
+    codec already encoded (:class:`NativeEncodedStrings`)."""
+    if isinstance(arr, NativeEncodedStrings):
+        return _cat_column(arr, n, device)
+    if isinstance(arr, pd.api.extensions.ExtensionArray) or arr.dtype == object or arr.dtype.kind == "U":
+        enc = native.dict_encode_strings(arr[:n])
+        if enc is not None:
+            return _cat_column(enc, n, device)
+        arr = np.asarray(arr)
     if arr.dtype == object or arr.dtype.kind in ("U", "S"):
         vals = arr[:n]
         isnull = pd.isna(vals)
@@ -134,7 +154,9 @@ class Table:
             return Table(cols, 0)
         n = nrows if nrows is not None else len(next(iter(data.values())))
         for name, arr in data.items():
-            cols[name] = host_to_column(np.asarray(arr), n, dev)
+            if not isinstance(arr, (NativeEncodedStrings, pd.api.extensions.ExtensionArray)):
+                arr = np.asarray(arr)
+            cols[name] = host_to_column(arr, n, dev)
         return Table(cols, n)
 
     @staticmethod
@@ -142,7 +164,9 @@ class Table:
         data = {}
         for name in df.columns:
             s = df[name]
-            if s.dtype == object or str(s.dtype) in ("string", "category"):
+            if native.is_string_dtype(s.dtype):
+                data[name] = s.array  # string buffers for the codec
+            elif s.dtype == object or str(s.dtype) == "category":
                 data[name] = s.to_numpy(dtype=object)
             else:
                 data[name] = s.to_numpy()

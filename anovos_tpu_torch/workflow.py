@@ -16,7 +16,11 @@ any work starts: ``streaming_analysis``, ``continuous_analysis`` and
 of the geospatial transformers.
 
 Each block's wall time is logged under the JAX runner's labels and kept
-for :func:`block_times`.
+for :func:`block_times`.  A fan-out section that fails (an analyzer,
+stats metric, association measure, drift, stability or the charts) is
+logged, recorded for :func:`degraded_sections` and skipped, as the JAX
+runner degrades it; a failing ingest, quality, transformer or report
+block ends the run.
 """
 
 from __future__ import annotations
@@ -95,9 +99,9 @@ def block_times() -> dict:
 
 
 def degraded_sections() -> dict:
-    """{section: error} of the best-effort blocks (ts auto-detection, ts
-    inspection, geospatial analyzer) that failed in the most recent
-    ``main()`` run and were skipped, as the JAX runner skips them."""
+    """{section: error} of the best-effort sections (see ``_best_effort``)
+    that failed in the most recent ``main()`` run and were skipped, as the
+    JAX runner skips them, under the JAX runner's section names."""
     return dict(_DEGRADED)
 
 
@@ -232,7 +236,10 @@ def _check_ported(all_configs: dict, basic_report: bool) -> None:
 
 def _best_effort(section: str, fn, *args, **kwargs):
     """``fn(...)``, or None after logging and recording a failure, as the
-    JAX runner treats ts detection, ts inspection and the geo analyzer."""
+    JAX runner treats its fan-out sections (ts detection and inspection,
+    the geo analyzer, each stats metric, each association measure, drift,
+    stability and the charts): the run goes on without the section's
+    files."""
     try:
         return fn(*args, **kwargs)
     except Exception as e:
@@ -351,9 +358,13 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                 # a repeated metric in a hand-edited YAML runs once
                 for m in dict.fromkeys(args["metric"]):
                     t1 = time.monotonic()
-                    df_stats = getattr(stats_generator, m)(df, **args["metric_args"])
-                    _save_stats_or_write(df_stats, report_input_path, m, write_stats,
-                                         "data_analyzer/stats_generator/" + m, run_type, auth_key)
+
+                    def _stat(m=m):
+                        df_stats = getattr(stats_generator, m)(df, **args["metric_args"])
+                        _save_stats_or_write(df_stats, report_input_path, m, write_stats,
+                                             "data_analyzer/stats_generator/" + m, run_type, auth_key)
+
+                    _best_effort(f"stats_generator/{m}", _stat)
                     _log_block_time(f"stats_generator, {m}", t1)
 
             if key == "quality_checker":
@@ -380,14 +391,19 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     if value is None:
                         continue
                     t1 = time.monotonic()
-                    extra_args = stats_args(all_configs, subkey, run_type, auth_key)
-                    df_in = df
-                    cat_params = all_configs.get("cat_to_num_transformer", None)
-                    if subkey == "correlation_matrix" and cat_params:
-                        df_in = transformers.cat_to_num_transformer(df, **cat_params)
-                    df_stats = getattr(association_evaluator, subkey)(df_in, **value, **extra_args)
-                    _save_stats_or_write(df_stats, report_input_path, subkey, write_stats,
-                                         "data_analyzer/association_evaluator/" + subkey, run_type, auth_key)
+
+                    def _assoc(subkey=subkey, value=value):
+                        extra_args = stats_args(all_configs, subkey, run_type, auth_key)
+                        df_in = df
+                        cat_params = all_configs.get("cat_to_num_transformer", None)
+                        if subkey == "correlation_matrix" and cat_params:
+                            df_in = transformers.cat_to_num_transformer(df, **cat_params)
+                        df_stats = getattr(association_evaluator, subkey)(df_in, **value, **extra_args)
+                        _save_stats_or_write(df_stats, report_input_path, subkey, write_stats,
+                                             "data_analyzer/association_evaluator/" + subkey, run_type,
+                                             auth_key)
+
+                    _best_effort(f"association_evaluator/{subkey}", _assoc)
                     _log_block_time(f"{key}, {subkey}", t1)
 
             if key == "drift_detector":
@@ -395,7 +411,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     if value is None or subkey not in ("drift_statistics", "stability_index"):
                         continue
                     t1 = time.monotonic()
-                    if subkey == "drift_statistics":
+
+                    def _drift(value=value):
                         source = None
                         if not value["configs"].get("pre_existing_source", False):
                             src_spec = value.get("source_dataset")
@@ -411,7 +428,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         df_stats = ddetector.statistics(df, source, **value["configs"])
                         _save_stats_or_write(df_stats, report_input_path, "drift_statistics", write_stats,
                                              "drift_detector/drift_statistics", run_type, auth_key)
-                    else:
+
+                    def _stability(value=value):
                         idfs = [ETL(value[k]) for k in value if k != "configs"]
                         df_stats = dstability.stability_index_computation(*idfs, **value["configs"])
                         if report_input_path:
@@ -424,6 +442,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                                            run_type=run_type, auth_key=auth_key)
                         else:
                             save(df_stats, write_stats, "drift_detector/stability_index")
+
+                    _best_effort(f"{key}/{subkey}", _drift if subkey == "drift_statistics" else _stability)
                     _log_block_time(f"{key}, {subkey}", t1)
 
             if key == "transformers":
@@ -444,8 +464,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     if subkey == "charts_to_objects" and value is not None:
                         t1 = time.monotonic()
                         extra_args = stats_args(all_configs, subkey, run_type, auth_key)
-                        charts_to_objects(df, **value, **extra_args, master_path=report_input_path,
-                                          run_type=run_type, auth_key=auth_key)
+                        _best_effort(f"{key}/{subkey}", charts_to_objects, df, **value, **extra_args,
+                                     master_path=report_input_path, run_type=run_type, auth_key=auth_key)
                         _log_block_time(f"{key}, {subkey}", t1)
 
             if key == "report_generation":

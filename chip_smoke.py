@@ -9,7 +9,11 @@ Phases, in order; any failure exits non-zero:
    kernels/csrc`` (one nvcc a source for sm_90a, all at once, loaded with
    ctypes), print each kernel's registers and spills, the build seconds and
    the instructions a pair of the neighbour-count kernel's pair loop (its
-   SASS, where the toolkit has ``cuobjdump``);
+   SASS, where the toolkit has ``cuobjdump``); then the host codec
+   (``anovos_tpu_torch/shared/csrc/anovos_native.cpp``, g++ with zlib),
+   printing the compiler, whether ``zlib.h`` is there and the build
+   seconds.  Every Avro read and write, every string column's dictionary
+   encoding and DBSCAN's default components below go through the codec;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at unaligned row counts (≡ 1, 2, 3 mod 4,
    1,333,333 among them; an all-masked column, a NaN cutoff row, a
@@ -38,7 +42,9 @@ Phases, in order; any failure exits non-zero:
    uniform noise, with a lat/lon pair (1% nulls), a precision-7 geohash of
    the same points and an id, written as parquet and read back with
    ``read_dataset``; ``geospatial_autodetection`` with the default knobs
-   (host connected components, no neighbour-count launch), the same call
+   (the codec's union-find components on the host, no neighbour-count
+   launch, each union-find call's labels checked equal to scipy's
+   components of the same edges), the same call
    with ``ANOVOS_DBSCAN_GRID_SAMPLE=16384`` (one neighbour-count launch per
    eps, the batched device labeling) and ``generate_loc_charts_controller``.
    Then the kernels at the shapes and on the data this path gave them (the
@@ -155,7 +161,27 @@ Phases, in order; any failure exits non-zero:
    intermediate datasets written, the final dataset equal to the same
    chain of direct calls, no block failed.  B1 must have been launched;
    B1 and B2 equal their plain versions on every input the phase gave
-   them on the card.
+   them on the card;
+11. the codec and the four configs no earlier phase runs: (a) an avro file
+   of 1,000,000 rows of the full income schema written and read through
+   the codec with deflate and with snappy, read back equal to the frame,
+   and on its first 100,000 rows the codec timed beside the pure-Python
+   record loops; (b) ``config/configs.yaml`` (a copy) through
+   ``workflow.main`` on 250,000 income rows as parquet, concatenated with a
+   second read (500,000 rows) and inner-joined with an avro side of one
+   row per distinct ifa, each block's wall from ``workflow.block_times()``,
+   then B1 and B2 against their plain versions on every input the runner
+   gave them; checked: the joined dataset equal to the pandas concat and
+   join, the stats CSVs in phase 3's bands, the duplicate check's final
+   rows, the transformers' datasets, and drift_statistics degraded as the
+   JAX runner degrades it (the source lacks the join's columns); (c)
+   ``configs_time_series``, ``configs_geospatial`` (check-in schema as CSV,
+   200,000 rows, six cities) and ``configs_mlflow`` (200,000 income rows,
+   ``mlflow`` unimportable) through ``workflow.main``, their files, the
+   timestamp's conversion, the DBSCAN grid and their stats CSVs checked,
+   B1 and B2 against their plain versions.  The walls of the steps the
+   codec now runs in phases 3, 6, 8 and 9 are printed beside their walls
+   before the codec.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -194,7 +220,11 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "quality": ("masked_moments", "binned_histograms"),
                 "association": ("masked_moments",),
                 "runner": ("masked_moments", "binned_histograms"),
-                "transformers": ("masked_moments",)}
+                "transformers": ("masked_moments",),
+                "configs_yaml": ("masked_moments", "binned_histograms"),
+                "configs_time_series": ("masked_moments", "binned_histograms"),
+                "configs_geospatial": ("masked_moments", "binned_histograms"),
+                "configs_mlflow": ("masked_moments", "binned_histograms")}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -375,6 +405,82 @@ KNN_QUERIES = 300
 MF_RMSE_BOUND = 0.5
 # 10d: the rows of configs_full's input (cut from 4M, PERF.md section 4)
 FULL_ROWS = 200_000
+# phase 11: the host codec at scale (11a: an avro file of CODEC_ROWS rows of
+# the full income schema; the pure-Python reference timed beside the codec
+# on its first CODEC_REF_ROWS) and the four shipped configs no earlier phase
+# runs, each a copy (the card's machine may lack a YAML reader) that a CPU
+# test holds equal to its file after the same substitution: 11b
+# configs.yaml on SCENARIO_ROWS input rows (twice as many after its
+# concatenate), 11c the time-series, geospatial and mlflow configs on
+# CHECKIN_ROWS rows each.  The rows are a depth cut forced by the 1,200 s
+# limit (PERF.md section 4).
+CODEC_ROWS = 1_000_000
+CODEC_REF_ROWS = 100_000
+SCENARIO_ROWS = 250_000
+CHECKIN_ROWS = 200_000
+_CSV_INPUT = {"read_dataset": {"file_path": None, **_CSV_READ}}
+_CHECKIN_STATS = {"metric": ["global_summary", "measures_of_counts", "measures_of_centralTendency"],
+                  "metric_args": {"list_of_cols": "all", "drop_cols": ["userId"]}}
+_CHECKIN_REPORT = {
+    "report_preprocessing": {"master_path": "report_stats",
+                             "charts_to_objects": {"list_of_cols": "all", "drop_cols": ["userId"]}},
+    "report_generation": {"master_path": "report_stats", "id_col": "userId", "dataDict_path": "NA",
+                          "final_report_path": "report_stats"},
+}
+TS_SCENARIO_CONFIG = {
+    "input_dataset": _CSV_INPUT,
+    "timeseries_analyzer": {"auto_detection": True, "id_col": "userId", "tz_offset": "local", "inspection": True,
+                            "analysis_level": "daily", "max_days": 36000},
+    "anovos_basic_report": {"basic_report": False},
+    "stats_generator": _CHECKIN_STATS,
+    "drift_detector": {"stability_index": {
+        "configs": {"metric_weightages": {"mean": 0.5, "stddev": 0.3, "kurtosis": 0.2},
+                    "appended_metric_path": "si_metrics", "threshold": 2},
+        **{f"dataset{i}": {"read_dataset": {"file_path": None, **_CSV_READ}} for i in range(1, 4)}}},
+    **_CHECKIN_REPORT,
+    "write_main": FULL_CONFIG["write_main"],
+}
+GEO_SCENARIO_CONFIG = {
+    "input_dataset": _CSV_INPUT,
+    "geospatial_controller": {"geospatial_analyzer": {
+        "auto_detection_analyzer": True, "id_col": "userId", "max_analysis_records": 5000, "top_geo_records": 100,
+        "max_cluster": 10, "eps": "0.3,0.5,0.2", "min_samples": "100,300,200",
+        "global_map_box_val": "carto-positron"}},
+    "anovos_basic_report": {"basic_report": False},
+    "stats_generator": _CHECKIN_STATS,
+    **_CHECKIN_REPORT,
+    "write_main": FULL_CONFIG["write_main"],
+}
+MLFLOW_CONFIG = {
+    "input_dataset": {"read_dataset": {"file_path": None, "file_type": "parquet"}, "delete_column": ["logfnl"],
+                      "select_column": None, "rename_column": _INCOME_ETL["rename_column"],
+                      "recast_column": _INCOME_ETL["recast_column"]},
+    "stats_generator": FULL_CONFIG["stats_generator"],
+    "quality_checker": {
+        "duplicate_detection": {"list_of_cols": "all", "drop_cols": ["ifa"], "treatment": True},
+        "nullColumns_detection": {"list_of_cols": "all", "drop_cols": ["ifa"], "treatment": True,
+                                  "treatment_method": "MMM",
+                                  "treatment_configs": {"method_type": "median", "pre_existing_model": False,
+                                                        "model_path": "NA", "output_mode": "replace"}}},
+    "report_preprocessing": {"master_path": "report_stats", "charts_to_objects": dict(
+        FULL_CONFIG["report_preprocessing"]["charts_to_objects"], drop_cols=["ifa"], drift_detector=False)},
+    "report_generation": FULL_CONFIG["report_generation"],
+    "mlflow": {"experiment": "Anovos", "tracking_uri": "http://127.0.0.1:8889", "track_output": True,
+               "track_reports": True, "track_intermediates": False},
+    "write_main": FULL_CONFIG["write_main"],
+}
+# the walls of the steps the host codec now runs, before the codec (PERF.md
+# section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside this run's
+BEFORE_CODEC_WALLS = {
+    "phase 3 read_dataset, 4M-row parquet": "53.080; 50.119; 59.193",
+    "phase 6 join_read_main_parquet, 1M rows": "15.04; 14.83; 26.72",
+    "phase 6 write_avro, joined 100,000 rows": "4.34; 4.83; 6.43",
+    "phase 6 read_avro, joined 100,000 rows": "5.69; 6.15; 7.33",
+    "phase 8 set-up, ifa/dt_1/dt_2 encoded": "22.78; 30.65; 20.90",
+    "phase 9 input read and final write": "17.223; 17.309; 20.802",
+    "phase 9 join_dataset": "6.240 (with a 100,000-row side: 0.943; 1.097)",
+}
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -1038,13 +1144,16 @@ def geo_frame(seed: int):
     return pd.DataFrame({"id": np.arange(GEO_ROWS), "latitude": lat, "longitude": lon, "geohash": gh})
 
 
-def geo_files(lat: str, lon: str, gh: str, charts_only: bool = False):
+def geo_files(lat: str, lon: str, gh, charts_only: bool = False):
+    """The geo analyzer's files for a lat/lon pair and a geohash column
+    (``gh`` None: no geohash column)."""
     pair, names = f"{lat}_{lon}", []
-    for field in (pair, gh):
+    fields = [pair] + ([gh] if gh else [])
+    for field in fields:
         names += [f"geo_scatter_{field}", f"geo_heat_{field}"]
     if not charts_only:
-        names += ["geospatial_stats.csv", f"geospatial_overall_{pair}.csv", f"geospatial_top_{pair}.csv",
-                  f"geospatial_overall_{gh}.csv", f"geospatial_top_{gh}.csv"]
+        names += ["geospatial_stats.csv"]
+        names += [f"geospatial_{kind}_{field}.csv" for field in fields for kind in ("overall", "top")]
         names += [f"{pre}_{kind}_{pair}.csv" for pre in ("geospatial", "cluster_output")
                   for kind in ("kmeans", "dbscan")]
     return names
@@ -1218,6 +1327,46 @@ def geo_path_kernels(torch, table, ll_cols, sub: np.ndarray, eps_values) -> dict
     return {"masked_moments": b1, "neighbor_counts": row}
 
 
+class ComponentCalls:
+    """While in its ``with`` block, every call of the host codec's
+    union-find by ``ops/cluster`` keeps its edges, threshold and labels
+    (the edge arrays by reference: the caller never writes them)."""
+
+    def __enter__(self):
+        from anovos_tpu_torch.ops import cluster
+
+        self.calls, self.saved = [], cluster.native_edge_components_minc
+        saved, calls = self.saved, self.calls
+
+        def call(ei, ej, minc, thresh, n):
+            res = saved(ei, ej, minc, thresh, n)
+            calls.append((ei, ej, minc, thresh, n, res[1]))
+            return res
+
+        cluster.native_edge_components_minc = call
+        return self
+
+    def __exit__(self, *exc):
+        from anovos_tpu_torch.ops import cluster
+
+        cluster.native_edge_components_minc = self.saved
+
+
+def check_components(calls) -> int:
+    """Each union-find call's labels equal scipy's weak components of the
+    same graph (the edges with minc >= thresh over all n nodes): equal
+    labels, not a permutation of them."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    for i, (ei, ej, minc, thresh, n, labels) in enumerate(calls):
+        k = minc >= thresh
+        g = coo_matrix((np.ones(int(k.sum()), np.int8), (ei[k], ej[k])), shape=(n, n))
+        _, ref = connected_components(g, directed=True, connection="weak")
+        check(np.array_equal(labels, ref), f"union-find call {i}: labels differ from scipy's components")
+    return len(calls)
+
+
 def phase_geo(torch, seed: int) -> dict:
     import pandas as pd
 
@@ -1249,16 +1398,22 @@ def phase_geo(torch, seed: int) -> dict:
             if sample:
                 os.environ["ANOVOS_DBSCAN_GRID_SAMPLE"] = str(sample)
             try:
-                kernels.reset_launches()
-                t0 = time.perf_counter()
-                found = ga.geospatial_autodetection(
-                    table, "id", master, max_analysis_records=GEO_RECORDS, max_cluster=20,
-                    eps=GEO_EPS, min_samples=GEO_MIN_SAMPLES)
-                torch.cuda.synchronize()
-                out[f"{path}_s"] = time.perf_counter() - t0
-                launches = out["launches"][path] = dict(kernels.LAUNCHES)
+                with ComponentCalls() as components:
+                    kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    found = ga.geospatial_autodetection(
+                        table, "id", master, max_analysis_records=GEO_RECORDS, max_cluster=20,
+                        eps=GEO_EPS, min_samples=GEO_MIN_SAMPLES)
+                    torch.cuda.synchronize()
+                    out[f"{path}_s"] = time.perf_counter() - t0
+                    launches = out["launches"][path] = dict(kernels.LAUNCHES)
             finally:
                 os.environ.pop("ANOVOS_DBSCAN_GRID_SAMPLE", None)
+            # the default route's union-find (not the grid sample's device
+            # labeling): each call's labels equal scipy's on the same edges
+            check(bool(components.calls) != bool(sample), f"{path}: {len(components.calls)} union-find calls")
+            out[f"{path}_union_find_checked"] = check_components(components.calls)
+            del components
             check(found == ([lat], [lon], [gh]), f"{path}: detected {found}")
             for name in PATH_KERNELS[path]:
                 check(launches[name] > 0, f"kernel {name} was not launched on the {path} path")
@@ -2150,8 +2305,8 @@ def phase_timeseries(torch, seed: int, table, df, extra) -> dict:
     walls = out["walls_s"] = {}
     t0 = time.perf_counter()
     t = table
-    for c in TS_EXTRA:  # set-up, not timed: dictionary-encode the strings
-        t = t.with_column(c, host_to_column(extra[c].to_numpy(dtype=object), ROWS, table.device))
+    for c in TS_EXTRA:  # set-up: the codec dictionary-encodes the string arrays
+        t = t.with_column(c, host_to_column(extra[c].array, ROWS, table.device))
     torch.cuda.synchronize()
     out["setup_s"] = time.perf_counter() - t0
     num_cols, _, _ = table.attribute_type_segregation()
@@ -2357,14 +2512,15 @@ def check_runner_files(ref, rdir: str) -> int:
     return len(want)
 
 
-def check_runner_stats(ref, rdir: str) -> None:
-    """The basic report's seven stats CSVs against float64 pandas, with
-    phase 3's bands (``check_stats``)."""
+def check_runner_stats(ref, rdir: str, id_col: str = "ifa", measures: int = 7) -> None:
+    """The report's stats CSVs against float64 pandas, with phase 3's bands
+    (``check_stats``): all seven, or with ``measures`` 3 only
+    global_summary, measures_of_counts and measures_of_centralTendency."""
     import pandas as pd
 
     read = lambda name: pd.read_csv(os.path.join(rdir, name + ".csv"))  # noqa: E731
-    cols = [c for c in ref.columns if c != "ifa"]
-    num_cols = [c for c in cols if ref[c].dtype.kind == "f"]
+    cols = [c for c in ref.columns if c != id_col]
+    num_cols = [c for c in cols if ref[c].dtype.kind in "fiu"]
     cat_cols = [c for c in cols if pd.api.types.is_string_dtype(ref[c])]
     summary = dict(zip(read("global_summary")["metric"], read("global_summary")["value"]))
     check(int(float(summary["rows_count"])) == len(ref) and int(float(summary["columns_count"])) == len(cols),
@@ -2373,21 +2529,32 @@ def check_runner_stats(ref, rdir: str) -> None:
     check(sorted(counts.index) == sorted(cols), "measures_of_counts columns")
     for c in cols:
         check(int(counts.loc[c, "fill_count"]) == int(ref[c].notna().sum()), f"fill_count of {c}")
-    card = read("measures_of_cardinality").set_index("attribute")
-    for c in num_cols + cat_cols:
-        exp = ref[c].dropna().astype(str).nunique() if c in cat_cols else ref[c].nunique()
-        check(int(card.loc[c, "unique_values"]) == int(exp), f"unique_values of {c}")
     cen = read("measures_of_centralTendency").set_index("attribute")
-    disp = read("measures_of_dispersion").set_index("attribute")
-    pct = read("measures_of_percentiles").set_index("attribute")
-    shape = read("measures_of_shape").set_index("attribute")
     for c in num_cols:
         v = ref[c].dropna().to_numpy(np.float64)
         if not len(v):  # the all-null column: no moments
             check(bool(np.isnan(cen.loc[c, "mean"])), f"mean of the all-null {c}")
             continue
-        m, sd = v.mean(), v.std(ddof=1)
+        m = v.mean()
         check(abs(cen.loc[c, "mean"] - m) <= 1e-4 + 1e-5 * abs(m), f"mean of {c}: {cen.loc[c, 'mean']} vs {m}")
+    for c in cat_cols:
+        vc = ref[c].dropna().astype(str).value_counts()
+        best = sorted(vc.items(), key=lambda kv: (-kv[1], kv[0]))[0]
+        check(cen.loc[c, "mode"] == best[0] and int(cen.loc[c, "mode_rows"]) == best[1], f"mode of {c}")
+    if measures == 3:
+        return
+    card = read("measures_of_cardinality").set_index("attribute")
+    for c in num_cols + cat_cols:
+        exp = ref[c].dropna().astype(str).nunique() if c in cat_cols else ref[c].nunique()
+        check(int(card.loc[c, "unique_values"]) == int(exp), f"unique_values of {c}")
+    disp = read("measures_of_dispersion").set_index("attribute")
+    pct = read("measures_of_percentiles").set_index("attribute")
+    shape = read("measures_of_shape").set_index("attribute")
+    for c in num_cols:
+        v = ref[c].dropna().to_numpy(np.float64)
+        if not len(v):
+            continue
+        m, sd = v.mean(), v.std(ddof=1)
         check(abs(disp.loc[c, "stddev"] - sd) <= 1e-4 + 1e-4 * sd, f"stddev of {c}")
         check(pct.loc[c, "min"] == np.round(v.min(), 4) and pct.loc[c, "max"] == np.round(v.max(), 4),
               f"min/max of {c}")
@@ -2396,10 +2563,6 @@ def check_runner_stats(ref, rdir: str) -> None:
         ref_shape = {"skewness": (d ** 3).mean() / m2 ** 1.5, "kurtosis": (d ** 4).mean() / m2 ** 2 - 3}
         for k, exp in ref_shape.items():
             check(abs(shape.loc[c, k] - exp) <= 2e-3 + 2e-3 * abs(exp), f"{k} of {c}: {shape.loc[c, k]} vs {exp}")
-    for c in cat_cols:
-        vc = ref[c].dropna().astype(str).value_counts()
-        best = sorted(vc.items(), key=lambda kv: (-kv[1], kv[0]))[0]
-        check(cen.loc[c, "mode"] == best[0] and int(cen.loc[c, "mode_rows"]) == best[1], f"mode of {c}")
 
 
 def check_runner_quality(ref, rdir: str) -> dict:
@@ -3349,34 +3512,414 @@ def phase_transformers(torch, seed: int, table, df) -> dict:
     # after the path (not counted): B1 and B2 on every input the phase gave
     # them on the card, against their plain versions; timed at each new
     # shape (the CPU port's calls in 10c's check ran the plain versions)
+    out["kernels"], out["kernel_calls_checked"] = given_kernel_rows(torch, given, "transformers", {(9, ROWS)})
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"transformers: phase 10 in {out['phase_s']:.1f} s, B1 checked on "
+          f"{out['kernel_calls_checked']['masked_moments']} calls and B2 on "
+          f"{out['kernel_calls_checked']['binned_histograms']}", flush=True)
+    del given
+    return out
+
+
+def given_kernel_rows(torch, given, path: str, timed_shapes: set):
+    """B1 and B2 on every input a path gave them on the card (``given``, a
+    :class:`KernelInputs`), each against its plain version; the first call
+    at each shape not in ``timed_shapes`` also timed (``b1_row``/``b2_row``).
+    Returns (the timed rows by kernel, the calls checked by kernel)."""
     from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
     from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
 
     b1 = [a for a in given.seen["masked_moments"] if a[0].is_cuda]
     b2 = [a for a in given.seen["binned_histograms"] if a[0].is_cuda]
-    rows, timed_shapes = {"masked_moments": [], "binned_histograms": []}, {(9, ROWS)}
+    rows, timed_shapes = {"masked_moments": [], "binned_histograms": []}, set(timed_shapes)
     for i, (Xc, Mc) in enumerate(b1):
         if tuple(Xc.shape) in timed_shapes:
             acc = masked_moments_cols(Xc, Mc)
             moments_errors(acc.cpu().numpy(), masked_moments_plain(Xc, Mc).cpu().numpy())
             continue
         timed_shapes.add(tuple(Xc.shape))
-        rows["masked_moments"].append(b1_row(torch, Xc, Mc, "transformers", f"launch {i + 1} of {len(b1)}"))
+        rows["masked_moments"].append(b1_row(torch, Xc, Mc, path, f"launch {i + 1} of {len(b1)}"))
     for i, (Xc, Mc, cuts, nbins) in enumerate(b2):
         if tuple(Xc.shape) in timed_shapes:
             check(torch.equal(binned_histograms_cols(Xc, Mc, cuts, nbins),
                               binned_histograms_plain(Xc, Mc, cuts, nbins)),
-                  "binned_histograms differs from plain on the transformers path")
+                  f"binned_histograms differs from plain on the {path} path")
             continue
         timed_shapes.add(tuple(Xc.shape))
-        rows["binned_histograms"].append(b2_row(torch, Xc, Mc, cuts, nbins, "transformers",
-                                                f"launch {i + 1} of {len(b2)}"))
-    out["kernel_calls_checked"] = {"masked_moments": len(b1), "binned_histograms": len(b2)}
-    out["kernels"] = rows
-    out["phase_s"] = time.perf_counter() - t0
-    print(f"transformers: phase 10 in {out['phase_s']:.1f} s, B1 checked on {len(b1)} calls and B2 on "
-          f"{len(b2)}", flush=True)
+        rows["binned_histograms"].append(b2_row(torch, Xc, Mc, cuts, nbins, path, f"launch {i + 1} of {len(b2)}"))
+    return rows, {"masked_moments": len(b1), "binned_histograms": len(b2)}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the host codec at scale and the four remaining shipped configs
+# ---------------------------------------------------------------------------
+def income_config(main_dir: str, join_dir: str, si_dirs) -> dict:
+    """config/configs.yaml: FULL_CONFIG (configs_full.yaml) with the
+    concatenate (a second read of the input) and the avro join after its
+    input, and the geo analyzer switched off."""
+    import copy
+
+    full = full_config(main_dir, si_dirs)
+    cfg = {}
+    for key, block in full.items():
+        cfg[key] = block
+        if key == "input_dataset":
+            cfg["concatenate_dataset"] = {"method": "name", "dataset1": {
+                "read_dataset": {"file_path": main_dir, "file_type": "parquet"}, "delete_column": ["logfnl"],
+                "select_column": None, "rename_column": copy.deepcopy(_INCOME_ETL["rename_column"]),
+                "recast_column": copy.deepcopy(_INCOME_ETL["recast_column"])}}
+            cfg["join_dataset"] = {"join_cols": "ifa", "join_type": "inner", "dataset1": {
+                "read_dataset": {"file_path": join_dir, "file_type": "avro"}, "delete_column": None,
+                "select_column": None, "rename_column": {"list_of_cols": "age|workclass",
+                                                         "list_of_newcols": "dupl_age|dupl_workclass"},
+                "recast_column": None}}
+    cfg["geospatial_controller"]["geospatial_analyzer"]["auto_detection_analyzer"] = False
+    return cfg
+
+
+def checkin_config(template: dict, checkin_dir: str, si_dirs=()) -> dict:
+    """TS_SCENARIO_CONFIG or GEO_SCENARIO_CONFIG with the input pointed at
+    ``checkin_dir`` and the stability datasets at ``si_dirs``."""
+    import copy
+
+    cfg = copy.deepcopy(template)
+    cfg["input_dataset"]["read_dataset"]["file_path"] = checkin_dir
+    for i, d in enumerate(si_dirs):
+        cfg["drift_detector"]["stability_index"][f"dataset{i + 1}"]["read_dataset"]["file_path"] = d
+    return cfg
+
+
+def mlflow_config(main_dir: str) -> dict:
+    import copy
+
+    cfg = copy.deepcopy(MLFLOW_CONFIG)
+    cfg["input_dataset"]["read_dataset"]["file_path"] = main_dir
+    return cfg
+
+
+def checkin_frame(n: int, seed: int):
+    """The check-in dataset's schema (users' venue check-ins): userId,
+    venueId, venueCategoryId, venueCategory, latitude and longitude around
+    six cities (geo_frame's layout), timezoneOffset and utcTimestamp in the
+    dataset's text format ("Tue Apr 03 18:00:09 +0000 2012")."""
+    import pandas as pd
+
+    g = np.random.default_rng(seed)
+    cats = np.array(["Bar", "Coffee Shop", "Gym / Fitness Center", "Office", "Subway", "Home (private)", "Café",
+                     "Train Station", "Park", "Food & Drink Shop"], object)
+    centers = np.array([(40.7, -74.0), (35.7, -120.0), (30.3, -97.7), (41.9, -87.6), (47.6, -100.3),
+                        (33.7, -84.4)])
+    pts = centers[g.integers(0, len(centers), n)] + g.normal(0, 0.3, (n, 2))
+    noise = g.random(n) < 0.02
+    pts[noise] = np.stack([g.uniform(25, 49, noise.sum()), g.uniform(-124, -71, noise.sum())], 1)
+    venues = g.integers(0, 40_000, n)
+    cat = g.integers(0, len(cats), n)
+    secs = g.integers(1333238400, 1360000000, n)  # April 2012 to February 2013
+    return pd.DataFrame({
+        "userId": g.integers(1, 1084, n),
+        "venueId": pd.Series(venues * 7919 + 0x4A000000).map("{:024x}".format).astype(str),
+        "venueCategoryId": pd.Series(cats[cat]).map({c: f"4bf58dd8d48988d1{i:02d}941735"
+                                                     for i, c in enumerate(cats)}).astype(str),
+        "venueCategory": pd.Series(cats[cat]).astype(str),
+        "latitude": pts[:, 0], "longitude": pts[:, 1],
+        "timezoneOffset": g.choice([-240, -300, 540], n),
+        "utcTimestamp": pd.Series(pd.to_datetime(secs, unit="s").strftime("%a %b %d %H:%M:%S +0000 %Y")).astype(str),
+    })
+
+
+def decoded_equal(df, decoded: dict) -> bool:
+    """The codec's columns (codes + vocabulary for strings) hold ``df``'s
+    values, nulls where it has nulls."""
+    import pandas as pd
+
+    if list(decoded) != list(df.columns):
+        return False
+    for c in df.columns:
+        got, exp = decoded[c], df[c]
+        if hasattr(got, "codes"):
+            if not np.array_equal(got.codes < 0, exp.isna().to_numpy()):
+                return False
+            valid = got.codes >= 0
+            if not (pd.Series(got.vocab[got.codes[valid]]) == exp[valid].reset_index(drop=True)).all():
+                return False
+        elif not np.array_equal(got, exp.to_numpy(), equal_nan=exp.dtype.kind == "f"):
+            return False
+    return True
+
+
+def phase_codec(seed: int, tmp: str) -> dict:
+    """11a: an avro file of CODEC_ROWS rows of the full income schema
+    written and read through the codec with deflate and then snappy, read
+    back equal to the frame; on its first CODEC_REF_ROWS rows the codec
+    and the pure-Python record loops, timed at the same row count."""
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_ingest import avro_io
+
+    out = {"rows": CODEC_ROWS, "ref_rows": CODEC_REF_ROWS}
+    walls = out["walls_s"] = {}
+    df = synthesize(CODEC_ROWS, seed=seed + 11)
+    for codec in ("deflate", "snappy"):
+        path = os.path.join(tmp, f"codec_{codec}.avro")
+        t0 = time.perf_counter()
+        avro_io.write_avro(df, path, codec=codec)
+        walls[f"write {codec}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = avro_io.read_avro(path)
+        walls[f"read {codec}"] = time.perf_counter() - t0
+        out[f"{codec}_bytes"] = os.path.getsize(path)
+        check(decoded_equal(df, back), f"codec: the {codec} file read back differs from the frame")
+        del back
+    head = df.iloc[:CODEC_REF_ROWS].reset_index(drop=True)
+    del df
+    ref_walls = out["ref_walls_s"] = {}
+    for name, write in (("codec", avro_io.write_avro), ("python", avro_io.write_avro_records)):
+        path = os.path.join(tmp, f"ref_{name}.avro")
+        t0 = time.perf_counter()
+        write(head, path, codec="deflate")
+        ref_walls[f"{name} write"] = time.perf_counter() - t0
+    for name, read in (("codec", avro_io.read_avro), ("python", avro_io.read_avro_records)):
+        t0 = time.perf_counter()
+        back = read(os.path.join(tmp, f"ref_{name}.avro"))
+        ref_walls[f"{name} read"] = time.perf_counter() - t0
+        if name == "python":  # object strings: the same check on codes of them
+            from anovos_tpu_torch.shared.native import dict_encode_strings
+
+            back = {c: dict_encode_strings(v) if v.dtype == object else v for c, v in back.items()}
+        check(decoded_equal(head, back), f"codec: the {name} writer's file read back differs")
+    for op in ("write", "read"):
+        out[f"{op}_speedup"] = ref_walls[f"python {op}"] / ref_walls[f"codec {op}"]
+    print("codec: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f" at {CODEC_ROWS} rows x {len(head.columns)} columns (deflate {out['deflate_bytes']} bytes, "
+          f"snappy {out['snappy_bytes']} bytes), read back equal", flush=True)
+    print(f"codec: at {CODEC_REF_ROWS} rows (deflate): " + ", ".join(f"{k} {v:.3f} s" for k, v in ref_walls.items())
+          + f"; the codec {out['write_speedup']:.1f}x the Python writer, {out['read_speedup']:.1f}x the reader",
+          flush=True)
+    return out
+
+
+def income_reference(src, side):
+    """configs.yaml's ingest in pandas: the input's ETL, the concatenate
+    with the second read (``logfnl`` deleted, columns by the input's names),
+    the inner join with the side's age and workclass renamed on ifa, dt_1
+    parsed by ``pandas.to_datetime``."""
+    import pandas as pd
+
+    etl = src.drop(columns=["logfnl", "empty", "dt_2"]).rename(
+        columns={"marital-status": "marital_status", "education-num": "education_num"})
+    for c in ("age", "education_num"):
+        etl[c] = etl[c].astype(np.float32).astype(np.float64)
+    cat = pd.concat([etl, etl], ignore_index=True)
+    ref = cat.merge(side.rename(columns={"age": "dupl_age", "workclass": "dupl_workclass"}), on="ifa", how="inner")
+    ref["dt_1"] = pd.to_datetime(ref["dt_1"])
+    return ref
+
+
+def run_config(torch, cfg: dict, run_dir: str, path: str, given=None) -> dict:
+    """``workflow.main(cfg)`` in ``run_dir``, its launches counted from 0."""
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.ops import kernels
+
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    kernels.reset_launches()
+    os.chdir(run_dir)
+    try:
+        t0 = time.perf_counter()
+        workflow.main(cfg, "local")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    out = {"wall_s": wall, "launches": dict(kernels.LAUNCHES), "block_times_s": workflow.block_times(),
+           "degraded": workflow.degraded_sections()}
+    for name in PATH_KERNELS[path]:
+        check(out["launches"][name] > 0, f"kernel {name} was not launched by {path}")
+    blocks = sum(out["block_times_s"].values())
+    print(f"{path}: workflow.main {wall:.3f} s, blocks {blocks:.3f} s, the rest (reads and writes) "
+          f"{wall - blocks:.3f} s; " + ", ".join(f"{k} {v:.3f}" for k, v in out["block_times_s"].items())
+          + f"; launches {out['launches']}", flush=True)
+    return out
+
+
+def check_files(rdir: str, names, what: str) -> int:
+    missing = [n for n in names if not os.path.exists(os.path.join(rdir, n))]
+    check(not missing, f"{what}: files not written: {missing}")
+    return len(names)
+
+
+def phase_configs_yaml(torch, seed: int, tmp: str) -> dict:
+    """11b: configs.yaml through ``workflow.main`` on SCENARIO_ROWS rows of
+    the full income schema as parquet, concatenated with a second read and
+    joined with an avro side of one row per distinct ifa, so every row is
+    profiled; then B1 and B2 on the inputs the runner gave them."""
+    import pandas as pd
+
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_ingest.data_ingest import write_dataset
+    from anovos_tpu_torch.shared.table import Table
+
+    t0 = time.perf_counter()
+    src = synthesize(SCENARIO_ROWS, seed=seed + 12)
+    main_dir, join_dir = os.path.join(tmp, "scenario_income"), os.path.join(tmp, "scenario_join")
+    os.makedirs(main_dir)
+    src.to_parquet(os.path.join(main_dir, "part-00000.parquet"), index=False)
+    side = src[["ifa", "age", "workclass"]].drop_duplicates("ifa").reset_index(drop=True)
+    write_dataset(Table.from_pandas(side), join_dir, "avro")
+    num = src.select_dtypes("number").drop(columns=["empty", "logfnl"])
+    si = []
+    for i in range(4):
+        d = os.path.join(tmp, "scenario_si", str(i))
+        os.makedirs(d)
+        num.iloc[i * SCENARIO_ROWS // 4:(i + 1) * SCENARIO_ROWS // 4].to_csv(os.path.join(d, "part-00000.csv"),
+                                                                             index=False)
+        si.append(d)
+    del num
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run_dir = os.path.join(tmp, "scenario_run")
+    with KernelInputs(torch) as given:
+        out = run_config(torch, income_config(main_dir, join_dir, si), run_dir, "configs_yaml")
+    out.update(rows=SCENARIO_ROWS, side_rows=len(side), setup_s=setup_s)
+    # the config drifts every column of the joined table against the
+    # unjoined source: both packages degrade drift_statistics (ROADMAP Queue C)
+    check(list(out["degraded"]) == ["drift_detector/drift_statistics"]
+          and "dupl_age" in out["degraded"]["drift_detector/drift_statistics"],
+          f"configs.yaml: degraded sections {out['degraded']}")
+    out["kernels"], out["kernel_calls_checked"] = given_kernel_rows(torch, given, "configs_yaml", set())
     del given
+
+    t0 = time.perf_counter()
+    ref = income_reference(src, side)
+    del src
+    check(len(ref) == 2 * SCENARIO_ROWS, "configs.yaml: the pandas join")
+    joined = pd.read_csv(os.path.join(run_dir, "intermediate_data", "data_ingest", "join_dataset",
+                                      "part-00000.csv"))
+    keys = ["ifa", "age", "workclass", "dupl_age", "dupl_workclass"]
+    got = joined[keys].sort_values(keys).reset_index(drop=True)
+    exp = ref[keys].sort_values(keys).reset_index(drop=True)
+    try:
+        pd.testing.assert_frame_equal(got, exp, check_dtype=False)
+    except AssertionError as e:
+        fail(f"configs.yaml: the joined dataset differs from the pandas concat and join: {e}")
+    del joined, got, exp
+    rdir = os.path.join(run_dir, "report_stats")
+    check_runner_stats(ref, rdir)
+    final = pd.read_parquet(os.path.join(run_dir, "output", "final_dataset"))
+    # the duplicate check drops the concatenate's second copy of every row
+    check(len(final) == SCENARIO_ROWS and bool(final["ifa"].is_unique), f"configs.yaml: final rows {len(final)}")
+    lat = [c for c in final.columns if c.startswith("latent_")]
+    check(lat and bool(np.isfinite(final[lat].to_numpy(np.float64)).all()), "configs.yaml: PCA latents")
+    tdir = os.path.join(run_dir, "intermediate_data", "data_transformer", "transformers")
+    out["files_checked"] = check_files(tdir, [fn for g in FULL_CONFIG["transformers"].values() for fn in g],
+                                       "configs.yaml transformers")
+    out["files_checked"] += check_files(rdir, ["correlation_matrix.csv", "IV_calculation.csv",
+                                               "variable_clustering.csv", "stability_index.csv",
+                                               "ts_cols_stats.csv", "ml_anovos_report.html"], "configs.yaml")
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"configs_yaml: {SCENARIO_ROWS} rows concatenated to {2 * SCENARIO_ROWS}, joined with {len(side)} avro "
+          f"rows; the joined dataset equal to pandas, the stats CSVs in phase 3's bands, {len(final)} final rows "
+          f"with {len(lat)} latents ({out['checks_s']:.1f} s of checks)", flush=True)
+    return out
+
+
+def checkin_reference(df, converted: bool):
+    """The check-in frame as the runner profiles it: utcTimestamp parsed
+    when the time-series config converted it."""
+    import pandas as pd
+
+    ref = df.copy()
+    if converted:
+        ref["utcTimestamp"] = pd.to_datetime(ref["utcTimestamp"], format="%a %b %d %H:%M:%S +0000 %Y")
+    return ref
+
+
+def phase_checkin_configs(torch, seed: int, tmp: str) -> dict:
+    """11c: configs_time_series, configs_geospatial and configs_mlflow
+    through ``workflow.main`` on CHECKIN_ROWS rows each (the check-in
+    schema as CSV for the first two, the income schema as parquet for
+    mlflow, which runs with ``mlflow`` unimportable)."""
+    import pandas as pd
+
+    from examples._data import synthesize
+
+    out = {}
+    chk = checkin_frame(CHECKIN_ROWS, seed + 13)
+    cdir = os.path.join(tmp, "checkin")
+    os.makedirs(cdir)
+    chk.to_csv(os.path.join(cdir, "part-00000.csv"), index=False)
+    income = synthesize(CHECKIN_ROWS, seed=seed + 14)
+    idir = os.path.join(tmp, "mlflow_income")
+    os.makedirs(idir)
+    income.to_parquet(os.path.join(idir, "part-00000.parquet"), index=False)
+    num = income.select_dtypes("number").drop(columns=["empty", "logfnl"])
+    si = []
+    for i in range(3):
+        d = os.path.join(tmp, "checkin_si", str(i))
+        os.makedirs(d)
+        num.iloc[i * CHECKIN_ROWS // 3:(i + 1) * CHECKIN_ROWS // 3].to_csv(os.path.join(d, "part-00000.csv"),
+                                                                           index=False)
+        si.append(d)
+    del num
+    runs = (("configs_time_series", checkin_config(TS_SCENARIO_CONFIG, cdir, si)),
+            ("configs_geospatial", checkin_config(GEO_SCENARIO_CONFIG, cdir)),
+            ("configs_mlflow", mlflow_config(idir)))
+    saved = sys.modules.get("mlflow")
+    sys.modules["mlflow"] = None  # `import mlflow` raises ImportError
+    try:
+        given = {}
+        for path, cfg in runs:
+            with KernelInputs(torch) as given[path]:
+                out[path] = run_config(torch, cfg, os.path.join(tmp, path), path)
+            check(out[path]["degraded"] == {}, f"{path}: degraded sections {out[path]['degraded']}")
+    finally:
+        if saved is None:
+            sys.modules.pop("mlflow", None)
+        else:
+            sys.modules["mlflow"] = saved
+    for path, _ in runs:
+        out[path]["kernels"], out[path]["kernel_calls_checked"] = given_kernel_rows(torch, given.pop(path), path,
+                                                                                    set())
+    t0 = time.perf_counter()
+    ts_dir = os.path.join(tmp, "configs_time_series", "report_stats")
+    check_files(ts_dir, ["ts_cols_stats.csv", "ts_landscape.csv", "ts_stats.csv", "stability_index.csv",
+                         "stabilityIndex_metrics.csv", "ts_daily_utcTimestamp.csv", "ts_hourly_utcTimestamp.csv",
+                         "ts_decompose_utcTimestamp.csv", "freqDist_latitude", "ml_anovos_report.html"],
+                "configs_time_series")
+    det = pd.read_csv(os.path.join(ts_dir, "ts_cols_stats.csv")).set_index("attribute")
+    check(list(det.index[det["status"] == "converted"]) == ["utcTimestamp"], "configs_time_series: ts_cols_stats")
+    check_runner_stats(checkin_reference(chk, True), ts_dir, id_col="userId", measures=3)
+    geo_dir = os.path.join(tmp, "configs_geospatial", "report_stats")
+    check_files(geo_dir, geo_files("latitude", "longitude", None) + ["ml_anovos_report.html",
+                                                                     "freqDist_utcTimestamp"], "configs_geospatial")
+    db = pd.read_csv(os.path.join(geo_dir, "geospatial_dbscan_latitude_longitude.csv"))
+    check(db[["eps", "min_samples"]].values.tolist() == [[0.3, 100], [0.3, 300], [0.5, 100], [0.5, 300]]
+          and int(db["n_clusters"].max()) >= 2, f"configs_geospatial: DBSCAN grid {db.values.tolist()}")
+    check_runner_stats(checkin_reference(chk, False), geo_dir, id_col="userId", measures=3)
+    ml_dir = os.path.join(tmp, "configs_mlflow", "report_stats")
+    ref = income.drop(columns=["logfnl"]).rename(columns={"marital-status": "marital_status",
+                                                          "education-num": "education_num"})
+    for c in ("age", "education_num"):
+        ref[c] = ref[c].astype(np.float32).astype(np.float64)
+    check_runner_stats(ref, ml_dir)
+    check_files(ml_dir, ["duplicate_detection.csv", "nullColumns_detection.csv", "freqDist_age", "eventDist_age",
+                         "ml_anovos_report.html"], "configs_mlflow")
+    for path, _ in runs:
+        check(os.path.isfile(os.path.join(tmp, path, "output", "final_dataset", "part-00000.parquet")),
+              f"{path}: no final dataset")
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"checkin configs: files, the DBSCAN grid, utcTimestamp's conversion and the stats CSVs checked "
+          f"({out['checks_s']:.1f} s)", flush=True)
+    return out
+
+
+def phase_scenarios(torch, seed: int) -> dict:
+    """Phase 11 (11a-c)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"codec": phase_codec(seed, tmp), "configs_yaml": phase_configs_yaml(torch, seed, tmp)}
+        out.update(phase_checkin_configs(torch, seed, tmp))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"scenarios: phase 11 in {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3422,6 +3965,25 @@ def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sa
     return rows
 
 
+def result_line(torch) -> str:
+    """The last line: the card the run used and the cards there are."""
+    return json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
+
+
+def print_codec_walls(path: dict, quality: dict, ts: dict, runner: dict) -> None:
+    """The walls of the steps the host codec now runs, beside their walls
+    before the codec."""
+    blocks = runner["block_times_s"]
+    now = dict(zip(BEFORE_CODEC_WALLS, (path["ingest_s"], quality["walls_s"]["join_read_main_parquet"],
+                                quality["walls_s"]["write_avro"], quality["walls_s"]["read_avro"], ts["setup_s"],
+                                runner["wall_s"] - sum(blocks.values()), blocks["join_dataset"])))
+    for step, wall in now.items():
+        print(f"codec walls: {step}: {wall:.3f} s (before the codec, three runs: {BEFORE_CODEC_WALLS[step]} s)",
+              flush=True)
+    print("codec_walls " + json.dumps(now), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3436,8 +3998,8 @@ def main() -> None:
     from anovos_tpu_torch.shared.runtime import init_runtime
 
     init_runtime("cuda")
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    device_name = torch.cuda.get_device_name(0)
+    print(f"device: {device_name}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     try:
@@ -3457,6 +4019,22 @@ def main() -> None:
               f"for {sass['pairs']} pairs, {sass['per_pair']:.4f} a pair; {sass['mix']}", flush=True)
     else:
         print("build: no cuobjdump in the toolkit; neighbor_counts pair loop not counted", flush=True)
+
+    from anovos_tpu_torch.shared import native
+
+    cxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True).stdout.splitlines()
+    zlib_h = subprocess.run([native.CXX, "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                            capture_output=True, text=True).returncode == 0
+    print(f"build: host codec compiler {cxx[0] if cxx else native.CXX + ' (no version)'}; zlib.h "
+          f"{'found' if zlib_h else 'NOT found'}", flush=True)
+    t0 = time.perf_counter()
+    native.load()
+    lib = native.library_path()
+    codec_s = time.perf_counter() - t0
+    print(f"build: host codec {lib.relative_to(lib.parents[3])} in {codec_s:.2f} s "
+          f"({' '.join([native.CXX, *native.CXX_FLAGS, *native.LINK])}; compile "
+          f"{native.BUILD_LOG[lib]['seconds']:.2f} s)" if lib in native.BUILD_LOG else
+          f"build: host codec {lib} already built, loaded in {codec_s:.2f} s", flush=True)
 
     check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32")
@@ -3484,6 +4062,11 @@ def main() -> None:
     del table, df
     transform_kernels = transform.pop("kernels")
     print("transformers " + json.dumps({k: v for k, v in transform.items() if k != "launches"}), flush=True)
+    scen = phase_scenarios(torch, args.seed)
+    scen_paths = [p for p in PATH_KERNELS if p.startswith("configs_")]
+    scen_kernels = {p: scen[p].pop("kernels") for p in scen_paths}
+    print("scenarios " + json.dumps(scen), flush=True)
+    print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
     kres["masked_moments"]["other_shapes"] += runner_kernels["masked_moments"]
@@ -3491,19 +4074,22 @@ def main() -> None:
     kres["binned_histograms"]["other_shapes"] = ([quality_kernels["binned_histograms"]]
                                                  + runner_kernels["binned_histograms"]
                                                  + transform_kernels["binned_histograms"])
+    for p in scen_paths:
+        for kname in ("masked_moments", "binned_histograms"):
+            kres[kname]["other_shapes"] += scen_kernels[p][kname]
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
                                                      "association": assoc["launches"],
                                                      "timeseries": ts["launches"],
                                                      "runner": runner["launches"],
-                                                     "transformers": transform["launches"]}, sass)
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "transformers": transform["launches"],
+                                                     **{p: scen[p]["launches"] for p in scen_paths}}, sass)
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    print(result_line(torch), flush=True)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@ JAX package."""
 import ast
 import os
 import pathlib
+import re
 
 import numpy as np
 import pandas as pd
@@ -120,22 +121,79 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py"]
 
 
+# a path component naming the JAX package or its C++ library: "native/...",
+# ".../anovos_tpu/...", or the bare directory names a join would take
+_JAX_PATH = re.compile(r"(^|[/\\])(native|anovos_tpu)([/\\]|$)")
+# "anovos_tpu/ops/pallas_kernels.py:149": a file:line reference the port
+# reports, never a path it opens
+_FILE_LINE = re.compile(r"\.py:\d+$")
+
+
+def _violations(source: str, where: str) -> list:
+    """Imports of jax, jaxlib or anovos_tpu, and string constants other
+    than docstrings that name a path under ``native/`` or ``anovos_tpu/``."""
+    tree = ast.parse(source, filename=where)
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docstrings and _JAX_PATH.search(node.value)
+                    and not _FILE_LINE.search(node.value)):
+                bad.append(f"{where}:{node.lineno} names the path {node.value!r}")
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "anovos_tpu"):
+                bad.append(f"{where}:{node.lineno} imports {name}")
+    return bad
+
+
 def test_port_never_imports_jax_or_the_jax_package():
+    """No source of the port imports JAX or the JAX package, or names a
+    path under ``native/`` or ``anovos_tpu/`` (it keeps its own copy of the
+    C++ codec)."""
     bad = []
     for f in _port_sources():
-        tree = ast.parse(f.read_text(), filename=str(f))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            for name in names:
-                top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "anovos_tpu"):
-                    bad.append(f"{f.relative_to(REPO)}:{node.lineno} imports {name}")
+        bad += _violations(f.read_text(), str(f.relative_to(REPO)))
     assert len(_port_sources()) > 20
-    assert {"avro_io.py", "data_sampling.py", "quality_checker.py", "sampling.py",
+    assert {"avro_io.py", "data_sampling.py", "native.py", "quality_checker.py", "sampling.py",
             "transformers.py"} <= {f.name for f in _port_sources()}
+    assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad
+
+
+@pytest.mark.parametrize("line,caught", [
+    ("import jax.numpy as jnp", True),
+    ("from anovos_tpu.shared import native", True),
+    ("SRC = os.path.join(ROOT, 'native', 'anovos_native.cpp')", True),
+    ("SRC = ROOT / 'native/anovos_native.cpp'", True),
+    ("open(REPO + '/anovos_tpu/data_ingest/avro_io.py')", True),
+    ("BUILD = ROOT / 'anovos_tpu'", True),
+    ("REPLACES = 'anovos_tpu/ops/pallas_kernels.py:149'", False),
+    ("SRC = ROOT / 'anovos_tpu_torch/shared/csrc/anovos_native.cpp'", False),
+    ("MODE = 'native_avro_decode'", False),
+    ("def f():\n    'reads like anovos_tpu/shared/native.py'", False),
+])
+def test_source_rule_catches_jax_paths(line, caught):
+    assert bool(_violations(line, "probe.py")) is caught
+
+
+def test_chip_smoke_last_line_names_the_card():
+    """``chip_smoke.py``'s last line: ``kind`` is the card's name and
+    ``count`` the number of cards, read from torch when it is printed."""
+    import json
+    import types
+
+    import chip_smoke
+
+    cuda = types.SimpleNamespace(get_device_name=lambda i: f"card {i}", device_count=lambda: 1)
+    line = json.loads(chip_smoke.result_line(types.SimpleNamespace(cuda=cuda)))
+    assert line == {"ok": True, "device": {"platform": "gpu", "kind": "card 0", "count": 1}}
