@@ -4,7 +4,8 @@
   nonzero from the moments kernel, then one sort per block for min/max,
   the percentile grid, exact distinct counts and the mode.
 - ``describe_exact``: the same order statistics over the exact int64 /
-  float64 values of wide columns.
+  float64 values of wide columns; ``describe_wide_int`` takes int64
+  columns as the JAX package's (hi, lo) int32 pairs.
 - ``describe_cat``: per-column code histograms, from which count, unique
   count and mode derive;
 - ``compensated_moments``: chunked moments merged in float64, whose error
@@ -192,6 +193,27 @@ def describe_exact(E: torch.Tensor, M: torch.Tensor) -> Dict[str, torch.Tensor]:
         "mode_value": back(st["mode"].contiguous()),
         "mode_count": st["mode_count"],
     }
+
+
+def _split_int64(v: torch.Tensor):
+    """int64 → the (hi, lo) int32 pair of the JAX package's wide encoding:
+    hi = v >> 32, lo = the low 32 bits less 2^31, so that signed (hi, lo)
+    order is int64 order."""
+    return (v >> 32).to(torch.int32), ((v & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def describe_wide_int(hi: torch.Tensor, lo: torch.Tensor, M: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Exact order statistics of int64 columns given as (hi, lo) int32
+    pairs (rows, k) in the JAX package's encoding: the pairs joined into
+    int64 and described by ``describe_exact``.  Returns the JAX package's
+    keys: count, nunique, pctl_hi/pctl_lo (len(PCTL_QS), k), mode_hi,
+    mode_lo and mode_count."""
+    v = (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + (1 << 31))
+    w = describe_exact(v, M)
+    p_hi, p_lo = _split_int64(w["percentiles"])
+    m_hi, m_lo = _split_int64(w["mode_value"])
+    return {"count": w["count"], "nunique": w["nunique"], "pctl_hi": p_hi, "pctl_lo": p_lo,
+            "mode_hi": m_hi, "mode_lo": m_lo, "mode_count": w["mode_count"]}
 
 
 def describe_cat(C: torch.Tensor, M: torch.Tensor, max_vocab: int) -> Dict[str, torch.Tensor]:

@@ -10,10 +10,13 @@ The port runs the blocks one after the other in the YAML's order, on the
 caller's thread, and writes every artifact before the next block starts
 (the JAX runner's ``ANOVOS_TPU_EXECUTOR=sequential`` mode).  It has no
 DAG scheduler, cache store, resume, chaos, failover, ingest guard or obs
-manifest.  Blocks it cannot run yet raise ``NotImplementedError`` before
-any work starts: ``streaming_analysis``, ``continuous_analysis`` and
-``write_feast_features``, and a ``transformers`` sub-block that calls one
-of the geospatial transformers.
+manifest.  The two blocks it cannot run yet, ``streaming_analysis`` and
+``continuous_analysis``, raise ``NotImplementedError`` before any work
+starts.  A ``transformers`` step resolves its function on
+``data_transformer.transformers`` by ``getattr``, as the JAX runner does,
+so a name that module lacks (a geospatial transformer) raises
+``AttributeError``.  ``write_feast_features`` adds its two timestamp
+columns before the final write and then writes the Feast repository file.
 
 Each block's wall time is logged under the JAX runner's labels and kept
 for :func:`block_times`.  A fan-out section that fails (an analyzer,
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import logging
 import os
 import time
@@ -49,6 +53,7 @@ from anovos_tpu_torch.data_report.report_preprocessing import charts_to_objects,
 from anovos_tpu_torch.data_transformer import transformers
 from anovos_tpu_torch.drift_stability import drift_detector as ddetector
 from anovos_tpu_torch.drift_stability import stability as dstability
+from anovos_tpu_torch.feature_store import feast_exporter
 from anovos_tpu_torch.shared.artifact_store import for_run_type
 from anovos_tpu_torch.shared.table import Table
 
@@ -71,15 +76,7 @@ MAINFUNC_TO_ARGS = {
 NOT_PORTED = {
     "streaming_analysis": "Queue A item 4 (streaming and scale layers)",
     "continuous_analysis": "Queue A item 4 (streaming and scale layers)",
-    "write_feast_features": "Queue A item 4 (feature_store)",
 }
-# functions of the JAX package's data_transformer a transformers block may
-# name that the port has not yet, and their Queue A item
-NOT_PORTED_TRANSFORMERS = dict.fromkeys(
-    ("geo_format_latlon", "geo_format_cartesian", "geo_format_geohash", "location_distance",
-     "geohash_precision_control", "location_in_country", "location_in_polygon", "centroid",
-     "weighted_centroid", "rog_calculation", "reverse_geocoding"),
-    "Queue A item 3 (the geospatial transformers)")
 
 _BLOCK_TIMES: dict = {}
 _DEGRADED: dict = {}
@@ -214,24 +211,14 @@ def _drift_source_matches_input(all_configs: dict) -> bool:
 
 
 def _check_ported(all_configs: dict, basic_report: bool) -> None:
-    """Raise before any work for a block, or a transformers function, the
-    port cannot run yet (blocks the basic report skips are not run, so they
-    do not raise then)."""
-    for key, item in NOT_PORTED.items():
-        if all_configs.get(key) is None:
-            continue
-        if basic_report and key != "write_feast_features":
-            continue
-        raise NotImplementedError(
-            f"config block {key!r} is not ported to anovos_tpu_torch yet; see ROADMAP.md {item}")
+    """Raise before any work for a block the port cannot run yet (the basic
+    report skips those blocks, so they do not raise then)."""
     if basic_report:
         return
-    for group in (all_configs.get("transformers") or {}).values():
-        for fn in (group or {}):
-            if fn in NOT_PORTED_TRANSFORMERS:
-                raise NotImplementedError(
-                    f"transformers function {fn!r} is not ported to anovos_tpu_torch yet; see "
-                    f"ROADMAP.md {NOT_PORTED_TRANSFORMERS[fn]}")
+    for key, item in NOT_PORTED.items():
+        if all_configs.get(key) is not None:
+            raise NotImplementedError(
+                f"config block {key!r} is not ported to anovos_tpu_torch yet; see ROADMAP.md {item}")
 
 
 def _best_effort(section: str, fn, *args, **kwargs):
@@ -472,8 +459,20 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                 anovos_report(**args, run_type=run_type, auth_key=auth_key)
                 _log_block_time(f"{key}, full_report", t0)
 
+        # the feast export adds its timestamp columns before the one final
+        # write, its config checked first; the repo file names the written part
+        write_feast = all_configs.get("write_feast_features", None)
+        if write_feast is not None:
+            if write_main is None:
+                raise ValueError("write_feast_features requires write_main")
+            repartition_count = (write_main.get("file_configs") or {}).get("repartition", -1)
+            feast_exporter.check_feast_configuration(write_feast, repartition_count)
+            df = feast_exporter.add_timestamp_columns(df, write_feast["file_source"])
         if write_main:
             save(df, write_main, "final_dataset")
+        if write_feast is not None:
+            files = glob.glob(os.path.join(write_main["file_path"], "final_dataset", "part*"))
+            feast_exporter.generate_feature_description(df.dtypes(), write_feast, files[0] if files else "")
     logger.info(f"execution time w/o report (in sec) = {round(time.monotonic() - start_main, 4)}")
 
 

@@ -155,8 +155,9 @@ Phases, in order; any failure exits non-zero:
    regression, MF and auto imputation on a 1,000,000-row table with 5%
    nulls in three columns, checked against float64 (KNN on seeded query
    rows whose donors f32 distances decide, the ridge by least squares),
-   MF's observed-cell error and auto's choice against the CPU port's on
-   the same holdout; (d) ``workflow.main`` on all of ``configs_full.yaml``
+   MF's observed-cell error, auto's output equal to its choice's, and its
+   choice against the CPU port's on the same holdout of the first 250,000
+   rows; (d) ``workflow.main`` on all of ``configs_full.yaml``
    (a copy, ``FULL_CONFIG``) over 200,000 synthesized rows: the six
    intermediate datasets written, the final dataset equal to the same
    chain of direct calls, no block failed.  B1 must have been launched;
@@ -177,11 +178,37 @@ Phases, in order; any failure exits non-zero:
    JAX runner degrades it (the source lacks the join's columns); (c)
    ``configs_time_series``, ``configs_geospatial`` (check-in schema as CSV,
    200,000 rows, six cities) and ``configs_mlflow`` (200,000 income rows,
-   ``mlflow`` unimportable) through ``workflow.main``, their files, the
-   timestamp's conversion, the DBSCAN grid and their stats CSVs checked,
-   B1 and B2 against their plain versions.  The walls of the steps the
-   codec now runs in phases 3, 6, 8 and 9 are printed beside their walls
-   before the codec.
+   ``mlflow`` unimportable) and ``configs_feast`` (200,000 income rows)
+   through ``workflow.main``, their files, the timestamp's conversion,
+   the DBSCAN grid and their stats CSVs checked, configs_feast's final
+   dataset one part with its two timestamp columns and its ``anovos.py``
+   compiling and equal to the CPU port's for the same config, B1 and B2
+   against their plain versions.  The walls of the steps the codec now
+   runs in phases 3, 6, 8 and 9 are printed beside their walls before the
+   codec;
+12. geospatial transformers: 4,000,000 rows of phase 5's six-city points
+   with a second location pair (half within 50 km, half uniform over the
+   globe, 1% near-antipodal), an int id of 100,000 values, the same ids
+   as strings and a weight, built in memory; each step timed on the host
+   clock ending in a device sync: ``geo_format_latlon`` to radian,
+   cartesian and geohash (precision 9), and to dms and back on the first
+   1,000,000 rows; ``geo_format_cartesian`` and ``geo_format_geohash``
+   back to dd; ``geohash_precision_control`` to 5; ``location_distance``
+   of the three types in km; ``location_in_country`` approx US and exact
+   against a 2,000-edge GeoJSON the phase writes (a MultiPolygon with a
+   hole, two overlapping polygons); ``location_in_polygon`` with it;
+   ``centroid`` global, by the int and by the string id;
+   ``weighted_centroid`` and ``rog_calculation`` by the int id;
+   ``reverse_geocoding`` on the bundled city table; then the CUDA-event
+   time of four steps' device parts alone (geohash bits, Vincenty, the
+   polygon test, the per-id centroid).  Checked against
+   float64 numpy/pandas and the port's ``geo_utils``: radians and
+   cartesian to f32 storage, the round trips, geohashes equal
+   ``geohash_encode`` on 100,000 rows, distances in the CPU tests' bands
+   away from the antipode (Vincenty on a 250,000-pair sample), polygon
+   flags equal a float64 ray cast but within 1e-5° of an edge (counted),
+   centroids and radii against a pandas groupby, reverse geocoding equal
+   a float64 brute force but near ties (counted).  No kernel launches.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -224,7 +251,9 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "configs_yaml": ("masked_moments", "binned_histograms"),
                 "configs_time_series": ("masked_moments", "binned_histograms"),
                 "configs_geospatial": ("masked_moments", "binned_histograms"),
-                "configs_mlflow": ("masked_moments", "binned_histograms")}
+                "configs_mlflow": ("masked_moments", "binned_histograms"),
+                "configs_feast": ("masked_moments", "binned_histograms"),
+                "geo_transformers": ()}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -401,6 +430,10 @@ AE_EPOCHS = 10
 # third of a σ)
 IMPUTE_ROWS = 1_000_000
 IMPUTE_COLS = ["age", "fnlwgt", "hours-per-week"]
+# auto_imputation's choice on the card held against the CPU port's on the
+# table's first AUTO_REF_ROWS rows (cut from IMPUTE_ROWS: the CPU reference
+# took 95-142 s of the 1,200 s limit at 1M rows; PERF.md section 4)
+AUTO_REF_ROWS = 250_000
 KNN_QUERIES = 300
 MF_RMSE_BOUND = 0.5
 # 10d: the rows of configs_full's input (cut from 4M, PERF.md section 4)
@@ -469,6 +502,40 @@ MLFLOW_CONFIG = {
                "track_reports": True, "track_intermediates": False},
     "write_main": FULL_CONFIG["write_main"],
 }
+FEAST_CONFIG = {
+    "input_dataset": MLFLOW_CONFIG["input_dataset"],
+    "stats_generator": {"metric": ["global_summary", "measures_of_counts", "measures_of_centralTendency",
+                                   "measures_of_cardinality"],
+                        "metric_args": {"list_of_cols": "all", "drop_cols": ["ifa"]}},
+    "report_preprocessing": {"master_path": "report_stats", "charts_to_objects": {
+        "list_of_cols": "all", "drop_cols": ["ifa"], "label_col": "income", "event_label": ">50K",
+        "bin_method": "equal_frequency", "bin_size": 10, "drift_detector": False, "outlier_charts": False,
+        "source_path": "NA"}},
+    "write_feast_features": {
+        "file_path": "feast_repo/",
+        "entity": {"name": "income", "description": "income data", "id_col": "ifa"},
+        "file_source": {"description": "data source description", "owner": "me@business.com",
+                        "timestamp_col": "event_time", "create_timestamp_col": "create_time_col"},
+        "feature_view": {"name": "income_view", "owner": "view@owner.com", "ttl_in_seconds": 3600000,
+                         "create_timestamps": True},
+        "service_name": "income_feature_service"},
+    "write_main": {"file_path": "output", "file_type": "parquet",
+                   "file_configs": {"mode": "overwrite", "repartition": 1}},
+}
+# configs_feast also runs on the CPU at FEAST_CPU_ROWS rows, whose anovos.py
+# the card's must equal
+FEAST_CPU_ROWS = 2_000
+# phase 12: the geospatial transformers on GEO_T_ROWS rows (the income
+# path's size) with GEO_T_IDS distinct ids; the dms steps, which make a
+# Python string a value, on the first GEO_T_DMS_ROWS (PERF.md section 4);
+# geohash strings checked on GEO_T_SAMPLE rows; polygon flags checked
+# against float64 except within GEO_T_EDGE degrees of an edge (the f32
+# spacing at |lon| in [64, 128) is 7.6e-6 degrees)
+GEO_T_ROWS = ROWS
+GEO_T_IDS = 100_000
+GEO_T_DMS_ROWS = 1_000_000
+GEO_T_SAMPLE = 100_000
+GEO_T_EDGE = 1e-5
 # the walls of the steps the host codec now runs, before the codec (PERF.md
 # section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's
@@ -1119,6 +1186,21 @@ def phase_geo_kernels(torch, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: the geospatial path
 # ---------------------------------------------------------------------------
+def six_city_points(g, n: int) -> np.ndarray:
+    """(n, 2) lat/lon: six city centres at least 3 degrees apart in a
+    continental box, points around them with σ = 0.3°, 2% uniform noise
+    over the box."""
+    centers = []
+    while len(centers) < 6:
+        c = (g.uniform(28, 46), g.uniform(-120, -75))
+        if all(np.hypot(c[0] - a, c[1] - b) >= 3 for a, b in centers):
+            centers.append(c)
+    pts = np.asarray(centers)[g.integers(0, 6, n)] + g.normal(0, 0.3, (n, 2))
+    noise = g.random(n) < 0.02
+    pts[noise] = np.stack([g.uniform(25, 49, noise.sum()), g.uniform(-124, -71, noise.sum())], 1)
+    return pts
+
+
 def geo_frame(seed: int):
     """GEO_ROWS rows: six city centres at least 3 degrees apart in a
     continental box, points around them with σ = 0.3°, 2% uniform noise
@@ -1129,14 +1211,7 @@ def geo_frame(seed: int):
     from anovos_tpu_torch.data_transformer.geo_utils import geohash_encode
 
     g = np.random.default_rng(seed)
-    centers = []
-    while len(centers) < 6:
-        c = (g.uniform(28, 46), g.uniform(-120, -75))
-        if all(np.hypot(c[0] - a, c[1] - b) >= 3 for a, b in centers):
-            centers.append(c)
-    pts = np.asarray(centers)[g.integers(0, 6, GEO_ROWS)] + g.normal(0, 0.3, (GEO_ROWS, 2))
-    noise = g.random(GEO_ROWS) < 0.02
-    pts[noise] = np.stack([g.uniform(25, 49, noise.sum()), g.uniform(-124, -71, noise.sum())], 1)
+    pts = six_city_points(g, GEO_ROWS)
     lat, lon = pts[:, 0].copy(), pts[:, 1].copy()
     gh = np.array([geohash_encode(a, o, 7) for a, o in zip(lat.tolist(), lon.tolist())], object)
     lat[g.random(GEO_ROWS) < 0.01] = np.nan
@@ -2515,7 +2590,8 @@ def check_runner_files(ref, rdir: str) -> int:
 def check_runner_stats(ref, rdir: str, id_col: str = "ifa", measures: int = 7) -> None:
     """The report's stats CSVs against float64 pandas, with phase 3's bands
     (``check_stats``): all seven, or with ``measures`` 3 only
-    global_summary, measures_of_counts and measures_of_centralTendency."""
+    global_summary, measures_of_counts and measures_of_centralTendency,
+    with 4 those and measures_of_cardinality."""
     import pandas as pd
 
     read = lambda name: pd.read_csv(os.path.join(rdir, name + ".csv"))  # noqa: E731
@@ -2547,6 +2623,8 @@ def check_runner_stats(ref, rdir: str, id_col: str = "ifa", measures: int = 7) -
     for c in num_cols + cat_cols:
         exp = ref[c].dropna().astype(str).nunique() if c in cat_cols else ref[c].nunique()
         check(int(card.loc[c, "unique_values"]) == int(exp), f"unique_values of {c}")
+    if measures == 4:
+        return
     disp = read("measures_of_dispersion").set_index("attribute")
     pct = read("measures_of_percentiles").set_index("attribute")
     shape = read("measures_of_shape").set_index("attribute")
@@ -3402,27 +3480,33 @@ def phase_imputers(torch, df, tmp: str) -> dict:
     out["mf_observed_rmse_sd"] = float(torch.sqrt(((C - Zt)[Mt] ** 2).mean()))
     check(np.isfinite(out["mf_observed_rmse_sd"]) and out["mf_observed_rmse_sd"] <= MF_RMSE_BOUND,
           f"MF observed-cell RMSE {out['mf_observed_rmse_sd']} σ")
-    # auto: the card's choice against the CPU port's on the same holdout
-    card = imp.auto_imputation_scores(t, IMPUTE_COLS)
-    t_cpu = Table.from_pandas(frame, device="cpu")
+    # auto: its output is its choice's on the whole table; the card's choice
+    # against the CPU port's on the same holdout of the first AUTO_REF_ROWS rows
+    full = imp.auto_imputation_scores(t, IMPUTE_COLS)
+    chosen = min(full, key=full.get)
+    direct = imp._candidates(IMPUTE_COLS)[chosen](t)
+    check(tables_equal(torch, auto, direct), f"auto_imputation's output is not {chosen}'s")
+    head = frame.iloc[:AUTO_REF_ROWS]
+    card = imp.auto_imputation_scores(Table.from_pandas(head), IMPUTE_COLS)
+    t_cpu = Table.from_pandas(head, device="cpu")
     t1 = time.perf_counter()
     host = imp.auto_imputation_scores(t_cpu, IMPUTE_COLS)
     out["auto_cpu_s"] = time.perf_counter() - t1
     best, best_cpu = min(card, key=card.get), min(host, key=host.get)
     srt = sorted(host.values())
-    out.update(auto_scores_card=card, auto_scores_cpu=host, auto_choice=best)
+    out.update(auto_scores_full=full, auto_choice=chosen, auto_ref_rows=len(head), auto_scores_card=card,
+               auto_scores_cpu=host)
     if srt[1] - srt[0] > 1e-4 * srt[0]:
         check(best == best_cpu, f"auto_imputation chose {best} on the card, {best_cpu} on the CPU")
     else:
         check(card[best_cpu] - card[best] <= 1e-4 * card[best], f"auto near tie: {card} vs {host}")
-    direct = imp._candidates(IMPUTE_COLS)[best](t)
-    check(tables_equal(torch, auto, direct), f"auto_imputation's output is not {best}'s")
     out["checks_s"] = time.perf_counter() - t0
     print(f"imputers: KNN within {out['knn_rel_err']:.2e} of float64 on the {checked} of {queried} query "
           f"rows whose donors f32 distances decide ({same} of {queried} equal float64's); ridge coefficients within {out['ridge_coef_err_in_sd']:.2e} σ, "
           f"imputations {out['ridge_pred_err_in_sd']:.2e} σ of float64; MF observed-cell RMSE "
-          f"{out['mf_observed_rmse_sd']:.4f} σ; auto chose {best} on the card and {best_cpu} on the CPU "
-          f"(CPU scores in {out['auto_cpu_s']:.1f} s) ({out['checks_s']:.1f} s of checks)", flush=True)
+          f"{out['mf_observed_rmse_sd']:.4f} σ; auto chose {chosen} on {t.nrows} rows, and on the first "
+          f"{len(head)} {best} on the card and {best_cpu} on the CPU (CPU scores in {out['auto_cpu_s']:.1f} s) "
+          f"({out['checks_s']:.1f} s of checks)", flush=True)
     return out
 
 
@@ -3593,6 +3677,14 @@ def mlflow_config(main_dir: str) -> dict:
     import copy
 
     cfg = copy.deepcopy(MLFLOW_CONFIG)
+    cfg["input_dataset"]["read_dataset"]["file_path"] = main_dir
+    return cfg
+
+
+def feast_config(main_dir: str) -> dict:
+    import copy
+
+    cfg = copy.deepcopy(FEAST_CONFIG)
     cfg["input_dataset"]["read_dataset"]["file_path"] = main_dir
     return cfg
 
@@ -3834,10 +3926,10 @@ def checkin_reference(df, converted: bool):
 
 
 def phase_checkin_configs(torch, seed: int, tmp: str) -> dict:
-    """11c: configs_time_series, configs_geospatial and configs_mlflow
-    through ``workflow.main`` on CHECKIN_ROWS rows each (the check-in
-    schema as CSV for the first two, the income schema as parquet for
-    mlflow, which runs with ``mlflow`` unimportable)."""
+    """11c: configs_time_series, configs_geospatial, configs_mlflow and
+    configs_feast through ``workflow.main`` on CHECKIN_ROWS rows each (the
+    check-in schema as CSV for the first two, the income schema as parquet
+    for mlflow, which runs with ``mlflow`` unimportable, and for feast)."""
     import pandas as pd
 
     from examples._data import synthesize
@@ -3862,7 +3954,8 @@ def phase_checkin_configs(torch, seed: int, tmp: str) -> dict:
     del num
     runs = (("configs_time_series", checkin_config(TS_SCENARIO_CONFIG, cdir, si)),
             ("configs_geospatial", checkin_config(GEO_SCENARIO_CONFIG, cdir)),
-            ("configs_mlflow", mlflow_config(idir)))
+            ("configs_mlflow", mlflow_config(idir)),
+            ("configs_feast", feast_config(idir)))
     saved = sys.modules.get("mlflow")
     sys.modules["mlflow"] = None  # `import mlflow` raises ImportError
     try:
@@ -3906,10 +3999,51 @@ def phase_checkin_configs(torch, seed: int, tmp: str) -> dict:
     for path, _ in runs:
         check(os.path.isfile(os.path.join(tmp, path, "output", "final_dataset", "part-00000.parquet")),
               f"{path}: no final dataset")
+    out["configs_feast"]["repo_file_bytes"] = check_feast_run(ref, os.path.join(tmp, "configs_feast"),
+                                                              income.iloc[:FEAST_CPU_ROWS], tmp)
     out["checks_s"] = time.perf_counter() - t0
-    print(f"checkin configs: files, the DBSCAN grid, utcTimestamp's conversion and the stats CSVs checked "
-          f"({out['checks_s']:.1f} s)", flush=True)
+    print(f"checkin configs: files, the DBSCAN grid, utcTimestamp's conversion, the stats CSVs and the feast "
+          f"export checked ({out['checks_s']:.1f} s)", flush=True)
     return out
+
+
+def check_feast_run(ref, run_dir: str, head, tmp: str) -> int:
+    """configs_feast's run: its four stats CSVs in phase 3's bands, the
+    final dataset one part of the input's rows with the two timestamp
+    columns last, and ``anovos.py`` compiling and equal to the one the CPU
+    port writes for the same config on ``head`` (its first FEAST_CPU_ROWS
+    input rows).  Returns the file's bytes."""
+    import pandas as pd
+
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.shared.runtime import init_runtime
+
+    check_runner_stats(ref, os.path.join(run_dir, "report_stats"), measures=4)
+    parts = [f for f in os.listdir(os.path.join(run_dir, "output", "final_dataset")) if f.startswith("part")]
+    check(parts == ["part-00000.parquet"], f"configs_feast: final dataset parts {parts}")
+    final = pd.read_parquet(os.path.join(run_dir, "output", "final_dataset", parts[0]))
+    ts = ["event_time", "create_time_col"]
+    check(len(final) == len(ref) and list(final.columns[-2:]) == ts
+          and all(final[c].dtype.kind == "M" and final[c].nunique() == 1 for c in ts),
+          f"configs_feast: final dataset {final.dtypes.to_dict()}")
+    with open(os.path.join(run_dir, "feast_repo", "anovos.py")) as f:
+        text = f.read()
+    compile(text, "anovos.py", "exec")
+    cpu_in, cpu_run = os.path.join(tmp, "feast_cpu_input"), os.path.join(tmp, "feast_cpu_run")
+    os.makedirs(cpu_in)
+    head.to_parquet(os.path.join(cpu_in, "part-00000.parquet"), index=False)
+    os.makedirs(cpu_run)
+    cwd = os.getcwd()
+    init_runtime("cpu")
+    os.chdir(cpu_run)
+    try:
+        workflow.main(feast_config(cpu_in), "local")
+    finally:
+        os.chdir(cwd)
+        init_runtime("cuda")
+    with open(os.path.join(cpu_run, "feast_repo", "anovos.py")) as f:
+        check(f.read() == text, "configs_feast: anovos.py differs from the CPU port's")
+    return len(text.encode())
 
 
 def phase_scenarios(torch, seed: int) -> dict:
@@ -3920,6 +4054,327 @@ def phase_scenarios(torch, seed: int) -> dict:
         out.update(phase_checkin_configs(torch, seed, tmp))
     out["phase_s"] = time.perf_counter() - t0
     print(f"scenarios: phase 11 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the geospatial transformers at the income path's scale
+# ---------------------------------------------------------------------------
+def geo_transform_frame(seed: int, n: int):
+    """n rows: a lat/lon pair of six_city_points (1% nulls each); a second
+    pair, half of it within 50 km of the first, half uniform over the
+    globe, 1% of all rows within 0.05° of the first's antipode; an int id
+    with GEO_T_IDS distinct values, the same ids as strings, and a
+    positive weight.  Coordinates are f32 values."""
+    import pandas as pd
+
+    g = np.random.default_rng(seed)
+    pts = six_city_points(g, n)
+    lat, lon = pts[:, 0], pts[:, 1]
+    near = g.random(n) < 0.5
+    step = g.uniform(0, 50_000, n) / 6371009.0 * 180 / np.pi  # degrees of arc
+    bearing = g.uniform(0, 2 * np.pi, n)
+    lat2 = np.where(near, lat + step * np.cos(bearing), g.uniform(-89, 89, n))
+    lon2 = np.where(near, lon + step * np.sin(bearing) / np.cos(np.radians(lat)), g.uniform(-180, 180, n))
+    anti = g.random(n) < 0.01
+    lat2[anti] = -lat[anti] + g.normal(0, 0.05, anti.sum())
+    lon2[anti] = lon[anti] + 180 + g.normal(0, 0.05, anti.sum())
+    lon2 = (lon2 + 180) % 360 - 180
+    f32 = lambda a: np.clip(a, -180, 180).astype(np.float32).astype(np.float64)  # noqa: E731
+    lat, lon, lat2, lon2 = f32(lat), f32(lon), f32(np.clip(lat2, -90, 90)), f32(lon2)
+    lat[g.random(n) < 0.01] = np.nan
+    lon[g.random(n) < 0.01] = np.nan
+    uid = g.permutation(np.arange(n) % GEO_T_IDS) + 7_000_000
+    return pd.DataFrame({"latitude": lat, "longitude": lon, "lat2": lat2, "lon2": lon2, "uid": uid,
+                         "sid": pd.Series(uid).map("u{}".format).astype(str),
+                         "weight": g.uniform(0.5, 2.0, n).astype(np.float32).astype(np.float64)})
+
+
+def wobbly_ring(lat0: float, lon0: float, r: float, k: int, phase: float) -> list:
+    """An open ring (its first vertex not repeated) of k [lon, lat]
+    vertices, f32 values, whose radius swings 10% around r seven times a
+    turn."""
+    t = np.linspace(0, 2 * np.pi, k, endpoint=False)
+    rad = r * (1 + 0.1 * np.sin(7 * t + phase))
+    return [[float(np.float32(lon0 + a * np.cos(b))), float(np.float32(lat0 + a * np.sin(b)))]
+            for a, b in zip(rad, t)]
+
+
+def geo_polygon_object() -> dict:
+    """A FeatureCollection of 2,000 edges over the six-city box: a
+    MultiPolygon whose first polygon has a hole, and two polygons that
+    overlap each other."""
+    return {"type": "FeatureCollection", "features": [
+        {"type": "Feature", "geometry": {"type": "MultiPolygon", "coordinates": [
+            [wobbly_ring(37, -100, 8, 600, 0.0), wobbly_ring(37, -100, 3, 300, 1.0)],
+            [wobbly_ring(31, -82, 4, 300, 2.0)]]}},
+        {"type": "Feature", "geometry": {"type": "Polygon", "coordinates": [wobbly_ring(43, -115, 5, 400, 3.0)]}},
+        {"type": "Feature", "geometry": {"type": "Polygon", "coordinates": [wobbly_ring(45, -109, 5, 400, 4.0)]}},
+    ]}
+
+
+def ray_cast_float64(torch, lat, lon, gj: dict):
+    """Per-polygon even-odd containment in float64 on the card, the union
+    over polygons (holes carve their polygon), and the points whose
+    horizontal distance to a crossing edge is under GEO_T_EDGE degrees
+    (where f32 and float64 may disagree): (inside, near_edge) bool
+    tensors."""
+    polys = []
+    for feat in gj["features"]:
+        geom = feat["geometry"]
+        polys += geom["coordinates"] if geom["type"] == "MultiPolygon" else [geom["coordinates"]]
+    py_all, px_all = lat.double(), lon.double()
+    inside = torch.zeros(len(py_all), dtype=torch.bool, device=lat.device)
+    near = torch.zeros_like(inside)
+    for poly in polys:
+        e = torch.tensor(np.concatenate([np.concatenate([np.asarray(r), np.roll(np.asarray(r), -1, 0)], 1)
+                                         for r in poly]), dtype=torch.float64, device=lat.device)
+        x1, y1, x2, y2 = (e[:, i][None, :] for i in range(4))
+        tile = max(1, (1 << 26) // e.shape[0])
+        for s0 in range(0, len(py_all), tile):
+            py, px = py_all[s0:s0 + tile, None], px_all[s0:s0 + tile, None]
+            straddles = (y1 > py) != (y2 > py)
+            xi = x1 + (py - y1) * (x2 - x1) / torch.where(y2 == y1, 1.0, y2 - y1)
+            odd = ((straddles & (px < xi)).sum(dim=1) % 2) == 1
+            inside[s0:s0 + tile] |= odd
+            near[s0:s0 + tile] |= (straddles & ((px - xi).abs() < GEO_T_EDGE)).any(dim=1)
+    return inside, near
+
+
+def float64_centroids(lat, lon, ids, weight=None):
+    """pandas float64 groupby of the cartesian vectors (weighted when
+    ``weight`` is given) → frame indexed by id: lat, lon, n, and the rows'
+    group positions."""
+    import pandas as pd
+
+    la, lo = np.radians(lat), np.radians(lon)
+    w = np.ones_like(la) if weight is None else weight
+    R = 6371009.0
+    xyz = pd.DataFrame({"id": ids, "w": w, "x": R * np.cos(la) * np.cos(lo) * w,
+                        "y": R * np.cos(la) * np.sin(lo) * w, "z": R * np.sin(la) * w})
+    g = xyz.groupby("id", sort=True)
+    s = g[["w", "x", "y", "z"]].sum()
+    x, y, z = s["x"] / s["w"], s["y"] / s["w"], s["z"] / s["w"]
+    return pd.DataFrame({"lat": np.degrees(np.arctan2(z, np.hypot(x, y))), "lon": np.degrees(np.arctan2(y, x)),
+                         "n": g.size()})
+
+
+def phase_geo_transformers(torch, seed: int) -> dict:
+    """Phase 12: the eleven geospatial transformers on GEO_T_ROWS rows of
+    ``geo_transform_frame`` built in memory with ``Table.from_pandas``,
+    each step timed on the host clock ending in a device sync (the dms
+    output and input on the first GEO_T_DMS_ROWS rows), then checked
+    against float64 numpy/pandas and the port's ``geo_utils``."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_transformer import geo_utils
+    from anovos_tpu_torch.data_transformer import geospatial as geo
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.table import Table
+
+    t_phase = time.perf_counter()
+    out = {"rows": GEO_T_ROWS, "dms_rows": GEO_T_DMS_ROWS, "ids": GEO_T_IDS}
+    walls = out["walls_s"] = {}
+    t0 = time.perf_counter()
+    df = geo_transform_frame(seed + 15, GEO_T_ROWS)
+    t = Table.from_pandas(df)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    gj = geo_polygon_object()
+    n_edges = sum(len(r) for f in gj["features"] for p in (f["geometry"]["coordinates"]
+                  if f["geometry"]["type"] == "MultiPolygon" else [f["geometry"]["coordinates"]]) for r in p)
+    out["polygon_edges"] = n_edges
+    with tempfile.TemporaryDirectory() as tmp:
+        shape = os.path.join(tmp, "shape.geojson")
+        with open(shape, "w") as f:
+            json.dump(gj, f)
+        kernels.reset_launches()
+        ll = dict(list_of_lat="latitude", list_of_lon="longitude")
+        rad = timed(torch, walls, "geo_format_latlon radian", lambda: geo.geo_format_latlon(t, **ll, output_format="radian"))
+        cart = timed(torch, walls, "geo_format_latlon cartesian",
+                     lambda: geo.geo_format_latlon(t, **ll, output_format="cartesian"))
+        gh = timed(torch, walls, "geo_format_latlon geohash 9", lambda: geo.geo_format_latlon(
+            t, **ll, output_format="geohash", optional_configs={"geohash_precision": 9}))
+        head = t.slice_rows(0, GEO_T_DMS_ROWS)
+        dms = timed(torch, walls, "geo_format_latlon dms (1M rows)",
+                    lambda: geo.geo_format_latlon(head, **ll, output_format="dms"))
+        xyz = dict(list_of_x="latitude_longitude_x", list_of_y="latitude_longitude_y",
+                   list_of_z="latitude_longitude_z")
+        back_cart = timed(torch, walls, "geo_format_cartesian dd",
+                          lambda: geo.geo_format_cartesian(cart, **xyz, output_format="dd"))
+        back_gh = timed(torch, walls, "geo_format_geohash dd",
+                        lambda: geo.geo_format_geohash(gh, "latitude_longitude_geohash", output_format="dd"))
+        back_dms = timed(torch, walls, "geo_format_latlon dms to dd (1M rows)", lambda: geo.geo_format_latlon(
+            dms, "latitude_dms", "longitude_dms", input_format="dms", output_format="dd"))
+        gh5 = timed(torch, walls, "geohash_precision_control 5", lambda: geo.geohash_precision_control(
+            gh, "latitude_longitude_geohash", output_precision=5, output_mode="append"))
+        dist = {}
+        for kind in ("haversine", "vincenty", "euclidean"):
+            dist[kind] = timed(torch, walls, f"location_distance {kind} km", lambda: geo.location_distance(
+                t, ["latitude", "lat2"], ["longitude", "lon2"], distance_type=kind, unit="km"))
+        approx = timed(torch, walls, "location_in_country approx US",
+                       lambda: geo.location_in_country(t, "latitude", "longitude", country="US"))
+        exact = timed(torch, walls, f"location_in_country exact ({n_edges} edges)", lambda: geo.location_in_country(
+            t, "latitude", "longitude", country="XX", country_shapefile_path=shape, method_type="exact"))
+        poly = timed(torch, walls, f"location_in_polygon ({n_edges} edges)",
+                     lambda: geo.location_in_polygon(t, "latitude", "longitude", gj))
+        c_all = timed(torch, walls, "centroid", lambda: geo.centroid(t, "latitude", "longitude"))
+        c_uid = timed(torch, walls, "centroid by int id", lambda: geo.centroid(t, "latitude", "longitude", "uid"))
+        c_sid = timed(torch, walls, "centroid by string id", lambda: geo.centroid(t, "latitude", "longitude", "sid"))
+        wc = timed(torch, walls, "weighted_centroid by int id",
+                   lambda: geo.weighted_centroid(t, "latitude", "longitude", "uid", "weight"))
+        rog = timed(torch, walls, "rog_calculation by int id",
+                    lambda: geo.rog_calculation(t, "latitude", "longitude", "uid"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rg = timed(torch, walls, "reverse_geocoding", lambda: geo.reverse_geocoding(t, "latitude", "longitude"))
+        torch.cuda.synchronize()
+        out["launches"] = dict(kernels.LAUNCHES)
+    out["steps_s"] = sum(walls.values())
+    print("geo transformers: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f" (steps {out['steps_s']:.2f} s, set-up {out['setup_s']:.1f} s); launches {out['launches']}", flush=True)
+    check(on_card([rad, cart, gh, back_cart, back_gh, gh5, approx, exact, poly, *dist.values()]),
+          "a geospatial transformer left the card")
+    # the device parts of four steps alone: CUDA-event time of the stream's
+    # work, mean of 3 calls after a warm-up (not counted in the walls)
+    from anovos_tpu_torch.ops import geo_kernels as gk
+
+    la_d, lo_d = (t.columns[c].data for c in ("latitude", "longitude"))
+    la2_d, lo2_d = (t.columns[c].data for c in ("lat2", "lon2"))
+    edges = geo._geojson_obj_edges(gj, t.device)
+    seg, valid, labels = geo._id_codes(t, "uid")
+    xyz_d = gk.latlon_to_cartesian(la_d, lo_d)
+    out["device_ms"] = {
+        "geohash_digits 9": cuda_ms(torch, lambda: gk.geohash_digits(la_d, lo_d, 9), 3),
+        "vincenty": cuda_ms(torch, lambda: gk.vincenty(la_d, lo_d, la2_d, lo2_d), 3),
+        f"point_in_polygon_set ({n_edges} edges)": cuda_ms(torch, lambda: gk.point_in_polygon_set(la_d, lo_d, *edges), 3),
+        "segment_centroid by int id": cuda_ms(torch, lambda: gk.segment_centroid(*xyz_d, seg, valid, len(labels)), 3),
+    }
+    del xyz_d, edges, seg, valid
+    print("geo transformers: device time " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["device_ms"].items()),
+          flush=True)
+
+    t0 = time.perf_counter()
+    lat, lon, lat2, lon2 = (df[c].to_numpy(np.float64) for c in ("latitude", "longitude", "lat2", "lon2"))
+    ok = ~np.isnan(lat) & ~np.isnan(lon)
+    col = lambda tab, c: tab.columns[c].data.cpu().numpy()  # noqa: E731
+    mask = lambda tab, c: tab.columns[c].mask.cpu().numpy()  # noqa: E731
+    # conversions
+    for c, v in (("latitude_radian", lat), ("longitude_radian", lon)):
+        check(np.array_equal(mask(rad, c), ok) and np.array_equal(col(rad, c)[ok], np.radians(v[ok]).astype(np.float32)),
+              f"{c} is not the f32 of float64 radians")
+    R = geo_utils.EARTH_RADIUS_M
+    la, lo = np.radians(lat), np.radians(lon)
+    for c, v in (("x", R * np.cos(la) * np.cos(lo)), ("y", R * np.cos(la) * np.sin(lo)), ("z", R * np.sin(la))):
+        got = col(cart, f"latitude_longitude_{c}")[ok].astype(np.float64)
+        check(np.abs(got - v[ok]).max() <= np.spacing(np.float32(R)), f"cartesian {c} off float64")
+    err = max(np.abs(col(back_cart, f"latitude_longitude_x_latitude_longitude_y_latitude_longitude_z_{k}")[ok] - v[ok]).max()
+              for k, v in (("lat", lat), ("lon", lon)))
+    out["cartesian_round_trip_deg"] = float(err)
+    check(err <= 6e-6, f"cartesian round trip off by {err} degrees")
+    sample = np.random.default_rng(seed).choice(np.flatnonzero(ok), GEO_T_SAMPLE, replace=False)
+    strs = geo._host_cat(gh, "latitude_longitude_geohash")
+    check(all(strs[i] == geo_utils.geohash_encode(lat[i], lon[i], 9) for i in sample),
+          "geohash strings differ from geohash_encode")
+    check(all(s is None for s in strs[~ok]), "geohash of a null location")
+    for k, v, half in (("latitude", lat, 90.0 / 2 ** 22), ("longitude", lon, 180.0 / 2 ** 23)):
+        got = col(back_gh, f"latitude_longitude_geohash_{k}")[ok]
+        check(np.abs(got - v[ok]).max() <= half + np.spacing(np.float32(180)), f"geohash {k} centre off the cell")
+    p5 = geo._host_cat(gh5, "latitude_longitude_geohash_precision")
+    check(all(p5[i] == strs[i][:5] for i in sample), "geohash_precision_control 5")
+    okh = ok[:GEO_T_DMS_ROWS]
+    for k, v in (("latitude", lat), ("longitude", lon)):
+        got = col(back_dms, f"{k}_dms_dd")
+        check(np.array_equal(mask(back_dms, f"{k}_dms_dd"), okh)
+              and np.array_equal(got[okh], v[:GEO_T_DMS_ROWS][okh].astype(np.float32)),
+              f"{k}: dd → dms → dd is not the identity on f32 values")
+    # distances against float64 geo_utils, away from the antipode (GAP)
+    ok2 = ok  # lat2/lon2 have no nulls
+    hav = geo_utils.haversine_distance(lat, lon, lat2, lon2)
+    far = ok2 & (np.pi * R - hav > 2e5)
+    out["near_antipodal_pairs"] = int((ok2 & ~far).sum())
+    vsample = np.flatnonzero(far)[:: max(1, far.sum() // 250_000)]
+    refs = {"haversine": (hav, far), "euclidean": (geo_utils.euclidean_distance(lat, lon, lat2, lon2), far),
+            "vincenty": (None, vsample)}
+    for kind, (ref, sel) in refs.items():
+        got = col(dist[kind], f"distance_{kind}").astype(np.float64)
+        if ref is None:
+            ref = np.full(len(got), np.nan)
+            ref[sel] = geo_utils.vincenty_distance(lat[sel], lon[sel], lat2[sel], lon2[sel])
+        e = np.abs(got[sel] * 1000 - ref[sel]) - (1e-3 + 1.2e-7 * ref[sel])
+        out[f"{kind}_worst_excess_m"] = float(e.max())
+        check(np.array_equal(mask(dist[kind], f"distance_{kind}"), ok2) and e.max() <= 0,
+              f"{kind}: {int((e > 0).sum())} pairs off float64 beyond the band")
+    out["vincenty_checked_pairs"] = len(vsample)
+    # containment
+    lo_lon, lo_lat, hi_lon, hi_lat = (np.float32(b) for b in geo_utils.COUNTRY_BOUNDING_BOXES["US"][1])
+    l32, o32 = lat.astype(np.float32), lon.astype(np.float32)
+    box = (l32 >= lo_lat) & (l32 <= hi_lat) & (o32 >= lo_lon) & (o32 <= hi_lon)
+    check(np.array_equal(col(approx, "latitude_longitude_in_US")[ok], box[ok].astype(np.float32)), "approx US flags")
+    inside, near_edge = (x.cpu().numpy() for x in ray_cast_float64(
+        torch, torch.from_numpy(np.nan_to_num(l32)).cuda(), torch.from_numpy(np.nan_to_num(o32)).cuda(), gj))
+    keep = ok & ~near_edge
+    out["polygon_near_edge_points"] = int((ok & near_edge).sum())
+    out["polygon_inside_points"] = int(inside[ok].sum())
+    for tab, c in ((exact, "latitude_longitude_in_XX"), (poly, "latitude_longitude_in_poly")):
+        got = col(tab, c)
+        check(np.array_equal(mask(tab, c), ok) and np.array_equal(got[keep], inside[keep].astype(np.float32)),
+              f"{c}: flags differ from the float64 ray cast")
+    check(0.05 < inside[ok].mean() < 0.9, f"polygon holds {inside[ok].mean():.3f} of the points")
+    # centroids and radii against float64 pandas on the same f32 inputs
+    c0 = float64_centroids(lat[ok], lon[ok], np.zeros(ok.sum()))
+    check(np.allclose(c_all.to_numpy(np.float64)[0], c0[["lat", "lon"]].to_numpy()[0], atol=1.000001e-6, rtol=0),
+          "global centroid")
+    uid, sid = df["uid"].to_numpy(), df["sid"].to_numpy()
+    ref = float64_centroids(lat[ok], lon[ok], uid[ok])
+    check(list(c_uid["uid"]) == list(ref.index) and len(ref) == GEO_T_IDS, "centroid ids")
+    err_c = np.abs(c_uid[["latitude_centroid", "longitude_centroid"]].to_numpy() - ref[["lat", "lon"]].to_numpy()).max()
+    out["centroid_err_deg"] = float(err_c)
+    check(err_c <= 1.000001e-6, f"centroids off float64 by {err_c}")
+    by_sid = c_sid.set_index("sid").loc[["u%d" % u for u in c_uid["uid"]]]
+    check(np.allclose(by_sid.to_numpy(), c_uid[["latitude_centroid", "longitude_centroid"]].to_numpy(),
+                      atol=1.000001e-6, rtol=0), "string-id centroids differ from the int-id ones")
+    w = df["weight"].to_numpy()
+    wref = float64_centroids(lat[ok], lon[ok], uid[ok], w[ok])
+    err_w = np.abs(wc[["latitude_weighted_centroid", "longitude_weighted_centroid"]].to_numpy()
+                   - wref[["lat", "lon"]].to_numpy()).max()
+    out["weighted_centroid_err_deg"] = float(err_w)
+    check(list(wc["uid"]) == list(wref.index) and err_w <= 1.000001e-6, f"weighted centroids off by {err_w}")
+    pos = np.searchsorted(ref.index.to_numpy(), uid[ok])
+    d = geo_utils.haversine_distance(lat[ok], lon[ok], ref["lat"].to_numpy()[pos], ref["lon"].to_numpy()[pos])
+    rog_ref = np.sqrt(np.bincount(pos, d * d) / ref["n"].to_numpy())
+    err_r = float(np.abs(rog["rog"].to_numpy() - rog_ref).max() / rog_ref.max())
+    out["rog_rel_err"] = err_r
+    check(list(rog["uid"]) == list(ref.index) and err_r <= 1e-9, f"rog off float64 by {err_r} relative")
+    # reverse geocoding against a float64 brute force on the card
+    xyz_c, cities = geo._geocode_table()
+    la_t = torch.from_numpy(np.radians(lat[ok])).cuda()
+    lo_t = torch.from_numpy(np.radians(lon[ok])).cuda()
+    cx = torch.from_numpy(xyz_c.astype(np.float64)).cuda()
+    best, margin = [], []
+    for s0 in range(0, len(la_t), 1 << 18):
+        a, b = la_t[s0:s0 + (1 << 18)], lo_t[s0:s0 + (1 << 18)]
+        sc = torch.stack([torch.cos(a) * torch.cos(b), torch.cos(a) * torch.sin(b), torch.sin(a)], 1) @ cx.T
+        top = torch.topk(sc, 2, dim=1)
+        best.append(top.indices[:, 0])
+        margin.append(top.values[:, 0] - top.values[:, 1])
+    best, margin = torch.cat(best).cpu().numpy(), torch.cat(margin).cpu().numpy()
+    tie = margin <= 4 * np.spacing(np.float32(1))
+    out["geocode_near_ties"] = int(tie.sum())
+    check(len(rg) == ok.sum() and np.array_equal(rg["latitude"].to_numpy(), lat[ok].astype(np.float32)),
+          "reverse_geocoding rows")
+    names = cities["name"].to_numpy()[best]
+    check(bool((rg["name_of_place"].to_numpy()[~tie] == names[~tie]).all()),
+          "reverse_geocoding differs from the float64 nearest city")
+    out["checks_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"geo transformers: checked against float64 in {out['checks_s']:.1f} s: radians and cartesian exact/within "
+          f"an f32 ulp of the radius, round trips (cartesian {err:.2e}°, dms exact, geohash in the cell), "
+          f"{GEO_T_SAMPLE} geohashes equal geohash_encode, distances in band ({out['near_antipodal_pairs']} "
+          f"near-antipodal pairs set aside; Vincenty on {len(vsample)} pairs), polygon flags equal float64 but "
+          f"{out['polygon_near_edge_points']} points within {GEO_T_EDGE}° of an edge, centroids within {err_c:.1e}° and "
+          f"{err_w:.1e}°, rog within {err_r:.1e}, reverse geocoding equal but {out['geocode_near_ties']} near ties; "
+          f"phase 12 in {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -4066,6 +4521,8 @@ def main() -> None:
     scen_paths = [p for p in PATH_KERNELS if p.startswith("configs_")]
     scen_kernels = {p: scen[p].pop("kernels") for p in scen_paths}
     print("scenarios " + json.dumps(scen), flush=True)
+    geo_t = phase_geo_transformers(torch, args.seed)
+    print("geo_transformers " + json.dumps(geo_t), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -4083,8 +4540,9 @@ def main() -> None:
                                                      "timeseries": ts["launches"],
                                                      "runner": runner["launches"],
                                                      "transformers": transform["launches"],
-                                                     **{p: scen[p]["launches"] for p in scen_paths}}, sass)
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     **{p: scen[p]["launches"] for p in scen_paths},
+                                                     "geo_transformers": geo_t["launches"]}, sass)
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

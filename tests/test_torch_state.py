@@ -140,10 +140,12 @@ def test_state_errors(tables):
 def test_namespace_has_every_public_name_of_the_jax_one():
     """The port's transformers namespace (the runner's getattr target)
     holds every public name of the JAX package's; the geospatial
-    transformers, which neither re-exports, are named as not ported by the
-    runner."""
+    transformers, which neither namespace re-exports (so both runners
+    raise AttributeError for them), are all in the port's geospatial
+    module under the JAX names."""
     from anovos_tpu.data_transformer import transformers as jtr
     from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.data_transformer import geospatial as pgeo
     from anovos_tpu_torch.data_transformer import transformers as ptr
 
     assert [n for n in jtr.__all__ if not hasattr(ptr, n)] == []
@@ -152,4 +154,6 @@ def test_namespace_has_every_public_name_of_the_jax_one():
 
     public = sorted(n for n, v in vars(jgeo).items() if callable(v) and not n.startswith("_")
                     and getattr(v, "__module__", "") == jgeo.__name__)
-    assert sorted(workflow.NOT_PORTED_TRANSFORMERS) == public
+    assert len(public) == 11
+    assert [n for n in public if getattr(getattr(pgeo, n, None), "__module__", "") != pgeo.__name__] == []
+    assert [n for n in public if hasattr(ptr, n) or hasattr(jtr, n)] == []

@@ -1,7 +1,8 @@
 """The port's entry point, ``python -m anovos_tpu_torch <config.yaml>
 [run_type] [auth_key_json]``, and the runner's guards: the usage line,
-``--resume`` refused, blocks not ported yet refused before any work, the
-device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
+``--resume`` refused, the blocks not ported yet refused before any work,
+a geospatial name in a transformers block raising AttributeError as in the
+JAX runner, the device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
 importable without a YAML reader.  Also ``chip_smoke.py``'s copy of
 ``config/configs_basic.yaml`` held equal to the file.
 """
@@ -69,38 +70,69 @@ def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
     assert "CUDA device requested" in res.stderr
 
 
-@pytest.mark.parametrize("block,item", [("transformers", "Queue A item 3"),
-                                        ("streaming_analysis", "Queue A item 4"),
+@pytest.mark.parametrize("block,item", [("streaming_analysis", "Queue A item 4"),
                                         ("continuous_analysis", "Queue A item 4"),
-                                        ("write_feast_features", "Queue A item 4")])
+                                        ("streaming_analysis", "transformers"),
+                                        ("continuous_analysis", "write_feast_features")])
 def test_unported_blocks_raise_before_any_work(block, item):
-    """The config's input path does not exist: the refusal comes first.
-    A transformers block is refused for a function the port lacks (a
-    geospatial transformer), not with getattr's AttributeError."""
+    """The config's input path does not exist: the refusal comes first,
+    also before a transformers step naming a function the port's
+    transformers module lacks (which raises AttributeError when it runs)
+    and before write_feast_features' config check (no write_main here)."""
     from anovos_tpu_torch import workflow
 
     cfg = load_config("configs_full.yaml")
     cfg.pop("transformers")
-    cfg[block] = {"anything": {"location_distance": {}}}
-    with pytest.raises(NotImplementedError, match=item):
+    cfg[block] = {"anything": {}}
+    if item == "transformers":
+        cfg[item] = {"geo": {"location_distance": {}}}
+    elif item == "write_feast_features":
+        cfg.pop("write_main")
+        cfg[item] = {"file_path": "feast_repo/"}
+    with pytest.raises(NotImplementedError, match=f"{block}.*Queue A item 4"):
         workflow.main(cfg, "local")
 
 
 def test_basic_report_skips_the_analytics_blocks():
-    """With basic_report true the later analytics keys are skipped, so a
-    transformers block naming a function the port lacks is not refused
-    there; write_feast_features is.  configs_full's own transformers
-    block is ported."""
-    from anovos_tpu_torch.workflow import _check_ported
+    """With basic_report true the later analytics keys are skipped, so the
+    streaming blocks are not refused there; without it they are.
+    A geospatial function in a transformers block and write_feast_features
+    pass the check in both modes: the runner resolves the first by getattr
+    when it runs, and runs the second."""
+    from anovos_tpu_torch.workflow import NOT_PORTED, _check_ported
 
+    assert set(NOT_PORTED) == {"streaming_analysis", "continuous_analysis"}
     cfg = load_config("configs_full.yaml")
-    _check_ported(cfg, basic_report=False)
     cfg["transformers"]["geo"] = {"geo_format_latlon": {"list_of_lat": "latitude"}}
+    cfg["write_feast_features"] = load_config("configs_feast.yaml")["write_feast_features"]
+    for basic in (False, True):
+        _check_ported(cfg, basic_report=basic)
+    cfg["streaming_analysis"] = {"stats": True}
     _check_ported(cfg, basic_report=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    with pytest.raises(NotImplementedError, match="streaming_analysis"):
         _check_ported(cfg, basic_report=False)
-    with pytest.raises(NotImplementedError, match="write_feast_features"):
-        _check_ported(dict(cfg, write_feast_features={}), basic_report=True)
+
+
+def test_geospatial_transformer_names_raise_attribute_error_in_both_runners(tmp_path):
+    """A transformers step naming ``location_distance`` (a function of
+    data_transformer.geospatial, not of data_transformer.transformers)
+    raises AttributeError in both runners, which resolve it by getattr."""
+    from anovos_tpu import workflow as jwf
+    from anovos_tpu_torch import workflow as pwf
+
+    data = tmp_path / "data"
+    data.mkdir()
+    pd.DataFrame({"lat1": [1.0, 2.0], "lon1": [3.0, 4.0], "lat2": [1.5, 2.5],
+                  "lon2": [3.5, 4.5]}).to_parquet(data / "part-00000.parquet")
+    cfg = {"input_dataset": {"read_dataset": {"file_path": str(data), "file_type": "parquet"}},
+           "transformers": {"geo": {"location_distance": {"list_of_lat": ["lat1", "lat2"],
+                                                          "list_of_lon": ["lon1", "lon2"]}}}}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
+        mp.chdir(tmp_path)
+        for wf in (pwf, jwf):
+            with pytest.raises(AttributeError, match="location_distance"):
+                wf.main(cfg, "local")
 
 
 def test_workflow_imports_without_a_yaml_reader():

@@ -1,6 +1,6 @@
-"""The port's YAML runner against the JAX package's on ``config/configs.yaml``
-and ``config/configs_mlflow.yaml``, on synthesized income rows with the
-configs' paths substituted and the dictionaries set to ``NA``: the whole
+"""The port's YAML runner against the JAX package's on ``config/configs.yaml``,
+``config/configs_mlflow.yaml`` and ``config/configs_feast.yaml``, on
+synthesized income rows with the configs' paths substituted and the dictionaries set to ``NA``: the whole
 output trees compared as in ``tests/test_torch_workflow.py``.
 
 ``configs.yaml`` runs the ETL steps, ``concatenate_dataset`` (method
@@ -10,7 +10,9 @@ package's writer, ``timeseries_analyzer``, ``geospatial_controller`` with
 ``auto_detection_analyzer: False`` (no geo files), stats, quality,
 association, drift with stability, the transformers block, the report and
 its three writes.  ``configs_mlflow.yaml`` runs with ``mlflow`` unimportable:
-the runner logs its warning and goes on.
+the runner logs its warning and goes on.  ``configs_feast.yaml`` adds two
+timestamp columns before its one-part final write and writes a Feast
+repository file; the timestamps' values are each run's own.
 
 PCA's outputs carry a fault of the JAX package the port does not copy
 (an all-null input column turns every JAX latent NaN) and are compared by
@@ -69,6 +71,12 @@ def income_config(data: dict) -> dict:
     return cfg
 
 
+def feast_config(data: dict) -> dict:
+    cfg = load_config("configs_feast.yaml")
+    cfg["input_dataset"]["read_dataset"]["file_path"] = data["main"]
+    return cfg
+
+
 def mlflow_config(data: dict) -> dict:
     cfg = load_config("configs_mlflow.yaml")
     cfg["input_dataset"]["read_dataset"]["file_path"] = data["main"]
@@ -94,6 +102,11 @@ def run_both_recorded(cfg: dict, root: str) -> dict:
 @pytest.fixture(scope="module")
 def income_runs(data, tmp_path_factory):
     return run_both_recorded(income_config(data), str(tmp_path_factory.mktemp("configs")))
+
+
+@pytest.fixture(scope="module")
+def feast_runs(data, tmp_path_factory):
+    return run_both_recorded(feast_config(data), str(tmp_path_factory.mktemp("feast")))
 
 
 @pytest.fixture(scope="module")
@@ -193,8 +206,45 @@ def test_configs_mlflow_runs_without_mlflow(mlflow_runs):
     assert int(float(dict(zip(gs["metric"], gs["value"]))["rows_count"])) == ROWS
 
 
+FEAST_TS = ["event_time", "create_time_col"]
+
+
+def _without_timestamps(got_path, exp_path):
+    """The final dataset: equal but for the two timestamp columns, which
+    hold each run's own time; those are timestamps of one value each."""
+    got, exp = pd.read_parquet(got_path), pd.read_parquet(exp_path)
+    assert list(got.columns) == list(exp.columns) and list(got.columns[-2:]) == FEAST_TS
+    pd.testing.assert_frame_equal(got.drop(columns=FEAST_TS), exp.drop(columns=FEAST_TS))
+    for c in FEAST_TS:
+        assert str(got[c].dtype) == str(exp[c].dtype) and got[c].dtype.kind == "M"
+        assert got[c].nunique() == 1 and not got[c].isna().any()
+
+
+def _same_bytes(got_path, exp_path):
+    with open(got_path, "rb") as g, open(exp_path, "rb") as e:
+        assert g.read() == e.read()
+
+
+def test_configs_feast_tree_matches_jax(feast_runs, data):
+    """configs_feast.yaml: the stats and chart files, the one-part final
+    dataset with its two timestamp columns (their values set aside) and
+    the Feast repository file byte for byte, which compiles and names the
+    written part."""
+    names = assert_dirs_close(feast_runs["port"], feast_runs["jax"], rules={
+        "part-00000.parquet": _without_timestamps, "anovos.py": _same_bytes})
+    assert "feast_repo/anovos.py" in names and "output/final_dataset/part-00000.parquet" in names
+    assert feast_runs["degraded"] == feast_runs["jax_degraded"] == {}
+    with open(os.path.join(feast_runs["port"], "feast_repo", "anovos.py")) as f:
+        text = f.read()
+    compile(text, "anovos.py", "exec")
+    assert 'path="output/final_dataset/part-00000.parquet"' in text
+    assert 'Field(name="income", dtype=String)' in text and 'Field(name="ifa"' not in text
+    final = pd.read_parquet(os.path.join(feast_runs["port"], "output", "final_dataset"))
+    assert len(final) == ROWS
+
+
 @pytest.mark.parametrize("name", ["configs.yaml", "configs_time_series.yaml", "configs_geospatial.yaml",
-                                  "configs_mlflow.yaml"])
+                                  "configs_mlflow.yaml", "configs_feast.yaml"])
 def test_chip_smoke_copies_equal_the_yamls(name):
     """chip_smoke.py phase 11 runs its own copies of the four configs (the
     card's machine may lack a YAML reader): after the same substitution of
@@ -209,6 +259,8 @@ def test_chip_smoke_copies_equal_the_yamls(name):
         got, exp = chip_smoke.income_config("/data/main", "/data/join", si), income_config(data)
     elif name == "configs_mlflow.yaml":
         got, exp = chip_smoke.mlflow_config("/data/main"), mlflow_config(data)
+    elif name == "configs_feast.yaml":
+        got, exp = chip_smoke.feast_config("/data/main"), feast_config(data)
     else:
         template = {"configs_time_series.yaml": chip_smoke.TS_SCENARIO_CONFIG,
                     "configs_geospatial.yaml": chip_smoke.GEO_SCENARIO_CONFIG}[name]
