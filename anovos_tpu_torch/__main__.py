@@ -1,19 +1,21 @@
-"""``python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json]``:
-run a YAML config through the port's runner on the GPU."""
+"""``python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json] [--resume]``:
+run a YAML config through the port's runner on the GPU.  ``--resume``
+re-runs a killed config: its streaming passes resume from their chunk
+checkpoints, every other block runs again."""
 
 import json
 import logging
 import sys
 
-USAGE = "usage: python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json]"
+USAGE = "usage: python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json] [--resume]"
 
 
 def parse_args(argv):
-    """(config_path, run_type, auth_key_val) from the command line; exits
-    with the usage line when there is no config."""
-    if "--resume" in argv:
-        sys.exit("--resume is not supported by anovos_tpu_torch: the port has no cache store "
-                 "yet (ROADMAP.md Queue A item 4)\n" + USAGE)
+    """(config_path, run_type, auth_key_val, resume) from the command line,
+    ``--resume`` anywhere after the program; exits with the usage line
+    when there is no config."""
+    resume = "--resume" in argv[1:]
+    argv = [argv[0]] + [a for a in argv[1:] if a != "--resume"]
     if len(argv) < 2:
         sys.exit(USAGE)
     run_type = argv[2] if len(argv) > 2 else "local"
@@ -26,15 +28,15 @@ def parse_args(argv):
             auth_key_val = {"auth_key": argv[3]}
         if not isinstance(auth_key_val, dict):
             auth_key_val = {"auth_key": argv[3]}
-    return argv[1], run_type, auth_key_val
+    return argv[1], run_type, auth_key_val, resume
 
 
 if __name__ == "__main__":
-    config_path, run_type, auth_key_val = parse_args(sys.argv)
+    config_path, run_type, auth_key_val, resume = parse_args(sys.argv)
     # entrypoint-only root-logger setup: library modules never call
     # logging.basicConfig
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     from anovos_tpu_torch import workflow
 
-    workflow.run(config_path, run_type, auth_key_val)
+    workflow.run(config_path, run_type, auth_key_val, resume=resume)

@@ -597,3 +597,135 @@ def invalidEntries_detection(
     if print_impact:
         logger.info(stats.to_string(index=False))
     return odf, stats
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streaming variants: whole-table quality passes over the
+# prefetched chunk iterator (ops/streaming.py), the same stats frames as the
+# in-memory checks, with chunk checkpoints so a killed run resumes
+# ---------------------------------------------------------------------------
+def _outlier_counts_dispatch(lo: torch.Tensor, hi: torch.Tensor):
+    """The chunk work of ``outlier_stats_streaming``: the outlier flags
+    of the in-memory check (f32 compares against f32 bounds; a value both
+    above the upper and below the lower bound flags 0) reduced to two
+    int64 (k,) count vectors on the device."""
+
+    def dispatch(Xc: torch.Tensor, Mc: torch.Tensor) -> Dict[str, torch.Tensor]:
+        above, below = Xc > hi[:, None], Xc < lo[:, None]
+        return {"n_lo": (Mc & below & ~above).sum(dim=1), "n_hi": (Mc & above & ~below).sum(dim=1)}
+
+    return dispatch
+
+
+def missing_stats_streaming(
+    file_path: str,
+    file_type: str,
+    list_of_cols="all",
+    drop_cols=[],
+    chunk_rows: int = 1_000_000,
+    file_configs: dict = None,
+    checkpoint_dir: str = None,
+    resume: bool = False,
+    print_impact=False,
+) -> pd.DataFrame:
+    """Streaming ``missingCount_computation``: [attribute, missing_count,
+    missing_pct] over a part-file dataset of any size.  The counts are
+    host tallies over the raw chunk frames (no device block), exact
+    integers; the percentage is rounded to 4 decimals."""
+    from anovos_tpu_torch.data_ingest.data_ingest import _resolve_files
+    from anovos_tpu_torch.data_ingest.guard import IngestError
+    from anovos_tpu_torch.data_ingest.prefetch import StreamController, StreamStats
+    from anovos_tpu_torch.ops import streaming as st
+
+    cfg = dict(file_configs or {})
+    files = _resolve_files(file_path, file_type)
+    schema = st.stream_schema(files, file_type, cfg)
+    cols = parse_cols(list_of_cols, [c for c, _k in schema], drop_cols)
+    if not cols:
+        raise TypeError("Invalid input for Column(s)")
+    ctl, stats = StreamController(), StreamStats()
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = st.StreamCheckpoint(
+            checkpoint_dir, st._stream_sig(files, file_type, cols, chunk_rows, 0, op="quality_missing"),
+            resume=resume)
+    skip = ckpt.committed(1) if (ckpt is not None and resume) else frozenset()
+    parts = st._run_pass(
+        files, file_type, cols, chunk_rows, cfg, pass_no=1,
+        dispatch=None, need_block=False,
+        host_part=lambda df: {"rows": np.asarray(len(df), np.int64),
+                              "valid": df[cols].notna().sum().to_numpy(np.int64)},
+        ctl=ctl, stats=stats, ckpt=ckpt, skip_chunks=skip,
+        on_file_rows=st.checkpoint_on_file_rows(ckpt))
+    if not parts:
+        raise IngestError(f"missing_stats_streaming: no readable rows in {len(files)} part file(s) "
+                          "(every part quarantined?)")
+    total = int(sum(int(p["rows"]) for p in parts.values()))
+    valid = np.sum([p["valid"] for p in parts.values()], axis=0).astype(np.int64)
+    missing = total - valid
+    odf = pd.DataFrame({"attribute": cols, "missing_count": missing,
+                        "missing_pct": np.round(missing / max(total, 1), 4)})
+    st._publish_stats("missing_stats_streaming", ctl, stats)
+    if print_impact:
+        logger.info(odf.to_string(index=False))
+    return odf
+
+
+def outlier_stats_streaming(
+    file_path: str,
+    file_type: str,
+    model_path: str,
+    list_of_cols="all",
+    drop_cols=[],
+    chunk_rows: int = 1_000_000,
+    file_configs: dict = None,
+    checkpoint_dir: str = None,
+    resume: bool = False,
+    print_impact=False,
+) -> pd.DataFrame:
+    """Streaming outlier counts against pre-fitted bounds (the out-of-core
+    twin of ``outlier_detection(pre_existing_model=True)``): [attribute,
+    lower_outliers, upper_outliers], exact integer counts summed in int64
+    over the chunks."""
+    from anovos_tpu_torch.data_ingest.data_ingest import _resolve_files
+    from anovos_tpu_torch.data_ingest.guard import IngestError
+    from anovos_tpu_torch.data_ingest.prefetch import StreamController, StreamStats
+    from anovos_tpu_torch.ops import streaming as st
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    cfg = dict(file_configs or {})
+    files = _resolve_files(file_path, file_type)
+    num_all = [c for c, k in st.stream_schema(files, file_type, cfg) if k == "num"]
+    cols = parse_cols(list_of_cols if list_of_cols != "all" else num_all, num_all, drop_cols)
+    bounds, _skewed = _load_outlier_model(model_path)
+    cols = [c for c in cols if c in bounds]
+    if not cols:
+        return pd.DataFrame(columns=["attribute", "lower_outliers", "upper_outliers"])
+    lower = np.array([bounds[c][0] if bounds[c][0] is not None else -np.inf for c in cols])
+    upper = np.array([bounds[c][1] if bounds[c][1] is not None else np.inf for c in cols])
+    ctl, stats = StreamController(), StreamStats()
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = st.StreamCheckpoint(
+            checkpoint_dir,
+            st._stream_sig(files, file_type, cols, chunk_rows, 0,
+                           op="quality_outlier:" + ",".join(f"{lo}:{hi}" for lo, hi in zip(lower, upper))),
+            resume=resume)
+    device = get_runtime().device
+    lo_d = torch.as_tensor(lower.astype(np.float32), device=device)
+    hi_d = torch.as_tensor(upper.astype(np.float32), device=device)
+    skip = ckpt.committed(1) if (ckpt is not None and resume) else frozenset()
+    parts = st._run_pass(
+        files, file_type, cols, chunk_rows, cfg, pass_no=1,
+        dispatch=_outlier_counts_dispatch(lo_d, hi_d),
+        ctl=ctl, stats=stats, ckpt=ckpt, skip_chunks=skip,
+        on_file_rows=st.checkpoint_on_file_rows(ckpt))
+    if not parts:
+        raise IngestError(f"outlier_stats_streaming: no readable rows in {len(files)} part file(s) "
+                          "(every part quarantined?)")
+    odf = pd.DataFrame({"attribute": cols, "lower_outliers": st._sum_parts(parts, "n_lo"),
+                        "upper_outliers": st._sum_parts(parts, "n_hi")})
+    st._publish_stats("outlier_stats_streaming", ctl, stats)
+    if print_impact:
+        logger.info(odf.to_string(index=False))
+    return odf

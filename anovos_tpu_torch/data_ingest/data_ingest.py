@@ -3,13 +3,13 @@ of ``anovos_tpu/data_ingest/data_ingest.py``).
 
 ``read_dataset`` decodes CSV, Parquet, JSON or Avro part files on the host
 (pyarrow, pandas, the port's C++ Avro codec), applies whole-dataset schema
-inference and nulls ±inf and values beyond the f32 range (the JAX
-package's default ingest policy), then dictionary-encodes and uploads the
-columns to the runtime's device.  ``write_dataset`` writes Spark-style part
+inference, each part under the ingest guard (``guard.py``: retry,
+quarantine, schema reconciliation, sanitization of ±inf and values beyond
+the f32 range), then dictionary-encodes and uploads the columns to the
+runtime's device.  ``write_dataset`` writes Spark-style part
 files.  ``concatenate_dataset`` and ``join_dataset`` keep the payload on
 the device (vocabulary-union code remaps, row gathers); join keys are
-matched on the host.  Multi-host ingest, the quarantining guard and
-prefetch are not ported.
+matched on the host.  Multi-host ingest is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ import pyarrow as pa
 import pyarrow.csv as pacsv
 import torch
 
-from anovos_tpu_torch.data_ingest import avro_io
+from anovos_tpu_torch.data_ingest import avro_io, guard
+from anovos_tpu_torch.obs import get_metrics
 from anovos_tpu_torch.ops.segment import masked_nunique
 from anovos_tpu_torch.shared.native import NativeEncodedStrings
 from anovos_tpu_torch.shared.table import Column, Table, host_to_column
@@ -39,7 +40,6 @@ logger = logging.getLogger(__name__)
 
 _EXTENSIONS = {"csv": (".csv",), "parquet": (".parquet", ".pq"), "avro": (".avro",),
                "json": (".json", ".json.gz", ".jsonl")}
-_F32_MAX = float(np.finfo(np.float32).max)
 
 
 def _resolve_files(file_path: str, file_type: str) -> List[str]:
@@ -64,24 +64,62 @@ def _resolve_files(file_path: str, file_type: str) -> List[str]:
     raise FileNotFoundError(f"no {file_type} files at {file_path}")
 
 
+@guard.raw_reader
 def _read_one_part(f: str, file_type: str, cfg: dict) -> pd.DataFrame:
+    """RAW single-part decode, called only through
+    :func:`guard.guarded_part_read`: a decode failure here is the fault
+    the guard retries and quarantines."""
     if file_type == "csv":
         delim = str(cfg.get("delimiter", cfg.get("sep", ",")))
         header = str(cfg.get("header", True)).lower() in ("true", "1")
         tbl = pacsv.read_csv(f, read_options=pacsv.ReadOptions(autogenerate_column_names=not header),
                              parse_options=pacsv.ParseOptions(delimiter=delim))
+        # pyarrow types undecodable UTF-8 as binary instead of failing:
+        # raise the decode error (with its byte offset) so the guard
+        # quarantines the part
+        bad = [fld.name for fld in tbl.schema
+               if pa.types.is_binary(fld.type) or pa.types.is_large_binary(fld.type)]
+        if bad:
+            for chunk in tbl.column(bad[0]).chunks:
+                for v in chunk:
+                    b = v.as_py()
+                    if b is not None:
+                        b.decode("utf-8")
+            raise ValueError(f"CSV part {f}: columns {bad} are not valid UTF-8")
         return tbl.to_pandas()
     if file_type == "parquet":
         return pd.read_parquet(f)
-    opener = gzip.open if f.endswith(".gz") else open
-    with opener(f, "rt") as fh:
-        return pd.read_json(fh, lines=True)
+    if file_type == "avro":
+        dec = avro_io.read_avro(f)
+        return pd.DataFrame({k: (v.to_object_array() if isinstance(v, NativeEncodedStrings) else v)
+                             for k, v in dec.items()})
+    if file_type == "json":
+        opener = gzip.open if f.endswith(".gz") else open
+        with opener(f, "rt") as fh:
+            return pd.read_json(fh, lines=True)
+    raise ValueError(f"unsupported file_type: {file_type}")
 
 
 def read_host_frame(files: List[str], file_type: str, cfg: dict) -> pd.DataFrame:
-    """Host pandas frame from part files, schema-inferred over all parts."""
-    frames = [_read_one_part(f, file_type, cfg) for f in files]
-    df = frames[0] if len(frames) == 1 else pd.concat(frames, ignore_index=True)
+    """Host pandas frame from part files, guarded: each part decodes under
+    the retry/quarantine policy, schemas reconcile across parts, the
+    schema is inferred over all parts, and hostile values are sanitized
+    last (``data_ingest/guard.py``)."""
+    if file_type not in _EXTENSIONS:
+        raise ValueError(f"unsupported file_type: {file_type}")
+    pol = guard.policy_from_env()
+    frames = []
+    for f in files:
+        df = guard.guarded_part_read(f, lambda f=f: _read_one_part(f, file_type, cfg),
+                                     file_type=file_type, policy=pol)
+        if df is not None:
+            frames.append((f, df))
+    if not frames:
+        raise guard.IngestError(
+            f"every {file_type} part was quarantined ({len(files)} file(s), first: "
+            f"{files[0] if files else '<none>'}) — no schema left to build a frame")
+    aligned = guard.reconcile_frames(frames, pol)
+    df = aligned[0] if len(aligned) == 1 else pd.concat(aligned, ignore_index=True)
     if str(cfg.get("inferSchema", True)).lower() in ("true", "1", "none"):
         # a string column whose every non-null value parses as a number is
         # numeric; an all-null column is a numeric NaN column
@@ -97,13 +135,8 @@ def read_host_frame(files: List[str], file_type: str, cfg: dict) -> pd.DataFrame
                         df[c] = coerced
                 else:
                     df[c] = pd.to_numeric(df[c], errors="coerce")
-    for c in df.columns:
-        if df[c].dtype.kind == "f":
-            vals = df[c].to_numpy()
-            bad = np.isinf(vals) | (np.isfinite(vals) & (np.abs(vals) > _F32_MAX))
-            if bad.any():
-                df[c] = np.where(bad, np.nan, vals)
-    return df
+    # last, so the columns inference made numeric are sanitized too
+    return guard.sanitize_frame(df, pol)
 
 
 def _coerce_numeric_strings(decoded: dict) -> dict:
@@ -131,19 +164,43 @@ def read_dataset(file_path: str, file_type: str, file_configs: Optional[dict] = 
     runtime's device.
 
     ``file_configs``: ``header``, ``delimiter``/``sep``, ``inferSchema``.
-    Multi-file directories are concatenated on the host before upload,
-    except avro, whose parts each become a Table and are concatenated by
-    name."""
+    Every part decodes under the ingest guard (a corrupt part is
+    quarantined and the read goes on without it).  Multi-file directories
+    are concatenated on the host before upload, except avro, whose parts
+    each become a Table and are concatenated by name."""
     if file_type not in _EXTENSIONS:
         raise ValueError(f"unsupported file_type: {file_type}")
     cfg = dict(file_configs or {})
     files = _resolve_files(file_path, file_type)
+    out = None
     if file_type == "avro":
-        tables = [Table.from_numpy(_coerce_numeric_strings(avro_io.read_avro(f)), device=device)
-                  for f in files]
-        return tables[0] if len(tables) == 1 else concatenate_dataset(*tables, method_type="name")
-    df = read_host_frame(files, file_type, cfg)
-    return Table.from_pandas(df, device=device)
+        # each part decodes straight to a Table (strings stay dictionary
+        # codes); a schema the codec cannot express (an empty decode) takes
+        # the pandas route, without the parts the guard set aside
+        pol = guard.policy_from_env()
+        tables, bad = [], set()
+        for f in files:
+            decoded = guard.guarded_part_read(f, lambda f=f: avro_io.read_avro(f),
+                                              file_type="avro", policy=pol)
+            if decoded is None:
+                bad.add(f)
+                continue
+            if not decoded:
+                tables = None
+                break
+            n = len(next(iter(decoded.values())))
+            tables.append(Table.from_numpy(_coerce_numeric_strings(decoded), nrows=n, device=device))
+        if tables is not None and not tables:
+            raise guard.IngestError(
+                f"every avro part under {file_path} was quarantined ({len(bad)} part(s)) — "
+                "no schema left to build a Table")
+        files = [f for f in files if f not in bad]
+        if tables:
+            out = tables[0] if len(tables) == 1 else concatenate_dataset(*tables, method_type="name")
+    if out is None:
+        out = Table.from_pandas(read_host_frame(files, file_type, cfg), device=device)
+    get_metrics().counter("rows_ingested_total", "rows read into device Tables").inc(out.nrows)
+    return out
 
 
 def write_dataset(

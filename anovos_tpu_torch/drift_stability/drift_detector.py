@@ -297,3 +297,253 @@ def drift_device_args(idf_target: Table, idf_source: Table, bin_size: int = 10,
         _side_args(idf_target, num_cols, cat_cols, cuts, union_vocabs, bin_size, n_union),
         _side_args(idf_source, num_cols, cat_cols, cuts, union_vocabs, bin_size, n_union),
     )
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streaming drift: the histogram passes applied chunk by chunk
+# over the prefetched iterator (ops/streaming.py).  Source cutoffs come from
+# the streamed global bounds (the equal_range tail of fit_cutoffs), numeric
+# chunks are binned by the histogram kernel and their counts summed in
+# int64, categorical counts are tallied on the host.
+# ---------------------------------------------------------------------------
+def _drift_side_host_part(df: pd.DataFrame, cat_cols: List[str]) -> dict:
+    """Host partial of one raw chunk: its row count and each categorical
+    column's value counts, string-keyed."""
+    out = {"rows": np.asarray(len(df), np.int64)}
+    for j, c in enumerate(cat_cols):
+        s = df[c]
+        # a string-dtype column's counts drop its nulls already
+        vc = s.value_counts() if str(s.dtype) in ("str", "string") else s.dropna().astype(str).value_counts()
+        out[f"cat{j}_v"] = vc.index.to_numpy(dtype="U")
+        out[f"cat{j}_n"] = vc.to_numpy(np.int64)
+    return out
+
+
+def _merge_side_parts(parts: dict, cat_cols: List[str]):
+    """(total rows, a value Counter per categorical column) of a pass'
+    chunk partials."""
+    from collections import Counter
+
+    rows = 0
+    counters = [Counter() for _ in cat_cols]
+    for i in sorted(parts):
+        p = parts[i]
+        rows += int(p["rows"])
+        for j in range(len(cat_cols)):
+            vals, cnts = p.get(f"cat{j}_v"), p.get(f"cat{j}_n")
+            if vals is None:
+                continue
+            for v, n in zip(vals, cnts):
+                counters[j][str(v)] += int(n)
+    return rows, counters
+
+
+def _hist_finish(part: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A chunk's f32 kernel counts (exact below 2^24 a chunk) as int64."""
+    return {"hist": part["hist"].astype(np.int64)}
+
+
+def statistics_streaming(
+    file_path: str,
+    file_type: str,
+    source_file_path: Optional[str] = None,
+    list_of_cols="all",
+    drop_cols=None,
+    method_type: str = "PSI",
+    bin_method: str = "equal_range",
+    bin_size: int = 10,
+    threshold: float = 0.1,
+    chunk_rows: int = 1_000_000,
+    file_configs: Optional[dict] = None,
+    pre_existing_source: bool = False,
+    source_save: bool = True,
+    source_path: str = "NA",
+    model_directory: str = "drift_statistics",
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    print_impact: bool = False,
+) -> pd.DataFrame:
+    """Streaming ``statistics``: drift between two part-file datasets of
+    any size, in three passes (source bounds and categorical counts,
+    source histograms, target histograms and categorical counts); device
+    memory O(window·chunk_rows·k) throughout.
+
+    The fit needs ``bin_method='equal_range'`` (equal_frequency needs
+    whole-table quantiles) and nothing is sampled: the in-memory
+    counterpart is ``statistics(..., use_sampling=False)``, and the drift
+    model files are the ones it writes.  With ``pre_existing_source=True``
+    the persisted binning model and source frequencies are reused and
+    only the target streams.  With ``checkpoint_dir``/``resume`` every
+    chunk of every pass commits; a cutoff shift (a quarantined source part
+    came back) recomputes exactly the histogram passes binned over the
+    stale edges."""
+    from anovos_tpu_torch.data_ingest.data_ingest import _resolve_files
+    from anovos_tpu_torch.data_ingest.guard import IngestError
+    from anovos_tpu_torch.data_ingest.prefetch import StreamController, StreamStats
+    from anovos_tpu_torch.ops import streaming as st
+    from anovos_tpu_torch.ops.drift_kernels import cutoffs_from_bounds
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    methods = check_distance_method(method_type)
+    drop_cols = drop_cols or []
+    cfg = dict(file_configs or {})
+    if not pre_existing_source:
+        if source_file_path is None:
+            raise ValueError("statistics_streaming: source_file_path required unless "
+                             "pre_existing_source=True")
+        if bin_method != "equal_range":
+            raise ValueError("statistics_streaming fits cutoffs from streamed global bounds — only "
+                             "bin_method='equal_range' is supported (equal_frequency needs exact "
+                             "whole-table quantiles)")
+    if source_path == "NA":
+        source_path = "intermediate_data"
+    model_dir = os.path.join(source_path, model_directory)
+
+    tgt_files = _resolve_files(file_path, file_type)
+    src_files = _resolve_files(source_file_path, file_type) if source_file_path else []
+    schema = st.stream_schema(tgt_files, file_type, cfg)
+    num_all = [c for c, k in schema if k == "num"]
+    cat_all = [c for c, k in schema if k == "cat"]
+    cols = parse_cols(list_of_cols if list_of_cols != "all" else num_all + cat_all,
+                      [c for c, _k in schema], drop_cols)
+    num_cols = [c for c in cols if c in num_all]
+    cat_cols = [c for c in cols if c in cat_all]
+
+    device = get_runtime().device
+    ctl, stats = StreamController(), StreamStats()
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = st.StreamCheckpoint(
+            checkpoint_dir,
+            st._stream_sig(tgt_files + src_files, file_type, cols, chunk_rows, bin_size,
+                           op=f"drift:{method_type}:{bin_method}:{pre_existing_source}"),
+            resume=resume)
+    # source passes (1, 2) number their chunks over the source files, the
+    # target pass (3) over the target files: a shift in one set leaves the
+    # other's partials; check_bounds owns a cutoff shift's reach into pass 3
+    on_rows_src = st.checkpoint_on_file_rows(ckpt, passes=(1, 2))
+    on_rows_tgt = st.checkpoint_on_file_rows(ckpt, passes=(3,))
+
+    def _skip(pass_no):
+        return ckpt.committed(pass_no) if (ckpt is not None and resume) else frozenset()
+
+    # ---- numeric cutoffs and source counts --------------------------------
+    union_vocabs: Dict[str, np.ndarray] = {}
+    freq_p: Dict[str, np.ndarray] = {}
+    num_cols_eff = list(num_cols)
+    cutoffs = None
+    src_rows = 0
+    src_counters = None
+    if pre_existing_source:
+        dfm = load_model_df(model_dir, "attribute_binning")
+        cut_map = {r["attribute"]: list(r["parameters"]) for _, r in dfm.iterrows()}
+        num_cols_eff = [c for c in num_cols if c in cut_map]
+        cutoffs = np.array([cut_map[c] for c in num_cols_eff], dtype=np.float64)
+    else:
+        parts1 = st._run_pass(
+            src_files, file_type, num_cols, chunk_rows, cfg, pass_no=1,
+            dispatch=st.moments_dispatch, finish=st.moments_finish,
+            host_part=lambda df: _drift_side_host_part(df, cat_cols),
+            ctl=ctl, stats=stats, ckpt=ckpt, skip_chunks=_skip(1), on_file_rows=on_rows_src)
+        if not parts1:
+            raise IngestError(f"statistics_streaming: no readable rows in {len(src_files)} source "
+                              "part file(s)")
+        src_rows, src_counters = _merge_side_parts(parts1, cat_cols)
+        if num_cols:
+            agg = st._pairwise_merge([parts1[i] for i in sorted(parts1)])
+            # on the runtime's device, as the in-memory fit computes them:
+            # the card divides by the bin count as a reciprocal product
+            cuts_full = cutoffs_from_bounds(
+                *(torch.from_numpy(agg[f].astype(np.float32)).to(device) for f in ("min", "max", "n")),
+                bin_size).cpu().numpy()
+            cutoffs, num_cols_eff = _drop_allnan_cutoffs(cuts_full, num_cols)
+        else:
+            num_cols_eff = []
+
+    # the histogram passes are binned over these edges: a shift since the
+    # prior run stales every committed histogram chunk
+    if ckpt is not None:
+        edges = (np.asarray(cutoffs, np.float64) if cutoffs is not None and len(num_cols_eff)
+                 else np.zeros((0, max(bin_size - 1, 1))))
+        ckpt.check_bounds(edges.astype(np.float32), np.asarray([bin_size], np.float32),
+                          passes=(3,) if pre_existing_source else (2, 3))
+
+    cuts_d = (torch.as_tensor(np.asarray(cutoffs, np.float32), device=device).contiguous()
+              if num_cols_eff else None)
+
+    def _hist_dispatch(Xc, Mc):
+        return {"hist": binned_histograms_cols(Xc, Mc, cuts_d, bin_size)}
+
+    # ---- source histograms (fresh fit only) -------------------------------
+    src_num = None
+    if not pre_existing_source and num_cols_eff:
+        parts2 = st._run_pass(
+            src_files, file_type, num_cols_eff, chunk_rows, cfg, pass_no=2,
+            dispatch=_hist_dispatch, finish=_hist_finish,
+            ctl=ctl, stats=stats, ckpt=ckpt, skip_chunks=_skip(2), on_file_rows=on_rows_src)
+        src_num = st._sum_parts(parts2, "hist")
+
+    # ---- target pass ------------------------------------------------------
+    parts3 = st._run_pass(
+        tgt_files, file_type, num_cols_eff, chunk_rows, cfg, pass_no=3,
+        dispatch=_hist_dispatch, finish=_hist_finish,
+        host_part=lambda df: _drift_side_host_part(df, cat_cols),
+        ctl=ctl, stats=stats, ckpt=ckpt, skip_chunks=_skip(3), on_file_rows=on_rows_tgt)
+    if not parts3:
+        raise IngestError(f"statistics_streaming: no readable rows in {len(tgt_files)} target "
+                          "part file(s)")
+    count_target, tgt_counters = _merge_side_parts(parts3, cat_cols)
+    tgt_num = st._sum_parts(parts3, "hist") if num_cols_eff else None
+    # keyed by name: cat_cols is filtered below
+    tgt_cnt = {c: tgt_counters[j] for j, c in enumerate(cat_cols)}
+    src_cnt = ({c: src_counters[j] for j, c in enumerate(cat_cols)}
+               if src_counters is not None else {})
+
+    # ---- union vocabularies and frequencies -------------------------------
+    # counts become f32 before the division, as the JAX package's f32 sums
+    # (equal below 2^24 a bin), so the model files are its bytes
+    freq_q: Dict[str, np.ndarray] = {}
+    if pre_existing_source:
+        for c in cols:
+            smap = load_frequency_map(model_dir, c)
+            if smap is None:
+                warnings.warn(f"drift statistics: no persisted source frequencies for {c}; skipping")
+                continue
+            if c in num_cols_eff:
+                freq_p[c] = np.array([smap.get(str(k), 0.0) for k in range(1, bin_size + 1)])
+            elif c in cat_cols:
+                uni = np.array(sorted(set(smap) | set(tgt_cnt[c])), dtype=object)
+                union_vocabs[c] = uni
+                freq_p[c] = np.array([smap.get(str(v), 0.0) for v in uni])
+        cat_cols = [c for c in cat_cols if c in union_vocabs]
+    else:
+        for c in cat_cols:
+            union_vocabs[c] = np.array(sorted(set(src_cnt[c]) | set(tgt_cnt[c])), dtype=object)
+        if cutoffs is not None and len(num_cols_eff):
+            save_model_df(pd.DataFrame({"attribute": num_cols_eff,
+                                        "parameters": [list(map(float, c)) for c in cutoffs]}),
+                          model_dir, "attribute_binning")
+        for i, c in enumerate(num_cols_eff):
+            freq_p[c] = src_num[i].astype(np.float32) / max(src_rows, 1)
+        for c in cat_cols:
+            cnt = src_cnt[c]
+            freq_p[c] = np.array([cnt.get(str(v), 0) for v in union_vocabs[c]],
+                                 np.float32) / max(src_rows, 1)
+        if source_save:
+            for c in num_cols_eff + cat_cols:
+                keys = list(range(1, bin_size + 1)) if c in num_cols_eff else list(union_vocabs[c])
+                save_frequency_map(model_dir, c, keys, freq_p[c])
+
+    for i, c in enumerate(num_cols_eff):
+        freq_q[c] = tgt_num[i].astype(np.float32) / max(count_target, 1)
+    for c in cat_cols:
+        cnt = tgt_cnt[c]
+        freq_q[c] = np.array([cnt.get(str(v), 0) for v in union_vocabs[c]],
+                             np.float32) / max(count_target, 1)
+
+    odf = _metrics_frame(freq_p, freq_q, cols, methods, threshold)
+    st._publish_stats("drift_statistics_streaming", ctl, stats)
+    if print_impact:
+        logger.info(odf.to_string(index=False))
+    return odf

@@ -45,14 +45,25 @@ def masked_corr(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 
 def masked_cov(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """Pairwise-complete sample covariance (n − 1): (k, k) f32, NaN where a
-    pair has fewer than two rows."""
+    pair has fewer than two rows.
+
+    The f32 centred values' cross-products accumulate in float64 and the
+    (k, k) result is cast to f32: a near-zero covariance is a difference
+    of large sums, and f32 accumulation left it 1.2e-5 relative off
+    float64, with a sign of error that followed the BLAS summation order.
+    Under ``ANOVOS_TPU_BF16=1`` the products stay bf16 in, f32 out."""
     bf16 = bf16_sweep()
     Xm, Mf = _centred(X, M)
-    n = mm(Mf.t(), Mf, bf16)
-    Sx = mm(Xm.t(), Mf, bf16)
-    Sxy = mm(Xm.t(), Xm, bf16)
+    if bf16:
+        n = mm(Mf.t(), Mf, bf16)
+        Sx = mm(Xm.t(), Mf, bf16)
+        Sxy = mm(Xm.t(), Xm, bf16)
+    else:
+        Xd, Md = Xm.to(torch.float64), Mf.to(torch.float64)
+        n, Sx, Sxy = Md.t() @ Md, Xd.t() @ Md, Xd.t() @ Xd
     mean_prod = Sx * Sx.t() / torch.clamp_min(n, 1.0)
-    return torch.where(n > 1, (Sxy - mean_prod) / torch.clamp_min(n - 1.0, 1.0), float("nan"))
+    cov = torch.where(n > 1, (Sxy - mean_prod) / torch.clamp_min(n - 1.0, 1.0), float("nan"))
+    return cov.to(torch.float32)
 
 
 def masked_corr_cc(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Exact quantiles by device sort (counterpart of ``anovos_tpu/ops/quantiles.py``
-``masked_quantiles`` / ``masked_median``)."""
+"""Exact quantiles by device sort, and quantiles from fixed-width
+histograms (counterpart of ``anovos_tpu/ops/quantiles.py``
+``masked_quantiles``, ``masked_median`` and ``quantiles_from_histogram``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +32,18 @@ def masked_quantiles(X: torch.Tensor, M: torch.Tensor, qs, interpolation: str = 
 
 def masked_median(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return masked_quantiles(X, M, [0.5])[0]
+
+
+def quantiles_from_histogram(hist, lo, bin_width, qs) -> np.ndarray:
+    """Quantiles from per-column (k, nbins) counts against fixed-width
+    bins (counterpart of ``anovos_tpu/ops/quantiles.py``
+    ``quantiles_from_histogram``): the bin where the cumulative count
+    first reaches q·n, its centre returned.  Targets and centres in f32,
+    as in the JAX package; the counts may be int64."""
+    hist = np.asarray(hist)
+    cum = np.cumsum(hist, axis=1)
+    n = cum[:, -1:].astype(np.float32)
+    targets = np.asarray(qs, np.float32)[:, None, None] * n[None]  # (q, k, 1)
+    bin_i = np.clip((cum[None] < targets).sum(axis=2), 0, hist.shape[1] - 1)
+    lo = np.asarray(lo, np.float32)
+    return lo[None] + (bin_i.astype(np.float32) + np.float32(0.5)) * np.asarray(bin_width, np.float32)[None]

@@ -8,11 +8,18 @@ routes through the artifact store (``shared/artifact_store.py``).
 
 The port runs the blocks one after the other in the YAML's order, on the
 caller's thread, and writes every artifact before the next block starts
-(the JAX runner's ``ANOVOS_TPU_EXECUTOR=sequential`` mode).  It has no
-DAG scheduler, cache store, resume, chaos, failover, ingest guard or obs
-manifest.  The two blocks it cannot run yet, ``streaming_analysis`` and
-``continuous_analysis``, raise ``NotImplementedError`` before any work
-starts.  A ``transformers`` step resolves its function on
+(the JAX runner's ``ANOVOS_TPU_EXECUTOR=sequential`` mode).  Each run
+installs the chaos plan of ``ANOVOS_TPU_CHAOS``, resets the degradation
+registry and the ingest guard, and points the guard's quarantine manifest
+at ``<master_path or write_main path>/obs``.  It has no DAG scheduler,
+node cache store, failover or obs run manifest, so ``resume=True``
+resumes only the ``streaming_analysis`` passes from their chunk
+checkpoints (``obs/stream_ckpt/<sub-analysis>``) and runs every other
+block again, as the JAX runner does without ``ANOVOS_TPU_CACHE``.  A
+config without ``input_dataset`` but with ``streaming_analysis`` reads no
+Table: each streaming pass reads its own part files.  The one block it
+cannot run yet, ``continuous_analysis``, raises ``NotImplementedError``
+before any work starts.  A ``transformers`` step resolves its function on
 ``data_transformer.transformers`` by ``getattr``, as the JAX runner does,
 so a name that module lacks (a geospatial transformer) raises
 ``AttributeError``.  ``write_feast_features`` adds its two timestamp
@@ -21,9 +28,10 @@ columns before the final write and then writes the Feast repository file.
 Each block's wall time is logged under the JAX runner's labels and kept
 for :func:`block_times`.  A fan-out section that fails (an analyzer,
 stats metric, association measure, drift, stability or the charts) is
-logged, recorded for :func:`degraded_sections` and skipped, as the JAX
-runner degrades it; a failing ingest, quality, transformer or report
-block ends the run.
+logged, recorded in the degradation registry (``resilience/policy.py``,
+read by :func:`degraded_sections`, beside the parts the guard
+quarantined) and skipped, as the JAX runner degrades it; a failing
+ingest, quality, transformer, streaming or report block ends the run.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from anovos_tpu_torch.data_analyzer import association_evaluator, quality_checke
 from anovos_tpu_torch.data_analyzer.geospatial_analyzer import geospatial_autodetection
 from anovos_tpu_torch.data_analyzer.ts_analyzer import ts_analyzer
 from anovos_tpu_torch.data_ingest import data_ingest
+from anovos_tpu_torch.data_ingest import guard as ingest_guard
 from anovos_tpu_torch.data_ingest.ts_auto_detection import ts_preprocess
 from anovos_tpu_torch.data_report.basic_report_generation import (
     ARGS_TO_STATSFUNC,
@@ -54,6 +63,8 @@ from anovos_tpu_torch.data_transformer import transformers
 from anovos_tpu_torch.drift_stability import drift_detector as ddetector
 from anovos_tpu_torch.drift_stability import stability as dstability
 from anovos_tpu_torch.feature_store import feast_exporter
+from anovos_tpu_torch.resilience import chaos
+from anovos_tpu_torch.resilience import policy as res_policy
 from anovos_tpu_torch.shared.artifact_store import for_run_type
 from anovos_tpu_torch.shared.table import Table
 
@@ -74,12 +85,10 @@ MAINFUNC_TO_ARGS = {
 # config blocks the port cannot run yet, and the ROADMAP.md Queue A item
 # that ports them
 NOT_PORTED = {
-    "streaming_analysis": "Queue A item 4 (streaming and scale layers)",
-    "continuous_analysis": "Queue A item 4 (streaming and scale layers)",
+    "continuous_analysis": "Queue A item 5 (the continuum)",
 }
 
 _BLOCK_TIMES: dict = {}
-_DEGRADED: dict = {}
 
 
 def _log_block_time(label: str, start: float) -> None:
@@ -96,10 +105,11 @@ def block_times() -> dict:
 
 
 def degraded_sections() -> dict:
-    """{section: error} of the best-effort sections (see ``_best_effort``)
-    that failed in the most recent ``main()`` run and were skipped, as the
-    JAX runner skips them, under the JAX runner's section names."""
-    return dict(_DEGRADED)
+    """{section: reason} of what the most recent ``main()`` run lost: the
+    best-effort sections (see ``_best_effort``) that failed and were
+    skipped, as the JAX runner skips them, under its section names, and
+    the parts the ingest guard quarantined (``ingest/<file>``)."""
+    return res_policy.degraded_sections()
 
 
 def ETL(args: dict) -> Table:
@@ -231,7 +241,7 @@ def _best_effort(section: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     except Exception as e:
         logger.exception("%s failed; continuing without it", section)
-        _DEGRADED[section] = f"{type(e).__name__}: {e}"
+        res_policy.record_degraded(section, f"{type(e).__name__}: {e}")
         return None
 
 
@@ -242,18 +252,85 @@ def _save_stats_or_write(df_stats, report_input_path, name, write_stats, folder,
         save(df_stats, write_stats, folder)
 
 
-def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict] = None) -> None:
+def _write_frame_csv(df: pd.DataFrame, path: str) -> None:
+    """A streaming stats frame as one CSV file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    df.to_csv(path, index=False)
+
+
+def _streaming_analysis(args: dict, report_input_path: str, write_main, write_stats,
+                        resume: bool) -> None:
+    """The ``streaming_analysis`` block: each enabled sub-analysis streams
+    the part files under ``file_path`` (the table never materializes),
+    checkpointed chunk by chunk under ``<master_path or write_main
+    path>/obs/stream_ckpt/<sub-analysis>``, and writes its frame as
+    ``stream_<name>.csv`` under ``output_path`` (else the master path,
+    else write_stats' path, else ``stream_stats``)."""
+    from anovos_tpu_torch.ops.streaming import describe_streaming
+
+    s_path = args.get("file_path")
+    if not s_path:
+        raise TypeError("streaming_analysis requires file_path")
+    s_type = args.get("file_type", "parquet")
+    s_chunk = int(args.get("chunk_rows", 1_000_000) or 1_000_000)
+    s_fcfg = args.get("file_configs")
+    out_dir = (args.get("output_path") or report_input_path or (write_stats or {}).get("file_path")
+               or "stream_stats")
+    ckpt_base = os.path.join(report_input_path or (write_main or {}).get("file_path") or ".",
+                             "obs", "stream_ckpt")
+    # (name, file, function, positional arguments, keyword arguments)
+    runs = []
+    for name, file, fn in (("describe", "stream_describe.csv", describe_streaming),
+                           ("quality_missing", "stream_missing.csv", quality_checker.missing_stats_streaming)):
+        # an empty dict means "enabled with the defaults" (the YAML `describe: {}`)
+        if args.get(name) is not None and args.get(name) is not False:
+            runs.append((name, file, fn, (s_path, s_type), args[name] if isinstance(args[name], dict) else {}))
+    if args.get("quality_outlier"):
+        o_cfg = dict(args["quality_outlier"])
+        o_model = o_cfg.pop("model_path", None)
+        if not o_model:
+            raise TypeError("streaming_analysis.quality_outlier requires model_path "
+                            "(pre-fitted outlier bounds)")
+        runs.append(("quality_outlier", "stream_outlier.csv", quality_checker.outlier_stats_streaming,
+                     (s_path, s_type, o_model), o_cfg))
+    if args.get("drift"):
+        dr_cfg = dict(args["drift"])
+        dr_src = dr_cfg.pop("source_file_path", None)
+        runs.append(("drift", "stream_drift.csv", ddetector.statistics_streaming, (s_path, s_type, dr_src),
+                     dr_cfg))
+    for name, file, fn, fn_args, cfg in runs:
+        t0 = time.monotonic()
+        odf = fn(*fn_args, chunk_rows=s_chunk, file_configs=s_fcfg,
+                 checkpoint_dir=os.path.join(ckpt_base, name), resume=resume, **cfg)
+        _write_frame_csv(odf, os.path.join(out_dir, file))
+        _log_block_time(f"streaming_analysis, {name}", t0)
+
+
+def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict] = None,
+         resume: bool = False) -> None:
     start_main = time.monotonic()
     _BLOCK_TIMES.clear()
-    _DEGRADED.clear()
+    # per-run resilience state: the chaos plan of ANOVOS_TPU_CHAOS (inert
+    # when unset), an empty degradation registry and quarantine registry
+    chaos.install_from_env()
+    res_policy.reset_degraded()
+    ingest_guard.reset()
     auth_key = _auth_key(auth_key_val)
     basic_report_flag = (all_configs.get("anovos_basic_report", {}) or {}).get("basic_report", False)
     _check_ported(all_configs, basic_report_flag)
+    if resume:
+        logger.warning("--resume requested but ANOVOS_TPU_CACHE is unset; "
+                       "nothing to resume from — executing every node")
 
-    df = ETL(all_configs.get("input_dataset"))
+    if all_configs.get("input_dataset") is None and all_configs.get("streaming_analysis"):
+        # out-of-core mode: the dataset never materializes as a Table;
+        # the streaming passes read their own part files
+        df = None
+    else:
+        df = ETL(all_configs.get("input_dataset"))
     # the pre-treatment ingest Table, kept only when drift_statistics will
     # diff the dataset against itself
-    base_df = df if _drift_source_matches_input(all_configs) else None
+    base_df = df if (df is not None and _drift_source_matches_input(all_configs)) else None
 
     write_main = all_configs.get("write_main", None)
     write_intermediate = all_configs.get("write_intermediate", None)
@@ -277,6 +354,10 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
         if "master_path" not in report_configs:
             raise TypeError("Master path missing for saving report statistics")
         report_input_path = report_configs.get("master_path")
+    # the quarantine manifest goes to the run's obs/ subtree (parts the
+    # ETL read set aside are written now); a clean run writes nothing
+    obs_base = report_input_path or (write_main or {}).get("file_path") or "."
+    ingest_guard.configure(os.path.join(for_run_type(run_type, auth_key).staging_dir(obs_base), "obs"))
 
     with mlflow_ctx:
         for key, args in all_configs.items():
@@ -446,6 +527,10 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         df = save(df, write_intermediate, "data_transformer/transformers/" + fn)
                         _log_block_time(f"{key}, {fn}", t1)
 
+            if key == "streaming_analysis":
+                _streaming_analysis(args, report_input_path, write_main, write_stats, resume)
+                continue
+
             if key == "report_preprocessing":
                 for subkey, value in args.items():
                     if subkey == "charts_to_objects" and value is not None:
@@ -476,8 +561,11 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     logger.info(f"execution time w/o report (in sec) = {round(time.monotonic() - start_main, 4)}")
 
 
-def run(config_path: str, run_type: str = "local", auth_key_val: Optional[dict] = None) -> None:
-    """Load the YAML config (pulled through the run_type store) → main."""
+def run(config_path: str, run_type: str = "local", auth_key_val: Optional[dict] = None,
+        resume: bool = False) -> None:
+    """Load the YAML config (pulled through the run_type store) → main.
+    ``resume=True`` (the CLI's ``--resume``) resumes the streaming passes
+    of a killed run from their chunk checkpoints."""
     import yaml
 
     store = for_run_type(run_type, _auth_key(auth_key_val))
@@ -487,4 +575,4 @@ def run(config_path: str, run_type: str = "local", auth_key_val: Optional[dict] 
     config_file = store.pull(config_path, "config.yaml")
     with open(config_file, "r") as f:
         all_configs = yaml.load(f, yaml.SafeLoader)
-    main(all_configs, run_type, auth_key_val)
+    main(all_configs, run_type, auth_key_val, resume=resume)

@@ -208,7 +208,27 @@ Phases, in order; any failure exits non-zero:
    away from the antipode (Vincenty on a 250,000-pair sample), polygon
    flags equal a float64 ray cast but within 1e-5° of an edge (counted),
    centroids and radii against a pandas groupby, reverse geocoding equal
-   a float64 brute force but near ties (counted).  No kernel launches.
+   a float64 brute force but near ties (counted).  No kernel launches;
+13. streaming: phase 3's frame written (timed apart) as 16 target parquet
+   parts of 1,000,000 rows, each numeric column shifted by (0.25 + 0.01·⌊i/4⌋)
+   σ, and 8 unshifted source parts; ``workflow.main`` on one
+   ``streaming_analysis`` block over them in 1,000,000-row chunks (no
+   ``input_dataset``): describe, quality_missing, quality_outlier (bounds
+   fitted by ``outlier_detection`` on part 0) and drift (the source folder,
+   ``configs_full.yaml``'s drift options), each pass's decode, fetch-wait
+   and drain split printed.  Checked: (a) ``stream_describe.csv`` against
+   float64 numpy (counts, min, max, nonzero exact, the moments in the CPU
+   tests' bands, each quantile within one bin width); (b) missing and
+   outlier counts exact; (c) ``stream_drift.csv`` and the drift model equal
+   to the in-memory ``statistics`` of the same rows (metrics within 1e-4,
+   the model files byte-equal); (d) peak device memory at most (high water
+   + 2) × chunk rows × k × 5 B + 256 MB; (e) a describe killed after 5
+   chunk commits and resumed equal to the uninterrupted one with fewer
+   part decodes; (f) a quality_missing run with
+   ``ANOVOS_TPU_CHAOS=corrupt@io:*part-00003.parquet:n=99`` quarantining
+   that part (1,000,000 rows lost) and counting the other 15.  B1 and B2
+   launch on the path and are held to their plain versions on part 0's
+   chunk.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -253,7 +273,8 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "configs_geospatial": ("masked_moments", "binned_histograms"),
                 "configs_mlflow": ("masked_moments", "binned_histograms"),
                 "configs_feast": ("masked_moments", "binned_histograms"),
-                "geo_transformers": ()}
+                "geo_transformers": (),
+                "streaming": ("masked_moments", "binned_histograms")}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -536,6 +557,18 @@ GEO_T_IDS = 100_000
 GEO_T_DMS_ROWS = 1_000_000
 GEO_T_SAMPLE = 100_000
 GEO_T_EDGE = 1e-5
+# phase 13: the streaming folders (target parts, source parts, rows a part),
+# the chunk, the commit a describe is killed after, the part the chaos run
+# corrupts, and configs_full.yaml's drift_statistics options (a copy)
+STREAM_PARTS = 16
+STREAM_SRC_PARTS = 8
+STREAM_PART_ROWS = 1_000_000
+STREAM_CHUNK = 1_000_000
+STREAM_KILL_AFTER = 5
+STREAM_CHAOS_PART = 3
+STREAM_DRIFT = {"list_of_cols": "all", "drop_cols": ["ifa", "income"], "method_type": "all", "threshold": 0.1,
+                "bin_method": "equal_range", "bin_size": 10}
+STREAM_QUANTILES = (0.01, 0.05, 0.10, 0.25, 0.50, 0.75, 0.90, 0.95, 0.99)
 # the walls of the steps the host codec now runs, before the codec (PERF.md
 # section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's
@@ -4378,6 +4411,334 @@ def phase_geo_transformers(torch, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: out-of-core streaming analysis through the runner
+# ---------------------------------------------------------------------------
+def stream_folders(df, tmp: str) -> dict:
+    """The target folder: STREAM_PARTS parquet parts of STREAM_PART_ROWS
+    rows, part i the ``i mod 4``-th slice of phase 3's frame with every
+    numeric column shifted by (0.25 + 0.01·⌊i/4⌋)·σ (drift, and parts that
+    differ); the source folder: STREAM_SRC_PARTS unshifted parts.  Returns
+    the folders, each side's f32 numeric values (k, rows) as the port reads
+    them, the target's null counts and the seconds the writing took."""
+    num = [c for c in df.columns if df[c].dtype.kind == "f"]
+    sigma = {c: float(np.nanstd(df[c].to_numpy(np.float64))) for c in num}
+    out = {"num_cols": num, "tgt": os.path.join(tmp, "tgt"), "src": os.path.join(tmp, "src")}
+    t0 = time.perf_counter()
+    for side, nparts in (("tgt", STREAM_PARTS), ("src", STREAM_SRC_PARTS)):
+        os.makedirs(out[side])
+        values = np.empty((len(num), nparts * STREAM_PART_ROWS), np.float32)
+        nulls = {c: 0 for c in df.columns}
+        for i in range(nparts):
+            a = (i % 4) * STREAM_PART_ROWS
+            part = df.iloc[a:a + STREAM_PART_ROWS].reset_index(drop=True)
+            check(len(part) == STREAM_PART_ROWS, "phase 3's frame is too short for the stream parts")
+            if side == "tgt":
+                part = part.assign(**{c: part[c] + (0.25 + 0.01 * (i // 4)) * sigma[c] for c in num})
+            part.to_parquet(os.path.join(out[side], f"part-{i:05d}.parquet"), index=False)
+            for j, c in enumerate(num):
+                values[j, i * STREAM_PART_ROWS:(i + 1) * STREAM_PART_ROWS] = part[c].to_numpy(
+                    np.float32, na_value=np.nan)
+            for c, n in part.isna().sum().items():
+                nulls[c] += int(n)
+        out[side + "_values"], out[side + "_nulls"] = values, nulls
+    out["write_s"] = time.perf_counter() - t0
+    return out
+
+
+def stream_config(folders: dict, model: str, report_dir: str, subs=("describe", "quality_missing",
+                                                                     "quality_outlier", "drift")) -> dict:
+    """A config of one ``streaming_analysis`` block over the target folder
+    (no ``input_dataset``): the four sub-analyses, drift against the
+    source folder with ``configs_full.yaml``'s drift_statistics options."""
+    block = {"file_path": folders["tgt"], "file_type": "parquet", "chunk_rows": STREAM_CHUNK,
+             "describe": {}, "quality_missing": {}, "quality_outlier": {"model_path": model},
+             "drift": {"source_file_path": folders["src"], **STREAM_DRIFT}}
+    return {"streaming_analysis": {k: v for k, v in block.items()
+                                   if k in ("file_path", "file_type", "chunk_rows") or k in subs},
+            "report_preprocessing": {"master_path": report_dir}}
+
+
+class PassSummaries:
+    """While in its ``with`` block, keeps every streaming pass' published
+    summary (``ops/streaming._publish_stats``), in order."""
+
+    def __enter__(self):
+        from anovos_tpu_torch.ops import streaming
+
+        self.seen, self._orig = [], streaming._publish_stats
+
+        def publish(op, ctl, stats):
+            self._orig(op, ctl, stats)
+            self.seen.append(streaming.last_stream_summary())
+
+        streaming._publish_stats = publish
+        return self
+
+    def __exit__(self, *exc):
+        from anovos_tpu_torch.ops import streaming
+
+        streaming._publish_stats = self._orig
+
+
+def check_stream_describe(path: str, values: np.ndarray, cols) -> dict:
+    """(a) ``stream_describe.csv`` against float64 numpy over the same f32
+    values: count, min, max and nonzero exact; the moments within
+    tests/test_torch_streaming.py's bands (mean and stddev 1e-5·σ + 5e-5,
+    variance 2e-5·var + 1e-4, skewness 1e-4, kurtosis 2e-4 + 1e-4·|k|);
+    each quantile within one bin width ((max − min) / 2048) of the value
+    at its rank: the count of values below q̂ − w is at most ⌊q(n−1)⌋ and
+    the count at or below q̂ + w more than ⌈q(n−1)⌉.  Returns the largest
+    error of each moment."""
+    import pandas as pd
+
+    got = pd.read_csv(path).set_index("attribute")
+    check(list(got.index) == list(cols), f"stream_describe columns {list(got.index)}")
+    errs = {k: 0.0 for k in ("mean", "stddev", "variance", "skewness", "kurtosis")}
+    for j, c in enumerate(cols):
+        v = values[j][~np.isnan(values[j])]
+        r = got.loc[c]
+        check(int(r["count"]) == len(v) and int(r["nonzero"]) == int(np.count_nonzero(v)),
+              f"stream describe count/nonzero of {c}")
+        check(np.float32(r["min"]) == v.min() and np.float32(r["max"]) == v.max(),
+              f"stream describe min/max of {c}: {r['min']}, {r['max']} vs {v.min()}, {v.max()}")
+        ref = f64_moments(v)
+        sd = float(np.sqrt(ref["variance"]))
+        for k, allow in (("mean", 1e-5 * sd + 5e-5), ("stddev", 1e-5 * sd + 5e-5),
+                         ("variance", 2e-5 * ref["variance"] + 1e-4), ("skewness", 1e-4),
+                         ("kurtosis", 2e-4 + 1e-4 * abs(ref["kurtosis"]))):
+            err = abs(float(r[k]) - (sd if k == "stddev" else ref[k]))
+            check(err <= allow, f"stream describe {k} of {c}: {r[k]} off float64 by {err} > {allow}")
+            errs[k] = max(errs[k], err)
+        w = (float(v.max()) - float(v.min())) / 2048
+        for q in STREAM_QUANTILES:
+            qv = float(r[f"{int(q * 100)}%"])
+            pos = q * (len(v) - 1)
+            below = int(np.count_nonzero(v < qv - w - 1e-4))
+            upto = int(np.count_nonzero(v <= qv + w + 1e-4))
+            check(below <= np.floor(pos) and upto > np.ceil(pos),
+                  f"stream describe {q} quantile of {c}: {qv} not within a bin width {w}")
+    return errs
+
+
+def check_stream_counts(rdir: str, folders: dict, model: str) -> None:
+    """(b) the missing counts against the frames' null counts and the
+    outlier counts against numpy's f32 compares, exactly."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer.quality_checker import _load_outlier_model
+
+    miss = pd.read_csv(os.path.join(rdir, "stream_missing.csv"))
+    n = STREAM_PARTS * STREAM_PART_ROWS
+    for _, r in miss.iterrows():
+        check(int(r["missing_count"]) == folders["tgt_nulls"][r["attribute"]],
+              f"stream missing count of {r['attribute']}")
+        check(abs(r["missing_pct"] - round(folders["tgt_nulls"][r["attribute"]] / n, 4)) < 1e-9,
+              f"stream missing pct of {r['attribute']}")
+    out = pd.read_csv(os.path.join(rdir, "stream_outlier.csv"))
+    bounds, _ = _load_outlier_model(model)
+    check(set(out["attribute"]) == set(bounds), "stream outlier columns")
+    for _, r in out.iterrows():
+        v = folders["tgt_values"][folders["num_cols"].index(r["attribute"])]
+        lo, hi = (np.float32(-np.inf if b is None else b) for b in bounds[r["attribute"]][:2])
+        above, below = v > hi, v < lo
+        check(int(r["lower_outliers"]) == int(np.count_nonzero(below & ~above))
+              and int(r["upper_outliers"]) == int(np.count_nonzero(above & ~below)),
+              f"stream outlier counts of {r['attribute']}")
+
+
+def phase_streaming(torch, seed: int, df) -> dict:
+    """Phase 13: ``workflow.main`` on a ``streaming_analysis`` config over
+    the folders of ``stream_folders`` (16M target and 8M source rows from
+    phase 3's frame ``df``) in 1M-row chunks, then checks (a)-(f) and B1
+    and B2 at the streaming shape.  The folders' writing is timed apart."""
+    import pandas as pd
+
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.data_analyzer.quality_checker import outlier_detection
+    from anovos_tpu_torch.data_ingest import data_ingest
+    from anovos_tpu_torch.data_ingest.data_ingest import read_dataset
+    from anovos_tpu_torch.drift_stability.drift_detector import statistics
+    from anovos_tpu_torch.ops import kernels, streaming
+    from anovos_tpu_torch.resilience import chaos
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    out = {}
+    dev = get_runtime().device
+    tmp = tempfile.mkdtemp(prefix="anovos_stream_")
+    cwd = os.getcwd()
+    try:
+        folders = stream_folders(df, tmp)
+        out["write_s"] = folders["write_s"]
+        cols = folders["num_cols"]
+        print(f"streaming: wrote {STREAM_PARTS} target and {STREAM_SRC_PARTS} source parts of "
+              f"{STREAM_PART_ROWS} rows ({len(df.columns)} columns, {len(cols)} numeric) in "
+              f"{out['write_s']:.1f} s", flush=True)
+        t_phase = time.perf_counter()
+        model = os.path.join(tmp, "outlier_model")
+        outlier_detection(read_dataset(os.path.join(folders["tgt"], "part-00000.parquet"), "parquet"),
+                          list_of_cols="all", drop_cols=["income", "label"], detection_side="both",
+                          detection_configs=QUALITY_CONFIG["outlier_detection"]["detection_configs"],
+                          model_path=model)
+        run_dir = os.path.join(tmp, "run")
+        os.makedirs(run_dir)
+        os.chdir(run_dir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        with PassSummaries() as passes:
+            t0 = time.perf_counter()
+            workflow.main(stream_config(folders, model, "report_stats"), "local")
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        out["block_times_s"] = workflow.block_times()
+        check(workflow.degraded_sections() == {}, f"streaming degraded: {workflow.degraded_sections()}")
+        for name in PATH_KERNELS["streaming"]:
+            check(out["launches"][name] > 0, f"kernel {name} was not launched on the streaming path")
+        out["passes"] = passes.seen
+        for p in passes.seen:
+            print(f"streaming: pass {p['op']}: wall {p['wall_s']:.3f} s, decode {p['decode_s']:.3f} s "
+                  f"({p['decodes']} parts), fetch wait {p['fetch_wait_s']:.3f} s, drain wait "
+                  f"{p['drain_wait_s']:.3f} s, overlap {p['overlap_pct']}, chunks {p['chunks']}, window "
+                  f"{p['window']} (high water {p['high_water']}), workers {p['workers']}", flush=True)
+        print("streaming: workflow.main {:.3f} s; ".format(out["wall_s"]) + ", ".join(
+            f"{k} {v:.3f} s" for k, v in out["block_times_s"].items()) + f"; launches {out['launches']}",
+            flush=True)
+
+        # (d) the table never sat on the card whole
+        hw = max(p["high_water"] for p in passes.seen)
+        allow = (hw + 2) * STREAM_CHUNK * len(cols) * 5 + 256 * 2**20
+        out["peak_bytes"], out["peak_allowed_bytes"] = int(peak), int(allow)
+        print(f"streaming: (d) peak device memory {peak / 2**20:.1f} MiB, allowed {allow / 2**20:.1f} MiB "
+              f"((high water {hw} + 2) x {STREAM_CHUNK} x {len(cols)} x 5 B + 256 MiB); the target alone "
+              f"is {STREAM_PARTS * STREAM_PART_ROWS * len(cols) * 5 / 2**20:.0f} MiB", flush=True)
+        check(peak <= allow, f"streaming peak device memory {peak} > {allow}")
+
+        t0 = time.perf_counter()
+        rdir = os.path.join(run_dir, "report_stats")
+        out["moment_errors"] = check_stream_describe(os.path.join(rdir, "stream_describe.csv"),
+                                                     folders["tgt_values"], cols)
+        check_stream_counts(rdir, folders, model)
+        print(f"streaming: (a) describe against float64 (largest errors {out['moment_errors']}), (b) missing "
+              f"and outlier counts exact", flush=True)
+
+        # (c) drift against the in-memory statistics of the same rows
+        t1 = time.perf_counter()
+        tgt_t, src_t = read_dataset(folders["tgt"], "parquet"), read_dataset(folders["src"], "parquet")
+        mem = statistics(tgt_t, src_t, **STREAM_DRIFT, use_sampling=False,
+                         source_path=os.path.join(tmp, "mem_model"))
+        del tgt_t, src_t
+        out["in_memory_drift_s"] = time.perf_counter() - t1
+        got = pd.read_csv(os.path.join(rdir, "stream_drift.csv"))
+        check(list(got["attribute"]) == list(mem["attribute"]), "stream drift columns")
+        check(list(got["flagged"]) == list(mem["flagged"]), "stream drift flags")
+        drift_err = max(float(np.max(np.abs(got[m].to_numpy(np.float64) - mem[m].to_numpy(np.float64))))
+                        for m in ("PSI", "HD", "JSD", "KS"))
+        check(drift_err <= 1e-4, f"stream drift off the in-memory statistics by {drift_err}")
+        check(got["PSI"].max() > 0, "stream drift: the shifted target shows no drift")
+        sm, mm = (os.path.join(d, "drift_statistics") for d in (os.path.join(run_dir, "intermediate_data"),
+                                                                 os.path.join(tmp, "mem_model")))
+        files = sorted(os.path.relpath(os.path.join(d, f), sm) for d, _, fs in os.walk(sm) for f in fs)
+        for rel in files:
+            with open(os.path.join(sm, rel), "rb") as a, open(os.path.join(mm, rel), "rb") as b:
+                check(a.read() == b.read(), f"stream drift model file {rel} differs from the in-memory one")
+        out["drift_max_abs_err"] = drift_err
+        print(f"streaming: (c) drift equal to the in-memory statistics of the same "
+              f"{(STREAM_PARTS + STREAM_SRC_PARTS) * STREAM_PART_ROWS} rows (metrics within {drift_err:.2e}, "
+              f"{len(files)} model files byte-equal, the read and fit {out['in_memory_drift_s']:.1f} s)",
+              flush=True)
+
+        # (e) a describe killed after STREAM_KILL_AFTER commits, then resumed
+        ck = os.path.join(tmp, "kill_ckpt")
+        orig_commit = streaming.StreamCheckpoint.commit
+        state = {"n": 0}
+
+        def bomb(self, pass_no, idx, arrays):
+            orig_commit(self, pass_no, idx, arrays)
+            state["n"] += 1
+            if state["n"] == STREAM_KILL_AFTER:
+                raise RuntimeError("simulated kill")
+
+        streaming.StreamCheckpoint.commit = bomb
+        try:
+            streaming.describe_streaming(folders["tgt"], "parquet", chunk_rows=STREAM_CHUNK, checkpoint_dir=ck)
+            fail("the simulated kill did not stop the describe pass")
+        except RuntimeError as e:
+            check("simulated kill" in str(e), f"describe stopped by {e!r}")
+        finally:
+            streaming.StreamCheckpoint.commit = orig_commit
+        reads, orig_read = [], data_ingest.read_host_frame
+
+        def counting(files, *a, **k):
+            reads.extend(files)
+            return orig_read(files, *a, **k)
+
+        data_ingest.read_host_frame = counting
+        try:
+            resumed = streaming.describe_streaming(folders["tgt"], "parquet", chunk_rows=STREAM_CHUNK,
+                                                   checkpoint_dir=ck, resume=True)
+        finally:
+            data_ingest.read_host_frame = orig_read
+        with open(os.path.join(rdir, "stream_describe.csv")) as f:
+            check(resumed.to_csv(index=False) == f.read(), "resumed describe differs from the uninterrupted one")
+        check(len(reads) < 2 * STREAM_PARTS, f"resume decoded {len(reads)} parts")
+        out["resume_decodes"] = len(reads)
+        print(f"streaming: (e) describe killed after {STREAM_KILL_AFTER} commits, resumed: equal to the "
+              f"uninterrupted run, {len(reads)} part decodes (a fresh run {2 * STREAM_PARTS})", flush=True)
+
+        # (f) one quality_missing pass with a part corrupt on every read
+        os.environ["ANOVOS_TPU_CHAOS"] = f"corrupt@io:*part-{STREAM_CHAOS_PART:05d}.parquet:n=99"
+        try:
+            fdir = os.path.join(tmp, "chaos_run")
+            os.makedirs(fdir)
+            os.chdir(fdir)
+            workflow.main(stream_config(folders, model, "report_stats", subs=("quality_missing",)), "local")
+        finally:
+            del os.environ["ANOVOS_TPU_CHAOS"]
+            chaos.reset()
+            os.chdir(run_dir)
+        with open(os.path.join(fdir, "report_stats", "obs", "quarantine_manifest.json")) as f:
+            man = json.load(f)
+        check(man["parts"] == 1 and man["rows_lost"] == STREAM_PART_ROWS
+              and os.path.basename(man["records"][0]["file"]) == f"part-{STREAM_CHAOS_PART:05d}.parquet",
+              f"quarantine manifest {man}")
+        miss = pd.read_csv(os.path.join(fdir, "report_stats", "stream_missing.csv"))
+        lost = df.iloc[(STREAM_CHAOS_PART % 4) * STREAM_PART_ROWS:(STREAM_CHAOS_PART % 4 + 1) * STREAM_PART_ROWS]
+        lost_nulls = lost.isna().sum()
+        for _, r in miss.iterrows():
+            check(int(r["missing_count"]) == folders["tgt_nulls"][r["attribute"]] - int(lost_nulls[r["attribute"]]),
+                  f"chaos missing count of {r['attribute']}")
+        print(f"streaming: (f) part-{STREAM_CHAOS_PART:05d} corrupt on every read: quarantined with "
+              f"{man['rows_lost']} rows lost, the missing counts equal numpy's over the other "
+              f"{STREAM_PARTS - 1} parts", flush=True)
+        out["checks_s"] = time.perf_counter() - t0
+
+        # B1 and B2 at the streaming shape: part 0's chunk block, B2 on the
+        # fitted drift cutoffs
+        first = pd.read_parquet(os.path.join(folders["tgt"], "part-00000.parquet"))
+        staging = streaming._Staging(len(cols), STREAM_CHUNK, dev)
+        _slot, xv, mv = staging.fill(first, cols)
+        Xc, Mc = xv.to(dev), mv.to(dev)
+        bins = pd.read_parquet(os.path.join(sm, "attribute_binning", "part-00000.parquet"))
+        kcols = [cols.index(c) for c in bins["attribute"]]
+        cuts = torch.tensor(np.stack([np.asarray(p, np.float32) for p in bins["parameters"]]), device=dev)
+        Xh, Mh = Xc[kcols].contiguous(), Mc[kcols].contiguous()
+        out["kernels"] = {"masked_moments": [b1_row(torch, Xc, Mc, "streaming", "part 0's chunk")],
+                          "binned_histograms": [b2_row(torch, Xh, Mh, cuts, STREAM_DRIFT["bin_size"],
+                                                       "streaming", "part 0's chunk, the drift cutoffs")]}
+        del Xc, Mc, Xh, Mh
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"streaming: phase 13 in {out['phase_s']:.1f} s (writing apart: {out['write_s']:.1f} s), "
+          f"checks {out['checks_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -4514,7 +4875,7 @@ def main() -> None:
     runner_kernels = runner.pop("kernels")
     print("runner " + json.dumps({k: v for k, v in runner.items() if k != "launches"}), flush=True)
     transform = phase_transformers(torch, args.seed, table, df)
-    del table, df
+    del table
     transform_kernels = transform.pop("kernels")
     print("transformers " + json.dumps({k: v for k, v in transform.items() if k != "launches"}), flush=True)
     scen = phase_scenarios(torch, args.seed)
@@ -4523,6 +4884,10 @@ def main() -> None:
     print("scenarios " + json.dumps(scen), flush=True)
     geo_t = phase_geo_transformers(torch, args.seed)
     print("geo_transformers " + json.dumps(geo_t), flush=True)
+    stream = phase_streaming(torch, args.seed, df)
+    del df
+    stream_kernels = stream.pop("kernels")
+    print("streaming " + json.dumps({k: v for k, v in stream.items() if k != "launches"}), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -4534,6 +4899,8 @@ def main() -> None:
     for p in scen_paths:
         for kname in ("masked_moments", "binned_histograms"):
             kres[kname]["other_shapes"] += scen_kernels[p][kname]
+    for kname in ("masked_moments", "binned_histograms"):
+        kres[kname]["other_shapes"] += stream_kernels[kname]
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
                                                      "association": assoc["launches"],
@@ -4541,8 +4908,9 @@ def main() -> None:
                                                      "runner": runner["launches"],
                                                      "transformers": transform["launches"],
                                                      **{p: scen[p]["launches"] for p in scen_paths},
-                                                     "geo_transformers": geo_t["launches"]}, sass)
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "geo_transformers": geo_t["launches"],
+                                                     "streaming": stream["launches"]}, sass)
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -120,3 +120,32 @@ def test_correlation_of_wide_spread_columns_stays_finite():
     r = np.corrcoef(X.astype(np.float64).T)[0, 1]
     assert abs(float(pcorr(torch.from_numpy(X), torch.from_numpy(M))[0, 1]) - r) <= 1e-5
     assert float(np.asarray(jcorr(jnp.asarray(X), jnp.asarray(M)))[0, 1]) == 0.0
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_masked_cov_within_1e6_of_float64(threads):
+    """The covariance's cross-products accumulate in float64, so it is
+    within 1e-6 relative of a float64 pairwise-complete covariance on
+    ``corr_inputs()`` (the near-zero covariance of columns 0 and 3
+    included) whatever the BLAS summation order the thread count picks."""
+    import torch
+
+    from anovos_tpu_torch.ops.correlation import masked_cov
+
+    X, M = corr_inputs()
+    X64 = X.astype(np.float64)
+    k = X.shape[1]
+    exp = np.full((k, k), np.nan)
+    for a in range(k):
+        for b in range(k):
+            both = M[:, a] & M[:, b]
+            if both.sum() > 1:
+                exp[a, b] = np.cov(X64[both, a], X64[both, b])[0, 1]
+    prev = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = masked_cov(torch.from_numpy(X), torch.from_numpy(M))
+    finally:
+        torch.set_num_threads(prev)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy().astype(np.float64), exp, rtol=1e-6, atol=0)

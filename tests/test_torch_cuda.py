@@ -641,3 +641,55 @@ def test_cuda_autoencoder_latents_with_tf32_on_equal_the_cpu():
         flags.fp32_precision = before
     exp = ae.latent(net, X).numpy()
     assert np.all(np.abs(got - exp) <= 1e-5 * (1 + np.abs(exp)))
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_passes_equal_the_cpu(tmp_path, monkeypatch):
+    """describe, quality and drift streaming on the card (pinned staging,
+    non-blocking uploads, a window of events) against the same calls on
+    the CPU: counts, extremes, quantiles and outlier counts equal, moments
+    within 1e-4 (the moments kernel against its plain tile merge), drift
+    metrics within 1e-4; B1 and B2 launched."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer import quality_checker as qc
+    from anovos_tpu_torch.drift_stability import drift_detector as dd
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.ops import streaming as st
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+
+    _require_cuda()
+    g = np.random.default_rng(8)
+    for side, n in (("tgt", 5), ("src", 3)):
+        (tmp_path / side).mkdir()
+        for i in range(n):
+            a = g.normal(i, 2.0, 30_000)
+            a[g.random(30_000) < 0.1] = np.nan
+            pd.DataFrame({"a": a, "b": g.exponential(5.0, 30_000), "c": g.choice(["x", "y", "z"], 30_000)}) \
+                .to_parquet(tmp_path / side / f"part-{i:05d}.parquet", index=False)
+    tgt, src = str(tmp_path / "tgt"), str(tmp_path / "src")
+    monkeypatch.setenv("ANOVOS_STREAM_INFLIGHT", "3")
+    prev = get_runtime().device
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            init_runtime(dev)
+            kernels.reset_launches()
+            runs[dev] = (st.describe_streaming(tgt, "parquet", chunk_rows=25_000),
+                         qc.missing_stats_streaming(tgt, "parquet", chunk_rows=25_000),
+                         dd.statistics_streaming(tgt, "parquet", src, method_type="all", chunk_rows=25_000,
+                                                 source_path=str(tmp_path / dev)),
+                         dict(kernels.LAUNCHES))
+    finally:
+        init_runtime(prev)
+    (dg, mg, fg, lg), (dc, mc, fc, _lc) = runs["cuda"], runs["cpu"]
+    # describe 6 chunks + drift source 4; drift source 4 + target 6
+    assert lg["masked_moments"] == 6 + 4 and lg["binned_histograms"] == 4 + 6
+    exact = ["count", "min", "max", "nonzero"] + [c for c in dc.columns if c.endswith("%")]
+    pd.testing.assert_frame_equal(dg[["attribute"] + exact], dc[["attribute"] + exact])
+    for c in ("mean", "stddev", "variance", "skewness", "kurtosis"):
+        np.testing.assert_allclose(dg[c], dc[c], rtol=0, atol=1e-4)
+    pd.testing.assert_frame_equal(mg, mc)
+    assert list(fg["flagged"]) == list(fc["flagged"])
+    for m in ("PSI", "HD", "JSD", "KS"):
+        np.testing.assert_allclose(fg[m], fc[m], rtol=0, atol=1e-4)

@@ -167,6 +167,11 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert {"avro_io.py", "data_sampling.py", "native.py", "quality_checker.py", "sampling.py",
             "transformers.py", "geospatial.py", "geo_kernels.py", "geo_utils.py", "feast_exporter.py",
             "feature_retrieval.py"} <= {f.name for f in _port_sources()}
+    # the streaming slice: each module on the out-of-core path
+    rel = {str(f.relative_to(REPO)) for f in _port_sources()}
+    assert {f"anovos_tpu_torch/{m}.py" for m in (
+        "resilience/policy", "resilience/chaos", "obs/metrics", "cache/fingerprint", "cache/journal",
+        "data_ingest/guard", "data_ingest/prefetch", "ops/streaming")} <= rel
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad
 

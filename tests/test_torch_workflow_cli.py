@@ -1,6 +1,7 @@
 """The port's entry point, ``python -m anovos_tpu_torch <config.yaml>
-[run_type] [auth_key_json]``, and the runner's guards: the usage line,
-``--resume`` refused, the blocks not ported yet refused before any work,
+[run_type] [auth_key_json] [--resume]``, and the runner's guards: the
+usage line, ``--resume`` accepted, the block not ported yet refused before
+any work,
 a geospatial name in a transformers block raising AttributeError as in the
 JAX runner, the device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
 importable without a YAML reader.  Also ``chip_smoke.py``'s copy of
@@ -31,27 +32,40 @@ def run_cli(*args, cwd=REPO, code=""):
 def test_no_argument_prints_the_usage_line():
     res = run_cli()
     assert res.returncode == 1
-    assert "usage: python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json]" in res.stderr
+    assert ("usage: python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json] [--resume]"
+            in res.stderr)
+    assert run_cli("--resume").returncode == 1  # --resume alone is no config
 
 
 def test_resume_is_refused():
+    """``--resume`` is no longer refused (the streaming passes resume from
+    their chunk checkpoints): the run starts, logs the JAX runner's
+    warning that no node cache backs the other blocks, and stops where any
+    run of this config does here, at its absent input."""
     res = run_cli("config/configs_basic.yaml", "local", "--resume")
-    assert res.returncode == 1
-    assert "--resume" in res.stderr and "Queue A item 4" in res.stderr
+    assert res.returncode != 0
+    assert "Queue A item" not in res.stderr
+    assert "--resume requested but ANOVOS_TPU_CACHE is unset" in res.stderr
+    assert "FileNotFoundError: no parquet files" in res.stderr
 
 
 @pytest.mark.parametrize("argv,expected", [
-    (["c.yaml"], ("c.yaml", "local", {})),
-    (["c.yaml", "emr"], ("c.yaml", "emr", {})),
-    (["c.yaml", "ak8s", '{"fs.azure.sas": "?sv=x"}'], ("c.yaml", "ak8s", {"fs.azure.sas": "?sv=x"})),
-    (["c.yaml", "ak8s", "bare-token"], ("c.yaml", "ak8s", {"auth_key": "bare-token"})),
-    (["c.yaml", "ak8s", "5"], ("c.yaml", "ak8s", {"auth_key": "5"})),
+    (["c.yaml"], ("c.yaml", "local", {}, False)),
+    (["c.yaml", "emr"], ("c.yaml", "emr", {}, False)),
+    (["c.yaml", "ak8s", '{"fs.azure.sas": "?sv=x"}'], ("c.yaml", "ak8s", {"fs.azure.sas": "?sv=x"}, False)),
+    (["c.yaml", "ak8s", "bare-token"], ("c.yaml", "ak8s", {"auth_key": "bare-token"}, False)),
+    (["c.yaml", "ak8s", "5"], ("c.yaml", "ak8s", {"auth_key": "5"}, False)),
 ])
 def test_arguments_parse_as_main_py_parses_them(argv, expected):
-    """A JSON auth dict is taken as it is; anything else is wrapped."""
+    """A JSON auth dict is taken as it is; anything else is wrapped.  The
+    fourth field is ``--resume``, which may stand anywhere after the
+    program, as ``anovos_tpu/__main__.py`` takes it."""
     from anovos_tpu_torch.__main__ import parse_args
 
     assert parse_args(["prog", *argv]) == expected
+    for at in range(1, len(argv) + 2):
+        with_resume = ["prog", *argv[:at - 1], "--resume", *argv[at - 1:]]
+        assert parse_args(with_resume) == expected[:3] + (True,)
 
 
 def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
@@ -75,10 +89,13 @@ def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
                                         ("streaming_analysis", "transformers"),
                                         ("continuous_analysis", "write_feast_features")])
 def test_unported_blocks_raise_before_any_work(block, item):
-    """The config's input path does not exist: the refusal comes first,
-    also before a transformers step naming a function the port's
-    transformers module lacks (which raises AttributeError when it runs)
-    and before write_feast_features' config check (no write_main here)."""
+    """The config's input path does not exist: the refusal of
+    continuous_analysis comes first, also before a transformers step
+    naming a function the port's transformers module lacks (which raises
+    AttributeError when it runs) and before write_feast_features' config
+    check (no write_main here).  streaming_analysis is ported: it is not
+    refused, so the run reaches the missing input first, as the JAX
+    runner does."""
     from anovos_tpu_torch import workflow
 
     cfg = load_config("configs_full.yaml")
@@ -89,27 +106,35 @@ def test_unported_blocks_raise_before_any_work(block, item):
     elif item == "write_feast_features":
         cfg.pop("write_main")
         cfg[item] = {"file_path": "feast_repo/"}
-    with pytest.raises(NotImplementedError, match=f"{block}.*Queue A item 4"):
+    if block == "streaming_analysis":
+        with pytest.raises(FileNotFoundError, match="no parquet files"):
+            workflow.main(cfg, "local")
+        return
+    with pytest.raises(NotImplementedError, match=f"{block}.*Queue A item 5"):
         workflow.main(cfg, "local")
 
 
 def test_basic_report_skips_the_analytics_blocks():
-    """With basic_report true the later analytics keys are skipped, so the
-    streaming blocks are not refused there; without it they are.
+    """With basic_report true the later analytics keys are skipped, so
+    continuous_analysis is not refused there; without it it is, and
+    streaming_analysis (ported) never is.
     A geospatial function in a transformers block and write_feast_features
     pass the check in both modes: the runner resolves the first by getattr
     when it runs, and runs the second."""
     from anovos_tpu_torch.workflow import NOT_PORTED, _check_ported
 
-    assert set(NOT_PORTED) == {"streaming_analysis", "continuous_analysis"}
+    assert set(NOT_PORTED) == {"continuous_analysis"}
     cfg = load_config("configs_full.yaml")
     cfg["transformers"]["geo"] = {"geo_format_latlon": {"list_of_lat": "latitude"}}
     cfg["write_feast_features"] = load_config("configs_feast.yaml")["write_feast_features"]
     for basic in (False, True):
         _check_ported(cfg, basic_report=basic)
     cfg["streaming_analysis"] = {"stats": True}
+    for basic in (False, True):
+        _check_ported(cfg, basic_report=basic)
+    cfg["continuous_analysis"] = {"stats": True}
     _check_ported(cfg, basic_report=True)
-    with pytest.raises(NotImplementedError, match="streaming_analysis"):
+    with pytest.raises(NotImplementedError, match="continuous_analysis"):
         _check_ported(cfg, basic_report=False)
 
 
