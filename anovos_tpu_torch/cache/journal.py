@@ -6,8 +6,11 @@ sorted keys.  The streaming checkpoints (``ops/streaming.StreamCheckpoint``)
 write ``run_begin``, ``chunk_begin``, ``chunk_commit``,
 ``chunks_invalidated`` and ``chunk_spilled`` into their own
 ``stream_journal.jsonl``; the ingest guard adds ``part_quarantined`` when
-a journal is attached.  The journal is the record of what committed and
-when; the durability point is each checkpoint file's tmp+rename.
+a journal is attached; the continuum's state writes its own
+(``continuum/state.py``).  Every append also lands in the flight
+recorder's ring (``obs/flight.py``).  The journal is the record of what
+committed and when; the durability point is each checkpoint file's
+tmp+rename.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import os
 import threading
 import time
 from typing import List
+
+from anovos_tpu_torch.obs import flight
 
 __all__ = ["RunJournal", "read_journal"]
 
@@ -32,6 +37,7 @@ class RunJournal:
     def append(self, event: str, **fields) -> None:
         rec = {"event": event, "t": round(time.time(), 3), **fields}
         line = json.dumps(rec, sort_keys=True, separators=(",", ":"))
+        flight.record("journal", event=event, **fields)
         # appends serialize on the lock, so concurrent decode workers never
         # interleave partial lines
         with self._lock, open(self.path, "a") as f:

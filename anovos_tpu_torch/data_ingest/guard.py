@@ -10,8 +10,8 @@ runs under four independent layers:
   ending the run: the failure (file, error class, byte offset where
   known, rows lost) is recorded in ``obs/quarantine_manifest.json``
   (synchronous tmp+rename), booked as ``quarantined_parts_total`` /
-  ``quarantine_rows_lost_total`` metrics, and entered in the degradation
-  registry as ``ingest/<file>``.  ``ANOVOS_INGEST_ON_CORRUPT=raise``
+  ``quarantine_rows_lost_total`` metrics and in the flight recorder's
+  ring, and entered in the degradation registry as ``ingest/<file>``.  ``ANOVOS_INGEST_ON_CORRUPT=raise``
   restores fail-fast;
 * **schema-drift reconciliation** — part files that disagree on schema
   are aligned to the first part's: missing columns null-filled, extra
@@ -288,7 +288,7 @@ def quarantine(path: str, exc: BaseException, file_type: str = "",
         "without it", path, rec.error_class, rec.error,
         "unknown" if rows_lost is None else rows_lost)
     try:
-        from anovos_tpu_torch.obs import get_metrics
+        from anovos_tpu_torch.obs import flight, get_metrics
 
         reg = get_metrics()
         reg.counter(
@@ -300,6 +300,8 @@ def quarantine(path: str, exc: BaseException, file_type: str = "",
                 "quarantine_rows_lost_total",
                 "data rows lost to quarantined parts",
             ).inc(rows_lost)
+        flight.record("quarantine", file=os.path.basename(path),
+                      error_class=rec.error_class, rows_lost=rows_lost)
         journal = _JOURNAL
         if journal is not None:
             journal.append("part_quarantined", file=os.path.basename(path),

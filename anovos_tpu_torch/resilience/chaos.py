@@ -54,10 +54,12 @@ installed.  Installation happens once per run in ``workflow.main`` via
 :func:`install_from_env`; fired injections book
 ``chaos_injections_total{kind,site}`` metrics.
 
-In the port the only sites are the ingest guard's ``io:<path>``: it has
-no scheduler (whose ``node:`` sites read ``exc`` and ``hang``) and no
-failover (which reads ``wedge``) yet, so those kinds parse but never
-fire.
+In the port the sites are the ingest guard's ``io:<path>`` and the
+continuum's ``continuum:fold_committed:<part key>`` (``exc`` there aborts
+a step right after a partition's fold committed, the window a resume
+must cover).  It has no scheduler (whose ``node:`` sites read ``exc`` and
+``hang``) and no failover (which reads ``wedge``) yet.  Every injection
+also lands in the flight recorder's ring (``obs/flight.py``).
 """
 
 from __future__ import annotations
@@ -279,12 +281,13 @@ def chaos_point(site: str, interrupt: Optional[threading.Event] = None) -> None:
     if p is None:
         return
     for d in p.claim(site):
-        from anovos_tpu_torch.obs import get_metrics
+        from anovos_tpu_torch.obs import flight, get_metrics
 
         get_metrics().counter(
             "chaos_injections_total",
             "deliberate chaos-harness fault injections",
         ).inc(kind=d.kind, site=site)
+        flight.record("chaos", kind=d.kind, site=site)
         logger.warning("chaos: injecting %s at %s", d.kind, site)
         if d.kind == "exc":
             raise ChaosError(f"chaos-injected exception at {site}")

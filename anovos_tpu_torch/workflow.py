@@ -16,22 +16,27 @@ node cache store, failover or obs run manifest, so ``resume=True``
 resumes only the ``streaming_analysis`` passes from their chunk
 checkpoints (``obs/stream_ckpt/<sub-analysis>``) and runs every other
 block again, as the JAX runner does without ``ANOVOS_TPU_CACHE``.  A
-config without ``input_dataset`` but with ``streaming_analysis`` reads no
-Table: each streaming pass reads its own part files.  The one block it
-cannot run yet, ``continuous_analysis``, raises ``NotImplementedError``
-before any work starts.  A ``transformers`` step resolves its function on
+config without ``input_dataset`` but with ``streaming_analysis`` or
+``continuous_analysis`` reads no Table: each streaming pass reads its own
+part files, and ``continuous_analysis`` runs one continuum step
+(``continuum/watcher.step``: scan the feed directory, fold the partitions
+that landed, re-finalize the artifacts and re-render the report
+sections that changed).  A ``transformers`` step resolves its function on
 ``data_transformer.transformers`` by ``getattr``, as the JAX runner does,
 so a name that module lacks (a geospatial transformer) raises
 ``AttributeError``.  ``write_feast_features`` adds its two timestamp
 columns before the final write and then writes the Feast repository file.
 
 Each block's wall time is logged under the JAX runner's labels and kept
-for :func:`block_times`.  A fan-out section that fails (an analyzer,
-stats metric, association measure, drift, stability or the charts) is
-logged, recorded in the degradation registry (``resilience/policy.py``,
-read by :func:`degraded_sections`, beside the parts the guard
-quarantined) and skipped, as the JAX runner degrades it; a failing
-ingest, quality, transformer, streaming or report block ends the run.
+for :func:`block_times`.  A fan-out section (an analyzer, stats metric,
+association measure, drift, stability, the continuum step or the charts)
+follows the JAX runner's fan-out policy: after a failure it runs again
+``ANOVOS_TPU_RETRIES`` times (default 1) with the policy's backoff, then
+it is logged, recorded in the degradation registry
+(``resilience/policy.py``, read by :func:`degraded_sections`, beside the
+parts the guard quarantined) and skipped (``ANOVOS_TPU_DEGRADE=0``: it
+raises).  A failing ingest, quality, transformer, streaming or report
+block ends the run.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from anovos_tpu_torch.data_transformer import transformers
 from anovos_tpu_torch.drift_stability import drift_detector as ddetector
 from anovos_tpu_torch.drift_stability import stability as dstability
 from anovos_tpu_torch.feature_store import feast_exporter
+from anovos_tpu_torch.obs import flight
 from anovos_tpu_torch.resilience import chaos
 from anovos_tpu_torch.resilience import policy as res_policy
 from anovos_tpu_torch.shared.artifact_store import for_run_type
@@ -80,12 +86,6 @@ MAINFUNC_TO_ARGS = {
     "cat_to_num_unsupervised": ["stats_unique"],
     "PCA_latentFeatures": ["stats_missing"],
     "autoencoder_latentFeatures": ["stats_missing"],
-}
-
-# config blocks the port cannot run yet, and the ROADMAP.md Queue A item
-# that ports them
-NOT_PORTED = {
-    "continuous_analysis": "Queue A item 5 (the continuum)",
 }
 
 _BLOCK_TIMES: dict = {}
@@ -220,29 +220,30 @@ def _drift_source_matches_input(all_configs: dict) -> bool:
     return bool(src) and _clean_spec(src) == _clean_spec(all_configs.get("input_dataset"))
 
 
-def _check_ported(all_configs: dict, basic_report: bool) -> None:
-    """Raise before any work for a block the port cannot run yet (the basic
-    report skips those blocks, so they do not raise then)."""
-    if basic_report:
-        return
-    for key, item in NOT_PORTED.items():
-        if all_configs.get(key) is not None:
-            raise NotImplementedError(
-                f"config block {key!r} is not ported to anovos_tpu_torch yet; see ROADMAP.md {item}")
-
-
 def _best_effort(section: str, fn, *args, **kwargs):
-    """``fn(...)``, or None after logging and recording a failure, as the
-    JAX runner treats its fan-out sections (ts detection and inspection,
-    the geo analyzer, each stats metric, each association measure, drift,
-    stability and the charts): the run goes on without the section's
-    files."""
-    try:
-        return fn(*args, **kwargs)
-    except Exception as e:
-        logger.exception("%s failed; continuing without it", section)
-        res_policy.record_degraded(section, f"{type(e).__name__}: {e}")
-        return None
+    """``fn(...)`` under the JAX runner's policy for its fan-out sections
+    (ts detection and inspection, the geo analyzer, each stats metric,
+    each association measure, drift, stability, the continuum step and
+    the charts): a failed call runs again ``ANOVOS_TPU_RETRIES`` times
+    (default 1) after the policy's backoff; then the failure is logged
+    and recorded, and the run goes on without the section's files (None),
+    or it raises under ``ANOVOS_TPU_DEGRADE=0``."""
+    pol = res_policy.ErrorPolicy(
+        mode="retry", retries=int(os.environ.get("ANOVOS_TPU_RETRIES", "1")),
+        on_exhausted="raise" if os.environ.get("ANOVOS_TPU_DEGRADE", "1") == "0" else "degrade")
+    for attempt in range(1, pol.retries + 2):
+        try:
+            return fn(*args, **kwargs)
+        except Exception as e:
+            if attempt <= pol.retries:
+                logger.warning("%s failed (%r); running it again", section, e)
+                time.sleep(res_policy.backoff_delay(section, attempt, pol))
+                continue
+            if pol.on_exhausted == "raise":
+                raise
+            logger.exception("%s failed after %d attempt(s); continuing without it", section, attempt)
+            res_policy.record_degraded(section, f"{type(e).__name__}: {e}")
+            return None
 
 
 def _save_stats_or_write(df_stats, report_input_path, name, write_stats, folder, run_type, auth_key):
@@ -306,6 +307,22 @@ def _streaming_analysis(args: dict, report_input_path: str, write_main, write_st
         _log_block_time(f"streaming_analysis, {name}", t0)
 
 
+def _continuous_analysis(args: dict, base_dir: str) -> None:
+    """The ``continuous_analysis`` block: one continuum step over the
+    section's feed (``ContinuumConfig.from_dict(args, base_dir)``), a
+    fan-out section ``continuous_analysis/step`` (a retry resumes from the
+    partitions the failed attempt committed)."""
+    from anovos_tpu_torch.continuum.watcher import ContinuumConfig
+    from anovos_tpu_torch.continuum.watcher import step as continuum_step
+
+    summary = _best_effort("continuous_analysis/step",
+                           lambda: continuum_step(ContinuumConfig.from_dict(dict(args), base_dir=base_dir)))
+    if summary is not None:
+        logger.info("continuous_analysis: folded=%d quarantined=%d alerts=%d partitions=%d",
+                    len(summary["folded"]), len(summary["quarantined"]), summary["alerts"],
+                    summary["partitions"])
+
+
 def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict] = None,
          resume: bool = False) -> None:
     start_main = time.monotonic()
@@ -317,14 +334,15 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     ingest_guard.reset()
     auth_key = _auth_key(auth_key_val)
     basic_report_flag = (all_configs.get("anovos_basic_report", {}) or {}).get("basic_report", False)
-    _check_ported(all_configs, basic_report_flag)
     if resume:
         logger.warning("--resume requested but ANOVOS_TPU_CACHE is unset; "
                        "nothing to resume from — executing every node")
 
-    if all_configs.get("input_dataset") is None and all_configs.get("streaming_analysis"):
-        # out-of-core mode: the dataset never materializes as a Table;
-        # the streaming passes read their own part files
+    if all_configs.get("input_dataset") is None and (
+            all_configs.get("streaming_analysis") or all_configs.get("continuous_analysis")):
+        # out-of-core / continuum mode: the dataset never materializes as
+        # a Table; the streaming passes and the continuum step read their
+        # own part files
         df = None
     else:
         df = ETL(all_configs.get("input_dataset"))
@@ -357,7 +375,11 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     # the quarantine manifest goes to the run's obs/ subtree (parts the
     # ETL read set aside are written now); a clean run writes nothing
     obs_base = report_input_path or (write_main or {}).get("file_path") or "."
-    ingest_guard.configure(os.path.join(for_run_type(run_type, auth_key).staging_dir(obs_base), "obs"))
+    obs_dir = os.path.join(for_run_type(run_type, auth_key).staging_dir(obs_base), "obs")
+    ingest_guard.configure(obs_dir)
+    # a fresh flight-recorder ring per run (the continuum's alerts carry
+    # its tail)
+    flight.configure(obs_dir)
 
     with mlflow_ctx:
         for key, args in all_configs.items():
@@ -529,6 +551,11 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
 
             if key == "streaming_analysis":
                 _streaming_analysis(args, report_input_path, write_main, write_stats, resume)
+                continue
+
+            if key == "continuous_analysis":
+                _continuous_analysis(args, report_input_path or (write_main or {}).get("file_path") or ".")
+                _log_block_time("continuous_analysis", t0)
                 continue
 
             if key == "report_preprocessing":

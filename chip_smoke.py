@@ -192,7 +192,7 @@ Phases, in order; any failure exits non-zero:
    as strings and a weight, built in memory; each step timed on the host
    clock ending in a device sync: ``geo_format_latlon`` to radian,
    cartesian and geohash (precision 9), and to dms and back on the first
-   1,000,000 rows; ``geo_format_cartesian`` and ``geo_format_geohash``
+   250,000 rows; ``geo_format_cartesian`` and ``geo_format_geohash``
    back to dd; ``geohash_precision_control`` to 5; ``location_distance``
    of the three types in km; ``location_in_country`` approx US and exact
    against a 2,000-edge GeoJSON the phase writes (a MultiPolygon with a
@@ -229,6 +229,28 @@ Phases, in order; any failure exits non-zero:
    that part (1,000,000 rows lost) and counting the other 15.  B1 and B2
    launch on the path and are held to their plain versions on part 0's
    chunk.
+14. continuum: phase 13's 8 source parts hard-linked as the baseline
+   days ``base-0000i.parquet`` and its 16 target parts as
+   ``day-000ii.parquet`` (24 partitions of 1,000,000 rows, 19 columns, 9
+   numeric), through ``anovos_tpu_torch.continuum.step`` with every
+   column, phase 13's outlier model and a drift model fitted from
+   ``base-*`` (method all, 10 bins, threshold 0.1), each step's decode,
+   fold, fit, finalize, render and snapshot seconds printed: (a) the
+   catch-up (24 folds, the model fitted with one re-decode of the 8
+   baseline parts), (b) one new day shifted a further 1σ (one decode, one
+   fold, its drift alert with the flight recorder's tail; its wall is the
+   arrival-to-artifact lag), (c) a step with no arrival, (d) a corrupt
+   day, quarantined with its alert, (e) two more days, a ``python -m
+   anovos_tpu_torch.continuum step`` killed by a chaos fault after the
+   first one's fold commit and another that resumes.  Checked: the stats
+   CSV against float64 numpy over phase 13's values (counts, min, max,
+   nonzero exact, the moments in phase 13's bands), the missing, outlier
+   and categorical counts exact, the fitted binning model byte-equal to
+   phase 13's streaming fit and its frequencies equal at f32, the
+   cumulative drift frame within 1e-4 of phase 13's, day 0's HLL registers
+   equal to the CPU's, the launches (B1 and B2 24 times in (a), once each
+   in (b), none in (c) and (d)), no part with two fold commits after
+   (e), and B1 and B2 against their plain versions on day 0's block.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -274,7 +296,8 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "configs_mlflow": ("masked_moments", "binned_histograms"),
                 "configs_feast": ("masked_moments", "binned_histograms"),
                 "geo_transformers": (),
-                "streaming": ("masked_moments", "binned_histograms")}
+                "streaming": ("masked_moments", "binned_histograms"),
+                "continuum": ("masked_moments", "binned_histograms")}
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -441,10 +464,11 @@ FULL_CONFIG = {
     "write_stats": {"file_path": "stats", "file_type": "parquet", "file_configs": {"mode": "overwrite"}},
 }
 # 10b: configs_segmentation_unsupervised's autoencoder sample and batch;
-# the epochs cut from 100 (PERF.md section 4)
+# the epochs cut from 100, then from 10 to make room for phase 14 (PERF.md
+# section 4)
 AE_SAMPLE = 500_000
 AE_BATCH = 256
-AE_EPOCHS = 10
+AE_EPOCHS = 3
 # 10c: the imputers' table, its nulled columns, the KNN query rows checked
 # against float64, and the bound on MF's standardized observed-cell RMSE
 # (a rank-10 fit of 11 columns, 9 of them independent, leaves about a
@@ -548,13 +572,14 @@ FEAST_CONFIG = {
 FEAST_CPU_ROWS = 2_000
 # phase 12: the geospatial transformers on GEO_T_ROWS rows (the income
 # path's size) with GEO_T_IDS distinct ids; the dms steps, which make a
-# Python string a value, on the first GEO_T_DMS_ROWS (PERF.md section 4);
+# Python string a value, on the first GEO_T_DMS_ROWS (cut from 1,000,000
+# to make room for phase 14; PERF.md section 4);
 # geohash strings checked on GEO_T_SAMPLE rows; polygon flags checked
 # against float64 except within GEO_T_EDGE degrees of an edge (the f32
 # spacing at |lon| in [64, 128) is 7.6e-6 degrees)
 GEO_T_ROWS = ROWS
 GEO_T_IDS = 100_000
-GEO_T_DMS_ROWS = 1_000_000
+GEO_T_DMS_ROWS = 250_000
 GEO_T_SAMPLE = 100_000
 GEO_T_EDGE = 1e-5
 # phase 13: the streaming folders (target parts, source parts, rows a part),
@@ -569,6 +594,12 @@ STREAM_CHAOS_PART = 3
 STREAM_DRIFT = {"list_of_cols": "all", "drop_cols": ["ifa", "income"], "method_type": "all", "threshold": 0.1,
                 "bin_method": "equal_range", "bin_size": 10}
 STREAM_QUANTILES = (0.01, 0.05, 0.10, 0.25, 0.50, 0.75, 0.90, 0.95, 0.99)
+# phase 14: the continuum's drift section (the baseline days fit the
+# model), the further shift of the arriving day in σ, and the CLI the kill
+# and the resume run through, as a user runs it
+CONTINUUM_DRIFT = {"baseline": "base-*", "method_type": "all", "bin_size": 10, "threshold": 0.1}
+CONTINUUM_SHIFT = 1.0
+CONTINUUM_CLI = (sys.executable, "-m", "anovos_tpu_torch.continuum")
 # the walls of the steps the host codec now runs, before the codec (PERF.md
 # section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's
@@ -1972,12 +2003,15 @@ def comp_frame(seed: int):
 
 
 def f64_moments(v: np.ndarray) -> dict:
+    """Float64 mean, sample variance, skewness and excess kurtosis of ``v``
+    (products, not ``**``: numpy's power is ~6x slower at 24M values)."""
     v = v.astype(np.float64)
     m = v.mean()
     d = v - m
-    m2 = (d * d).mean()
-    return {"mean": m, "variance": v.var(ddof=1), "skewness": (d ** 3).mean() / m2 ** 1.5,
-            "kurtosis": (d ** 4).mean() / m2 ** 2 - 3.0}
+    d2 = d * d
+    m2 = d2.mean()
+    return {"mean": m, "variance": d2.sum() / (len(v) - 1), "skewness": (d2 * d).mean() / m2 ** 1.5,
+            "kurtosis": (d2 * d2).mean() / m2 ** 2 - 3.0}
 
 
 def check_compensated(comp: dict, plain: dict, data: dict, cols) -> dict:
@@ -4229,7 +4263,7 @@ def phase_geo_transformers(torch, seed: int) -> dict:
         gh = timed(torch, walls, "geo_format_latlon geohash 9", lambda: geo.geo_format_latlon(
             t, **ll, output_format="geohash", optional_configs={"geohash_precision": 9}))
         head = t.slice_rows(0, GEO_T_DMS_ROWS)
-        dms = timed(torch, walls, "geo_format_latlon dms (1M rows)",
+        dms = timed(torch, walls, f"geo_format_latlon dms ({GEO_T_DMS_ROWS} rows)",
                     lambda: geo.geo_format_latlon(head, **ll, output_format="dms"))
         xyz = dict(list_of_x="latitude_longitude_x", list_of_y="latitude_longitude_y",
                    list_of_z="latitude_longitude_z")
@@ -4237,8 +4271,9 @@ def phase_geo_transformers(torch, seed: int) -> dict:
                           lambda: geo.geo_format_cartesian(cart, **xyz, output_format="dd"))
         back_gh = timed(torch, walls, "geo_format_geohash dd",
                         lambda: geo.geo_format_geohash(gh, "latitude_longitude_geohash", output_format="dd"))
-        back_dms = timed(torch, walls, "geo_format_latlon dms to dd (1M rows)", lambda: geo.geo_format_latlon(
-            dms, "latitude_dms", "longitude_dms", input_format="dms", output_format="dd"))
+        back_dms = timed(torch, walls, f"geo_format_latlon dms to dd ({GEO_T_DMS_ROWS} rows)",
+                         lambda: geo.geo_format_latlon(dms, "latitude_dms", "longitude_dms", input_format="dms",
+                                                       output_format="dd"))
         gh5 = timed(torch, walls, "geohash_precision_control 5", lambda: geo.geohash_precision_control(
             gh, "latitude_longitude_geohash", output_precision=5, output_mode="append"))
         dist = {}
@@ -4420,10 +4455,11 @@ def stream_folders(df, tmp: str) -> dict:
     numeric column shifted by (0.25 + 0.01·⌊i/4⌋)·σ (drift, and parts that
     differ); the source folder: STREAM_SRC_PARTS unshifted parts.  Returns
     the folders, each side's f32 numeric values (k, rows) as the port reads
-    them, the target's null counts and the seconds the writing took."""
+    them, each side's null counts, the σ of each numeric column and the
+    seconds the writing took."""
     num = [c for c in df.columns if df[c].dtype.kind == "f"]
     sigma = {c: float(np.nanstd(df[c].to_numpy(np.float64))) for c in num}
-    out = {"num_cols": num, "tgt": os.path.join(tmp, "tgt"), "src": os.path.join(tmp, "src")}
+    out = {"num_cols": num, "tgt": os.path.join(tmp, "tgt"), "src": os.path.join(tmp, "src"), "sigma": sigma}
     t0 = time.perf_counter()
     for side, nparts in (("tgt", STREAM_PARTS), ("src", STREAM_SRC_PARTS)):
         os.makedirs(out[side])
@@ -4481,15 +4517,15 @@ class PassSummaries:
         streaming._publish_stats = self._orig
 
 
-def check_stream_describe(path: str, values: np.ndarray, cols) -> dict:
+def check_stream_describe(path: str, values, cols, quantiles=STREAM_QUANTILES) -> dict:
     """(a) ``stream_describe.csv`` against float64 numpy over the same f32
     values: count, min, max and nonzero exact; the moments within
     tests/test_torch_streaming.py's bands (mean and stddev 1e-5·σ + 5e-5,
     variance 2e-5·var + 1e-4, skewness 1e-4, kurtosis 2e-4 + 1e-4·|k|);
     each quantile within one bin width ((max − min) / 2048) of the value
     at its rank: the count of values below q̂ − w is at most ⌊q(n−1)⌋ and
-    the count at or below q̂ + w more than ⌈q(n−1)⌉.  Returns the largest
-    error of each moment."""
+    the count at or below q̂ + w more than ⌈q(n−1)⌉.  ``values[j]`` holds
+    column ``cols[j]``.  Returns the largest error of each moment."""
     import pandas as pd
 
     got = pd.read_csv(path).set_index("attribute")
@@ -4511,7 +4547,7 @@ def check_stream_describe(path: str, values: np.ndarray, cols) -> dict:
             check(err <= allow, f"stream describe {k} of {c}: {r[k]} off float64 by {err} > {allow}")
             errs[k] = max(errs[k], err)
         w = (float(v.max()) - float(v.min())) / 2048
-        for q in STREAM_QUANTILES:
+        for q in quantiles:
             qv = float(r[f"{int(q * 100)}%"])
             pos = q * (len(v) - 1)
             below = int(np.count_nonzero(v < qv - w - 1e-4))
@@ -4547,11 +4583,13 @@ def check_stream_counts(rdir: str, folders: dict, model: str) -> None:
               f"stream outlier counts of {r['attribute']}")
 
 
-def phase_streaming(torch, seed: int, df) -> dict:
+def phase_streaming(torch, seed: int, df, tmp: str) -> dict:
     """Phase 13: ``workflow.main`` on a ``streaming_analysis`` config over
     the folders of ``stream_folders`` (16M target and 8M source rows from
-    phase 3's frame ``df``) in 1M-row chunks, then checks (a)-(f) and B1
-    and B2 at the streaming shape.  The folders' writing is timed apart."""
+    phase 3's frame ``df``, written under ``tmp``) in 1M-row chunks, then
+    checks (a)-(f) and B1 and B2 at the streaming shape.  The folders'
+    writing is timed apart.  The folders, the outlier model and the drift
+    model stay for phase 14 (``out["feed"]``); the caller removes ``tmp``."""
     import pandas as pd
 
     from anovos_tpu_torch import workflow
@@ -4565,7 +4603,6 @@ def phase_streaming(torch, seed: int, df) -> dict:
 
     out = {}
     dev = get_runtime().device
-    tmp = tempfile.mkdtemp(prefix="anovos_stream_")
     cwd = os.getcwd()
     try:
         folders = stream_folders(df, tmp)
@@ -4731,11 +4768,315 @@ def phase_streaming(torch, seed: int, df) -> dict:
                                                        "streaming", "part 0's chunk, the drift cutoffs")]}
         del Xc, Mc, Xh, Mh
         out["phase_s"] = time.perf_counter() - t_phase
+        out["feed"] = {"folders": folders, "model": model, "drift_model": sm,
+                       "drift_csv": os.path.join(rdir, "stream_drift.csv")}
     finally:
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
     print(f"streaming: phase 13 in {out['phase_s']:.1f} s (writing apart: {out['write_s']:.1f} s), "
           f"checks {out['checks_s']:.1f} s", flush=True)
+    return out
+
+
+def continuum_feed(folders: dict, root: str) -> str:
+    """The continuum's feed directory: phase 13's source parts hard-linked
+    as ``base-0000i.parquet`` (the drift baseline) and its target parts as
+    ``day-000ii.parquet``, no byte rewritten."""
+    feed = os.path.join(root, "feed")
+    os.makedirs(feed)
+    for side, prefix, n in (("src", "base", STREAM_SRC_PARTS), ("tgt", "day", STREAM_PARTS)):
+        for i in range(n):
+            os.link(os.path.join(folders[side], f"part-{i:05d}.parquet"),
+                    os.path.join(feed, f"{prefix}-{i:05d}.parquet"))
+    return feed
+
+
+def continuum_section(feed: str, root: str, model: str) -> dict:
+    """The ``continuous_analysis`` section: every column, phase 13's
+    outlier model, drift fitted from the baseline days."""
+    return {"dataset_path": feed, "state_dir": os.path.join(root, "state"),
+            "output_path": os.path.join(root, "out"), "outlier_model_path": model,
+            "drift": dict(CONTINUUM_DRIFT)}
+
+
+def continuum_step(torch, cfg, what: str):
+    """One ``continuum.step`` on the card: (summary, the kernel launches it
+    made, its wall on the host clock ending in a device sync, the parts it
+    decoded)."""
+    from anovos_tpu_torch import continuum
+    from anovos_tpu_torch.data_ingest import data_ingest
+    from anovos_tpu_torch.ops import kernels
+
+    decodes, orig = [], data_ingest.read_host_frame
+
+    def counting(files, *a, **k):
+        decodes.extend(files)
+        return orig(files, *a, **k)
+
+    data_ingest.read_host_frame = counting
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        s = continuum.step(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        data_ingest.read_host_frame = orig
+    launches = dict(kernels.LAUNCHES)
+    print(f"continuum: ({what}) step {wall:.3f} s: folded {len(s['folded'])}, refolded {len(s['refolded'])}, "
+          f"quarantined {s['quarantined']}, model fitted {s['model_fitted']}, alerts {s['alerts']}, "
+          f"{len(decodes)} decodes, walls {s['walls_s']}, rendered {s['sections_rendered']}, "
+          f"launches {launches}", flush=True)
+    return s, launches, wall, len(decodes)
+
+
+def check_continuum_counts(out_dir: str, folders: dict, model: str, df) -> None:
+    """The missing counts against both sides' null counts, the outlier
+    counts against numpy's f32 compares over both sides' values, and the
+    categorical summary against pandas value counts of the slices the
+    parts hold, exactly."""
+    import pandas as pd
+
+    from anovos_tpu_torch.data_analyzer.quality_checker import _load_outlier_model
+
+    n = (STREAM_PARTS + STREAM_SRC_PARTS) * STREAM_PART_ROWS
+    miss = pd.read_csv(os.path.join(out_dir, "continuum_missing.csv"))
+    check(sorted(miss["attribute"]) == sorted(df.columns), "continuum missing columns")
+    for _, r in miss.iterrows():
+        nulls = folders["tgt_nulls"][r["attribute"]] + folders["src_nulls"][r["attribute"]]
+        check(int(r["missing_count"]) == nulls and abs(r["missing_pct"] - round(nulls / n, 4)) < 1e-9,
+              f"continuum missing count of {r['attribute']}")
+    out = pd.read_csv(os.path.join(out_dir, "continuum_outlier.csv"))
+    bounds, _ = _load_outlier_model(model)
+    check(set(out["attribute"]) == set(bounds), "continuum outlier columns")
+    for _, r in out.iterrows():
+        j = folders["num_cols"].index(r["attribute"])
+        lo, hi = (np.float32(-np.inf if b is None else b) for b in bounds[r["attribute"]][:2])
+        n_lo = n_hi = 0
+        for v in (folders["tgt_values"][j], folders["src_values"][j]):
+            above, below = v > hi, v < lo
+            n_lo += int(np.count_nonzero(below & ~above))
+            n_hi += int(np.count_nonzero(above & ~below))
+        check(int(r["lower_outliers"]) == n_lo and int(r["upper_outliers"]) == n_hi,
+              f"continuum outlier counts of {r['attribute']}")
+    # part i of either side holds slice i mod 4 of the frame (the target's
+    # numeric columns shifted, its categorical ones as they are)
+    mult = [sum(1 for n in (STREAM_PARTS, STREAM_SRC_PARTS) for i in range(n) if i % 4 == s) for s in range(4)]
+    cat = pd.read_csv(os.path.join(out_dir, "continuum_categorical.csv"), dtype=str, keep_default_na=False)
+    cat_cols = [c for c in df.columns if df[c].dtype.kind not in "fiub"]
+    check(list(cat["attribute"]) == sorted(cat_cols), f"continuum categorical columns {list(cat['attribute'])}")
+    for _, r in cat.iterrows():
+        cnt = {}
+        for s, m in enumerate(mult):
+            sl = df[r["attribute"]].iloc[s * STREAM_PART_ROWS:(s + 1) * STREAM_PART_ROWS]
+            for v, c in sl.dropna().astype(str).value_counts().items():
+                cnt[v] = cnt.get(v, 0) + m * int(c)
+        top = max(sorted(cnt), key=lambda v: cnt[v])
+        check(int(r["distinct"]) == len(cnt) and r["top_value"] == top and int(r["top_count"]) == cnt[top],
+              f"continuum categorical summary of {r['attribute']}: {dict(r)} vs {len(cnt)}, {top}, {cnt[top]}")
+
+
+def check_continuum_model(cm: str, sm: str) -> dict:
+    """The drift model fitted from the baseline days (``cm``) against phase
+    13's streaming model fitted from the same 8 source parts (``sm``): the
+    same attributes with bit-equal cutoffs; each of the streaming model's
+    frequency files present, its keys the continuum's plus the
+    target-only values (p = 0), and every p equal once both are f32.  The
+    two fitters of the reference write their files differently (the
+    continuum's binning rows in name order, the streaming fit's in column
+    order; the continuum's p a float64 quotient over the source values,
+    the streaming fit's an f32 quotient over the union vocabulary), so
+    they are not byte-equal; the count of files that are is returned."""
+    import pandas as pd
+
+    bins = os.path.join("attribute_binning", "part-00000.parquet")
+    got, exp = (pd.read_parquet(os.path.join(m, bins)) for m in (cm, sm))
+    check(sorted(got["attribute"]) == sorted(exp["attribute"]), "continuum binning model attributes")
+    cuts = dict(zip(got["attribute"], got["parameters"]))
+    check(all(np.array_equal(np.asarray(cuts[c], np.float64), np.asarray(p, np.float64))
+              for c, p in zip(exp["attribute"], exp["parameters"])),
+          "continuum binning model's cutoffs differ from phase 13's streaming fit")
+    with open(os.path.join(cm, bins), "rb") as a, open(os.path.join(sm, bins), "rb") as b:
+        same = int(a.read() == b.read())
+    base = os.path.join(sm, "frequency_counts")
+    files = 0
+    for c in sorted(os.listdir(base)):
+        rel = os.path.join("frequency_counts", c, "part-00000.csv")
+        check(os.path.exists(os.path.join(cm, rel)), f"continuum model lacks {rel}")
+        with open(os.path.join(cm, rel), "rb") as a, open(os.path.join(sm, rel), "rb") as b:
+            same += a.read() == b.read()
+        got = pd.read_csv(os.path.join(cm, rel), dtype=str)
+        exp = pd.read_csv(os.path.join(sm, rel), dtype=str)
+        gp = dict(zip(got[c], got["p"].astype(float)))
+        ep = dict(zip(exp[c], exp["p"].astype(float)))
+        check(set(gp) <= set(ep) and all(ep[k] == 0 for k in set(ep) - set(gp)),
+              f"continuum model frequency keys of {c}")
+        check(all(np.float32(gp[k]) == np.float32(ep[k]) for k in gp), f"continuum model frequencies of {c}")
+        files += 1
+    return {"frequency_files": files, "byte_equal": same}
+
+
+def phase_continuum(torch, seed: int, df, feed_in: dict, tmp: str) -> dict:
+    """Phase 14: the continuum over phase 13's 24 parts of 1,000,000 rows
+    hard-linked as daily partitions (8 baseline days, 16 target days),
+    through ``anovos_tpu_torch.continuum.step``: (a) the catch-up step,
+    (b) one new day shifted a further CONTINUUM_SHIFT σ, (c) a step with
+    no arrival, (d) a corrupt day, (e) a kill after one day's fold commit
+    in a CLI subprocess and the resume.  Then the checks and B1 and B2 on
+    day 0's block."""
+    import pandas as pd
+
+    from anovos_tpu_torch.continuum.sufficient import FoldContext, PartFrame
+    from anovos_tpu_torch.continuum.watcher import ContinuumConfig
+    from anovos_tpu_torch.ops.hll import hll_registers, precision_for_rsd
+
+    folders = feed_in["folders"]
+    root = os.path.join(tmp, "continuum")
+    os.makedirs(root)
+    feed = continuum_feed(folders, root)
+    section = continuum_section(feed, root, feed_in["model"])
+    cfg = ContinuumConfig.from_dict(section)
+    out = {"walls_s": {}, "launches": {}}
+    t_phase = time.perf_counter()
+    n_parts = STREAM_SRC_PARTS + STREAM_PARTS
+
+    # (a) the catch-up: baseline folds, the model fit with one re-decode of
+    # the baseline, the target days binned over it
+    s, la, wall, dec = continuum_step(torch, cfg, "a: catch-up")
+    out["walls_s"]["a"], out["steps"] = wall, {"a": s["walls_s"]}
+    check(len(s["folded"]) == n_parts and s["model_fitted"] and not s["quarantined"] and not s["refolded"],
+          f"continuum catch-up summary {s}")
+    check(dec == n_parts + STREAM_SRC_PARTS, f"continuum catch-up decoded {dec} parts")
+    check(la["masked_moments"] == n_parts and la["binned_histograms"] == n_parts
+          and la["neighbor_counts"] == 0, f"continuum catch-up launches {la}")
+    out["launches"]["a"] = la
+
+    t0 = time.perf_counter()
+    out_dir = cfg.output_path
+    cols = folders["num_cols"]
+    both = [np.concatenate([folders["src_values"][j], folders["tgt_values"][j]]) for j in range(len(cols))]
+    order = sorted(range(len(cols)), key=lambda j: cols[j])
+    out["moment_errors"] = check_stream_describe(os.path.join(out_dir, "continuum_stats.csv"),
+                                                 [both[j] for j in order], [cols[j] for j in order],
+                                                 quantiles=())
+    del both
+    check_continuum_counts(out_dir, folders, feed_in["model"], df)
+    out["model"] = check_continuum_model(os.path.join(cfg.state_dir, "drift_model"), feed_in["drift_model"])
+    got = pd.read_csv(os.path.join(out_dir, "continuum_drift.csv")).set_index("attribute")
+    exp = pd.read_csv(feed_in["drift_csv"]).set_index("attribute")
+    common = [c for c in exp.index if c in got.index]
+    check(len(common) == len(exp), f"continuum drift attributes {list(got.index)} vs {list(exp.index)}")
+    check(list(got.loc[common, "flagged"]) == list(exp.loc[common, "flagged"]), "continuum drift flags")
+    out["drift_max_abs_err"] = max(float(np.max(np.abs(got.loc[common, m].to_numpy(np.float64)
+                                                       - exp.loc[common, m].to_numpy(np.float64))))
+                                   for m in ("PSI", "HD", "JSD", "KS"))
+    # one unit of the 4th decimal: the two fitters' p differ in their last
+    # bits (f32 and float64 quotients), which may round a metric the other way
+    check(out["drift_max_abs_err"] <= 1e-4 + 1e-12,
+          f"continuum drift off phase 13's by {out['drift_max_abs_err']}")
+    # day 0's HLL registers against the CPU's, from the frame as decoded
+    with open(os.path.join(cfg.state_dir, "state_manifest.json")) as f:
+        npz = json.load(f)["parts"]["day-00000.parquet"]["npz"]
+    with np.load(os.path.join(cfg.state_dir, "parts", npz)) as z:
+        regs, hcols = z["hll__registers"], [str(c) for c in z["hll__cols"]]
+    day0 = pd.read_parquet(os.path.join(feed, "day-00000.parquet"))
+    X = day0[hcols].to_numpy(np.float32, na_value=np.nan)
+    cpu = hll_registers(torch.from_numpy(np.nan_to_num(X, nan=0.0)), torch.from_numpy(~np.isnan(X)),
+                        precision_for_rsd(0.05)).numpy()
+    check(np.array_equal(regs, cpu), "continuum HLL registers of day 0 differ from the CPU's")
+    out["checks_s"] = time.perf_counter() - t0
+    print(f"continuum: (a) checked in {out['checks_s']:.1f} s: stats against float64 (largest errors "
+          f"{out['moment_errors']}), missing, outlier and categorical counts exact, the fitted model against "
+          f"phase 13's ({out['model']}), drift within {out['drift_max_abs_err']:.2e} of phase 13's, day 0's "
+          f"HLL registers equal to the CPU's", flush=True)
+
+    # (b) one new day, a target part shifted a further CONTINUUM_SHIFT σ:
+    # only it decodes and folds, and its drift alert fires
+    i = STREAM_PARTS
+    part = df.iloc[(i % 4) * STREAM_PART_ROWS:(i % 4 + 1) * STREAM_PART_ROWS].reset_index(drop=True)
+    shift = 0.25 + 0.01 * (i // 4) + CONTINUUM_SHIFT
+    new_day = f"day-{i:05d}.parquet"
+    t0 = time.perf_counter()
+    part.assign(**{c: part[c] + shift * folders["sigma"][c] for c in cols}).to_parquet(
+        os.path.join(feed, new_day), index=False)
+    out["arrival_write_s"] = time.perf_counter() - t0
+    s, lb, wall, dec = continuum_step(torch, cfg, "b: one arrival")
+    out["walls_s"]["b"], out["steps"]["b"] = wall, s["walls_s"]
+    out["arrival_artifact_lag_s"] = wall
+    check(s["folded"] == [new_day] and dec == 1 and not s["model_fitted"], f"continuum arrival summary {s}")
+    check(lb["masked_moments"] == 1 and lb["binned_histograms"] == 1, f"continuum arrival launches {lb}")
+    out["launches"]["b"] = lb
+    with open(os.path.join(out_dir, "obs", "continuum_alerts.jsonl")) as f:
+        alerts = [json.loads(line) for line in f]
+    drift = [a for a in alerts if a["kind"] == "drift" and a["partition"] == new_day]
+    check(bool(drift) and all(a["value"] > a["threshold"] and a["flight"] for a in drift),
+          f"continuum arrival drift alerts {drift[:2]}")
+    out["arrival_alerts"] = len(drift)
+
+    # (c) no arrival: nothing decodes, folds, launches or renders
+    s, lc, wall, dec = continuum_step(torch, cfg, "c: no arrival")
+    out["walls_s"]["c"] = wall
+    check(s["folded"] == [] and dec == 0 and s["sections_rendered"] == [] and not any(lc.values()),
+          f"continuum idle step {s}, launches {lc}")
+
+    # (d) a corrupt day: quarantined with its alert, nothing launched
+    bad = f"day-{i + 1:05d}.parquet"
+    with open(os.path.join(feed, bad), "wb") as f:
+        f.write(b"NOTPARQUET" * 1000)
+    s, ld, wall, dec = continuum_step(torch, cfg, "d: a corrupt day")
+    out["walls_s"]["d"] = wall
+    check(s["quarantined"] == [bad] and s["folded"] == [] and not any(ld.values()), f"continuum corrupt day {s}")
+    with open(os.path.join(out_dir, "obs", "continuum_alerts.jsonl")) as f:
+        check(any(json.loads(line)["kind"] == "quarantine" and json.loads(line)["partition"] == bad for line in f),
+              "continuum quarantine alert")
+
+    # (e) two more days; a CLI step killed after the first one's fold
+    # commit (before its snapshot), then a CLI step that resumes
+    late = [f"day-{i + 2:05d}.parquet", f"day-{i + 3:05d}.parquet"]
+    for j, name in enumerate(late):
+        os.link(os.path.join(folders["tgt"], f"part-{j + 1:05d}.parquet"), os.path.join(feed, name))
+    conf = os.path.join(root, "continuum.yaml")
+    with open(conf, "w") as f:
+        json.dump({"continuous_analysis": section}, f)  # JSON is YAML
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    env.pop("ANOVOS_TPU_CHAOS", None)
+    cli = [*CONTINUUM_CLI, "step", "--json", "--config", conf]
+    t0 = time.perf_counter()
+    kill = subprocess.run(cli, cwd=repo, capture_output=True, text=True, timeout=300,
+                          env={**env, "ANOVOS_TPU_CHAOS": f"exc@continuum:fold_committed:{late[0]}:n=1"})
+    out["walls_s"]["e_kill"] = time.perf_counter() - t0
+    check(kill.returncode != 0 and "ChaosError" in kill.stderr, f"continuum kill: rc {kill.returncode}, "
+          f"{kill.stderr[-800:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cli, cwd=repo, capture_output=True, text=True, timeout=300, env=env)
+    out["walls_s"]["e_resume"] = time.perf_counter() - t0
+    check(res.returncode == 0, f"continuum resume: rc {res.returncode}, {res.stderr[-800:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    check(summary["folded"] == late[1:], f"continuum resume folded {summary['folded']}")
+    with open(os.path.join(cfg.state_dir, "continuum_journal.jsonl")) as f:
+        commits = [json.loads(line).get("part") for line in f if '"fold_commit"' in line]
+    twice = sorted({p for p in commits if commits.count(p) > 1})
+    check(not twice and len(commits) == n_parts + 3, f"continuum fold commits: {len(commits)}, twice {twice}")
+    print(f"continuum: (e) a CLI step killed after {late[0]}'s fold commit ({out['walls_s']['e_kill']:.1f} s), "
+          f"resumed by another ({out['walls_s']['e_resume']:.1f} s): it folded {summary['folded']}, every "
+          f"part has one fold commit ({len(commits)})", flush=True)
+
+    # B1 and B2 on day 0's block, B2 on the fitted model's cutoffs
+    block = PartFrame(day0, FoldContext(list_of_cols="all"))
+    Xc, Mc = block.device_block()
+    bins = pd.read_parquet(os.path.join(cfg.state_dir, "drift_model", "attribute_binning", "part-00000.parquet"))
+    kcols = [block.num_cols.index(c) for c in bins["attribute"]]
+    cuts = torch.tensor(np.stack([np.asarray(p, np.float32) for p in bins["parameters"]]), device=Xc.device)
+    out["kernels"] = {"masked_moments": [b1_row(torch, Xc, Mc, "continuum", "day 0's block")],
+                      "binned_histograms": [b2_row(torch, Xc[kcols].contiguous(), Mc[kcols].contiguous(), cuts,
+                                                   CONTINUUM_DRIFT["bin_size"], "continuum",
+                                                   "day 0's block, the fitted cutoffs")]}
+    del Xc, Mc, block
+    out["path_launches"] = {k: la[k] + lb[k] for k in la}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"continuum: phase 14 in {out['phase_s']:.1f} s (catch-up {out['walls_s']['a']:.1f} s, arrival to "
+          f"artifact {out['arrival_artifact_lag_s']:.2f} s), launches on the path {out['path_launches']}",
+          flush=True)
     return out
 
 
@@ -4884,10 +5225,18 @@ def main() -> None:
     print("scenarios " + json.dumps(scen), flush=True)
     geo_t = phase_geo_transformers(torch, args.seed)
     print("geo_transformers " + json.dumps(geo_t), flush=True)
-    stream = phase_streaming(torch, args.seed, df)
-    del df
-    stream_kernels = stream.pop("kernels")
-    print("streaming " + json.dumps({k: v for k, v in stream.items() if k != "launches"}), flush=True)
+    stream_tmp = tempfile.mkdtemp(prefix="anovos_stream_")
+    try:
+        stream = phase_streaming(torch, args.seed, df, stream_tmp)
+        feed = stream.pop("feed")
+        stream_kernels = stream.pop("kernels")
+        print("streaming " + json.dumps({k: v for k, v in stream.items() if k != "launches"}), flush=True)
+        cont = phase_continuum(torch, args.seed, df, feed, stream_tmp)
+        del df, feed
+    finally:
+        shutil.rmtree(stream_tmp, ignore_errors=True)
+    cont_kernels = cont.pop("kernels")
+    print("continuum " + json.dumps({k: v for k, v in cont.items() if k != "launches"}), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -4900,7 +5249,7 @@ def main() -> None:
         for kname in ("masked_moments", "binned_histograms"):
             kres[kname]["other_shapes"] += scen_kernels[p][kname]
     for kname in ("masked_moments", "binned_histograms"):
-        kres[kname]["other_shapes"] += stream_kernels[kname]
+        kres[kname]["other_shapes"] += stream_kernels[kname] + cont_kernels[kname]
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
                                                      "association": assoc["launches"],
@@ -4909,8 +5258,9 @@ def main() -> None:
                                                      "transformers": transform["launches"],
                                                      **{p: scen[p]["launches"] for p in scen_paths},
                                                      "geo_transformers": geo_t["launches"],
-                                                     "streaming": stream["launches"]}, sass)
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "streaming": stream["launches"],
+                                                     "continuum": cont["path_launches"]}, sass)
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -693,3 +693,55 @@ def test_cuda_streaming_passes_equal_the_cpu(tmp_path, monkeypatch):
     assert list(fg["flagged"]) == list(fc["flagged"])
     for m in ("PSI", "HD", "JSD", "KS"):
         np.testing.assert_allclose(fg[m], fc[m], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_continuum_step_equals_the_cpu(tmp_path):
+    """One continuum step over six daily parts (a drift baseline, nulls, a
+    categorical column) on the card and on the CPU: the missing and
+    categorical CSVs byte-equal, the drift metrics within 1e-4 and the
+    flags equal, the stats within 1e-4 of the CPU's (the moments kernel
+    against its plain tile merge), and B1 and B2 launched once a
+    partition (B2: the target days and the fit's re-decode of the
+    baseline)."""
+    import pandas as pd
+
+    from anovos_tpu_torch.continuum.watcher import ContinuumConfig, step
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+
+    _require_cuda()
+    g = np.random.default_rng(15)
+    feed = tmp_path / "feed"
+    feed.mkdir()
+    for i in range(6):
+        a = g.normal(10 + i, 2.0, 40_000)
+        a[g.random(40_000) < 0.05] = np.nan
+        pd.DataFrame({"a": a, "b": g.exponential(5.0, 40_000), "cat": g.choice(["x", "y", "z"], 40_000)}) \
+            .to_parquet(feed / (f"base-{i}.parquet" if i < 2 else f"day-{i}.parquet"), index=False)
+    prev = get_runtime().device
+    launches = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            init_runtime(dev)
+            kernels.reset_launches()
+            step(ContinuumConfig.from_dict({"dataset_path": str(feed), "state_dir": str(tmp_path / dev / "state"),
+                                            "output_path": str(tmp_path / dev / "out"),
+                                            "drift": {"baseline": "base-*", "method_type": "all"}}))
+            launches[dev] = dict(kernels.LAUNCHES)
+    finally:
+        init_runtime(prev)
+    assert launches["cuda"]["masked_moments"] == 6 and launches["cuda"]["binned_histograms"] == 4 + 2
+    out = {dev: tmp_path / dev / "out" for dev in ("cuda", "cpu")}
+    for name in ("continuum_missing.csv", "continuum_categorical.csv"):
+        assert (out["cuda"] / name).read_bytes() == (out["cpu"] / name).read_bytes(), name
+    # each device fits its own cutoffs (the card's may differ by an ulp)
+    got, exp = (pd.read_csv(out[d] / "continuum_drift.csv") for d in ("cuda", "cpu"))
+    assert got["flagged"].tolist() == exp["flagged"].tolist()
+    for c in ("PSI", "HD", "JSD", "KS"):
+        np.testing.assert_allclose(got[c], exp[c], rtol=0, atol=1e-4 + 1e-12, err_msg=c)
+    got, exp = (pd.read_csv(out[d] / "continuum_stats.csv") for d in ("cuda", "cpu"))
+    for c in ("count", "min", "max", "nonzero", "distinct_approx"):
+        assert got[c].tolist() == exp[c].tolist(), c
+    for c in ("mean", "stddev", "variance", "skewness", "kurtosis"):
+        np.testing.assert_allclose(got[c], exp[c], rtol=1e-5, atol=1e-4, err_msg=c)

@@ -172,6 +172,11 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert {f"anovos_tpu_torch/{m}.py" for m in (
         "resilience/policy", "resilience/chaos", "obs/metrics", "cache/fingerprint", "cache/journal",
         "data_ingest/guard", "data_ingest/prefetch", "ops/streaming")} <= rel
+    # the continuum slice, with the host modules it keeps its own copy of
+    assert {f"anovos_tpu_torch/{m}.py" for m in (
+        "continuum/__init__", "continuum/__main__", "continuum/sufficient", "continuum/state",
+        "continuum/alerts", "continuum/watcher", "data_report/continuum_report", "cache/store",
+        "obs/flight", "obs/telemetry")} <= rel
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad
 

@@ -149,7 +149,7 @@ def test_namespace_has_every_public_name_of_the_jax_one():
     from anovos_tpu_torch.data_transformer import transformers as ptr
 
     assert [n for n in jtr.__all__ if not hasattr(ptr, n)] == []
-    assert "transformers" not in workflow.NOT_PORTED
+    assert not hasattr(workflow, "NOT_PORTED")  # the runner refuses no block
     import anovos_tpu.data_transformer.geospatial as jgeo
 
     public = sorted(n for n, v in vars(jgeo).items() if callable(v) and not n.startswith("_")

@@ -1,8 +1,9 @@
 """The port's entry point, ``python -m anovos_tpu_torch <config.yaml>
 [run_type] [auth_key_json] [--resume]``, and the runner's guards: the
-usage line, ``--resume`` accepted, the block not ported yet refused before
-any work,
-a geospatial name in a transformers block raising AttributeError as in the
+usage line, ``--resume`` accepted, a missing input stopping a run before any
+work in both runners, the analytics blocks (``continuous_analysis`` among
+them) skipped under ``basic_report`` as the JAX runner skips them, a
+geospatial name in a transformers block raising AttributeError as in the
 JAX runner, the device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
 importable without a YAML reader.  Also ``chip_smoke.py``'s copy of
 ``config/configs_basic.yaml`` held equal to the file.
@@ -88,14 +89,15 @@ def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
                                         ("continuous_analysis", "Queue A item 4"),
                                         ("streaming_analysis", "transformers"),
                                         ("continuous_analysis", "write_feast_features")])
-def test_unported_blocks_raise_before_any_work(block, item):
-    """The config's input path does not exist: the refusal of
-    continuous_analysis comes first, also before a transformers step
-    naming a function the port's transformers module lacks (which raises
-    AttributeError when it runs) and before write_feast_features' config
-    check (no write_main here).  streaming_analysis is ported: it is not
-    refused, so the run reaches the missing input first, as the JAX
-    runner does."""
+def test_unported_blocks_raise_before_any_work(block, item, tmp_path, monkeypatch):
+    """The config's input path does not exist.  Every block of the JAX
+    runner is ported, streaming_analysis and continuous_analysis among
+    them, so neither is refused: each run reaches the missing input first,
+    before a transformers step naming a function the port's transformers
+    module lacks (which raises AttributeError when it runs) and before
+    write_feast_features' config check (no write_main here), and the JAX
+    runner stops there with the same error class."""
+    from anovos_tpu import workflow as jwf
     from anovos_tpu_torch import workflow
 
     cfg = load_config("configs_full.yaml")
@@ -106,36 +108,40 @@ def test_unported_blocks_raise_before_any_work(block, item):
     elif item == "write_feast_features":
         cfg.pop("write_main")
         cfg[item] = {"file_path": "feast_repo/"}
-    if block == "streaming_analysis":
-        with pytest.raises(FileNotFoundError, match="no parquet files"):
-            workflow.main(cfg, "local")
-        return
-    with pytest.raises(NotImplementedError, match=f"{block}.*Queue A item 5"):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="no parquet files"):
         workflow.main(cfg, "local")
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
+    with pytest.raises(FileNotFoundError):
+        jwf.main(cfg, "local")
 
 
-def test_basic_report_skips_the_analytics_blocks():
-    """With basic_report true the later analytics keys are skipped, so
-    continuous_analysis is not refused there; without it it is, and
-    streaming_analysis (ported) never is.
-    A geospatial function in a transformers block and write_feast_features
-    pass the check in both modes: the runner resolves the first by getattr
-    when it runs, and runs the second."""
-    from anovos_tpu_torch.workflow import NOT_PORTED, _check_ported
+def test_basic_report_skips_the_analytics_blocks(tmp_path, monkeypatch):
+    """With basic_report true both runners skip the analytics keys after
+    it, continuous_analysis among them: neither folds the feed.  Without
+    it both run one continuum step and write its artifacts."""
+    from anovos_tpu import workflow as jwf
+    from anovos_tpu_torch import workflow
+    from test_torch_continuum import _write_feed
 
-    assert set(NOT_PORTED) == {"continuous_analysis"}
-    cfg = load_config("configs_full.yaml")
-    cfg["transformers"]["geo"] = {"geo_format_latlon": {"list_of_lat": "latitude"}}
-    cfg["write_feast_features"] = load_config("configs_feast.yaml")["write_feast_features"]
-    for basic in (False, True):
-        _check_ported(cfg, basic_report=basic)
-    cfg["streaming_analysis"] = {"stats": True}
-    for basic in (False, True):
-        _check_ported(cfg, basic_report=basic)
-    cfg["continuous_analysis"] = {"stats": True}
-    _check_ported(cfg, basic_report=True)
-    with pytest.raises(NotImplementedError, match="continuous_analysis"):
-        _check_ported(cfg, basic_report=False)
+    feed = tmp_path / "feed"
+    _write_feed(str(feed), {1: {}, 2: {}})
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
+    for basic in (True, False):
+        for tag, wf in (("port", workflow), ("jax", jwf)):
+            work = tmp_path / f"{tag}-{basic}"
+            work.mkdir()
+            monkeypatch.chdir(work)
+            cfg = {"input_dataset": {"read_dataset": {"file_path": str(feed / "day-01.parquet"),
+                                                      "file_type": "parquet"}},
+                   "anovos_basic_report": {"basic_report": basic,
+                                           "report_args": {"skip_corr_matrix": True,
+                                                           "output_path": str(work / "report_stats")}},
+                   "continuous_analysis": {"dataset_path": str(feed), "state_dir": str(work / "state"),
+                                           "output_path": str(work / "out")}}
+            wf.main(cfg, "local")
+            assert (work / "report_stats" / "ml_anovos_report.html").exists() is basic, (tag, basic)
+            assert (work / "out" / "continuum_stats.csv").exists() is (not basic), (tag, basic)
 
 
 def test_geospatial_transformer_names_raise_attribute_error_in_both_runners(tmp_path):

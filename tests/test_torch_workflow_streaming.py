@@ -284,7 +284,7 @@ def test_chip_smoke_streaming_drift_is_configs_full():
     assert chip_smoke.STREAM_DRIFT == exp
 
 
-def test_chip_smoke_phase_13_rehearses_on_the_cpu(monkeypatch):
+def test_chip_smoke_phase_13_rehearses_on_the_cpu(monkeypatch, tmp_path):
     """chip_smoke.py phase 13 at 4 target and 2 source parts of 20,000
     rows on the CPU: the CUDA calls stubbed, the plain kernel versions
     wrapped to count launches (they count none); every check (a)-(f) runs
@@ -318,7 +318,7 @@ def test_chip_smoke_phase_13_rehearses_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "STREAM_CHUNK", 20_000)
     monkeypatch.delenv("ANOVOS_TPU_CHAOS", raising=False)
     df = synthesize(80_000, seed=0).drop(columns=cs.DROP)
-    out = cs.phase_streaming(torch, 0, df)
+    out = cs.phase_streaming(torch, 0, df, str(tmp_path))
     # describe 4 + drift's source pass 2; drift's source 2 + target 4
     assert out["launches"]["masked_moments"] == 6 and out["launches"]["binned_histograms"] == 6
     assert [p["op"] for p in out["passes"]] == ["describe_streaming", "missing_stats_streaming",
