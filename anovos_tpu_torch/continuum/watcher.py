@@ -621,7 +621,7 @@ def run(cfg: ContinuumConfig, max_iterations: Optional[int] = None,
     ``max_iterations`` or the ``stop_file`` appears.  A set
     ``ANOVOS_TPU_TELEMETRY`` or ``ANOVOS_TPU_TRACE_ROTATE`` raises: the
     telemetry plane and trace rotation are not ported."""
-    telemetry.check_unported_knobs()
+    telemetry.check_unported_knobs(telemetry.SERVICE_KNOBS)
     interval = poll_seconds(cfg.poll_s)
     out = []
     i = 0

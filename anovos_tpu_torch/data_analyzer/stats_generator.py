@@ -63,7 +63,7 @@ def _fill_counts_light(idf: Table, cols: List[str]) -> np.ndarray:
     description when it is cached, else one stacked mask reduction."""
     cache = idf.__dict__.get("_describe_cache")
     if cache:
-        for (knum, kcat, _), (num_out, cat_out) in cache.items():
+        for (knum, kcat, _), (num_out, cat_out) in list(cache.items()):  # others may add keys
             ni = {c: i for i, c in enumerate(knum)}
             ci = {c: i for i, c in enumerate(kcat)}
             if all(c in ni or c in ci for c in cols):

@@ -18,13 +18,17 @@ tab with location scatter/density charts and cluster tables (:3210-3982).
 
 This is the port's own copy of ``anovos_tpu/data_report/report_generation.py``
 (pure host code; the port imports nothing of the JAX package).  Every tab
-whose input is a file under ``master_path`` is kept byte for byte.  Four
-parts of the JAX renderer read layers the port does not have yet and are
-left out: the degraded-sections/quarantine preamble (resilience registry
-and ingest guard), the Run Timings tab (obs run manifest), the Perf Ledger
-tab and the Run Diff tab.  In a fresh run directory with neither
-``ANOVOS_PERF_LEDGER`` nor ``ANOVOS_RUN_DIFF_BASELINE`` set, the JAX
-renderer shows none of the four, so both write the same bytes.
+whose input is a file under ``master_path`` is kept byte for byte.  The
+Degraded Sections tab leads the report whenever the degradation registry
+(``resilience/policy.py``) or the ingest guard (``data_ingest/guard.py``)
+holds an entry, with the JAX markup; its text leaves out the JAX text's
+pointer to the run manifest's ``resilience`` section and to
+``obs/run_journal.jsonl``, files the port does not write yet (ROADMAP.md
+Queue A items 1 and 2).  Three parts of the JAX renderer read layers the
+port does not have yet and are left out: the Run Timings tab (obs run
+manifest), the Perf Ledger tab and the Run Diff tab.  In a fresh run
+directory the JAX renderer shows none of the three (``workflow.run``
+refuses ``ANOVOS_PERF_LEDGER`` and ``ANOVOS_RUN_DIFF_BASELINE``).
 """
 
 from __future__ import annotations
@@ -1192,6 +1196,58 @@ def loc_report_gen(
     return _geo_tab(master_path)
 
 
+
+def degraded_tab() -> Optional[tuple]:
+    """("Degraded Sections", html) when this run degraded a section or
+    quarantined an input part, else None (a clean run's HTML is unchanged).
+
+    The analytics nodes that exhausted their retries did not abort the
+    run: their CSVs are absent (each tab's reader already tolerates that)
+    and the report leads with a placeholder naming each one, and the parts
+    the ingest guard set aside with the rows they held."""
+    from anovos_tpu_torch.data_ingest import guard
+    from anovos_tpu_torch.resilience.policy import degraded_sections
+
+    degraded = degraded_sections()
+    quarantine = guard.records()
+    if not (degraded or quarantine):
+        return None
+    items = "".join(
+        f"<li><b>{escape(node)}</b> — {escape(reason)}</li>"
+        for node, reason in sorted(degraded.items())
+    )
+    qrows = ""
+    if quarantine:
+        body = "".join(
+            "<tr><td>{f}</td><td>{ec}</td><td>{rows}</td></tr>".format(
+                f=escape(os.path.basename(r.file)),
+                ec=escape(r.error_class),
+                rows=("unknown" if r.rows_lost is None
+                      else f"{r.rows_lost}{' (est.)' if r.rows_estimated else ''}"),
+            )
+            for r in sorted(quarantine, key=lambda r: r.file)
+        )
+        lost = sum(r.rows_lost or 0 for r in quarantine)
+        qrows = (
+            f"<p><b>{len(quarantine)} input part(s) QUARANTINED</b> "
+            f"({lost} row(s) lost where measurable): every statistic "
+            "below was computed WITHOUT these rows — see "
+            "<code>obs/quarantine_manifest.json</code>.</p>"
+            "<table class='anv-degraded-q'><tr><th>part</th>"
+            "<th>error</th><th>rows lost</th></tr>"
+            f"{body}</table>"
+        )
+    return (
+        "Degraded Sections",
+        "<div class='anv-degraded'><p><b>"
+        f"{len(degraded)} analytics section(s) DEGRADED this run"
+        "</b>: the nodes below exhausted their retry budget and were "
+        "skipped rather than aborting the pipeline. "
+        "Their statistics are missing from the tabs that follow.</p>"
+        f"<ul>{items}</ul>{qrows}</div>",
+    )
+
+
 def anovos_report(
     master_path: str = ".",
     id_col: str = "",
@@ -1237,6 +1293,9 @@ def anovos_report(
     with _table_seq_lock:
         _table_seq[0] = 0
     tabs: List[tuple] = []
+    degraded = degraded_tab()
+    if degraded is not None:
+        tabs.append(degraded)
 
     tabs.append(
         (

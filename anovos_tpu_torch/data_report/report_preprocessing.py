@@ -47,24 +47,38 @@ def save_stats(
     run_type: str = "local",
     mlflow_config=None,
     auth_key: str = "NA",
+    async_writer=None,
+    async_key: str = "",
 ) -> pd.DataFrame:
     """Persist a stats frame as ``<master_path>/<function_name>.csv``.  The
     ``run_type`` axis routes through the artifact store: the CSV lands in
     the store's local staging dir and is pushed to the configured (possibly
-    remote) ``master_path``."""
+    remote) ``master_path``.
+
+    With ``async_writer`` (an ``AsyncArtifactWriter``) and no ``reread``,
+    the CSV serialization + push is queued under ``async_key`` and the
+    in-memory frame returns immediately; consumers of the CSV wait on the
+    key before reading."""
     store = for_run_type(run_type, auth_key)
     local_dir = store.staging_dir(master_path)
     Path(local_dir).mkdir(parents=True, exist_ok=True)
     local_file = ends_with(local_dir) + function_name + ".csv"
-    idf.to_csv(local_file, index=False)
-    store.push(local_file, master_path)
-    if mlflow_config is not None:
-        try:  # pragma: no cover - optional dependency
-            import mlflow
 
-            mlflow.log_artifact(local_dir)
-        except ImportError:
-            pass
+    def _persist():
+        idf.to_csv(local_file, index=False)
+        store.push(local_file, master_path)
+        if mlflow_config is not None:
+            try:  # pragma: no cover - optional dependency
+                import mlflow
+
+                mlflow.log_artifact(local_dir)
+            except ImportError:
+                pass
+
+    if async_writer is not None and not reread:
+        async_writer.submit(async_key or f"stats:{function_name}", _persist)
+        return idf
+    _persist()
     if reread:
         return pd.read_csv(local_file)
     return idf
@@ -304,10 +318,23 @@ def charts_to_objects(
     run_type: str = "local",
     auth_key: str = "NA",
     chart_sample: int = 500000,
+    async_writer=None,
+    async_key: str = "charts:objects",
     **_ignored,
 ) -> None:
     """Write per-column chart JSONs + data_type.csv into ``master_path``
-    and publish them through the ``run_type`` store."""
+    and publish them through the ``run_type`` store.
+
+    With ``async_writer`` each chart JSON dump is queued on the artifact
+    writer under ``async_key`` so file serialization overlaps the device
+    work of the next chart; the queue is waited on before the publish loop
+    so every staged file exists when pushed."""
+    if async_writer is not None:
+        def _emit(fig, path):
+            async_writer.submit(async_key, _write_json, fig, path)
+    else:
+        _emit = _write_json
+
     store = for_run_type(run_type, auth_key)
     dest_path, master_path = master_path, store.staging_dir(master_path)
     Path(master_path).mkdir(parents=True, exist_ok=True)
@@ -355,19 +382,19 @@ def charts_to_objects(
             ev_counts = (_host_f32(tot_d), _host_f32(evs_d))
         for i, c in enumerate(num_cols):
             labels = [f"{j + 1}" for j in range(bin_size)]
-            _write_json(_bar_fig(labels, counts[i].tolist(), c), ends_with(master_path) + "freqDist_" + c)
+            _emit(_bar_fig(labels, counts[i].tolist(), c), ends_with(master_path) + "freqDist_" + c)
             if ev_counts is not None:
                 tot, evs = ev_counts
                 with np.errstate(invalid="ignore", divide="ignore"):
                     rate = np.where(tot[i] > 0, evs[i] / np.maximum(tot[i], 1), 0.0)
-                _write_json(
+                _emit(
                     _bar_fig(labels, rate.tolist(), f"event rate: {c}", global_theme_r),
                     ends_with(master_path) + "eventDist_" + c,
                 )
             if c in drift_freqs:
                 skeys, sfreq = drift_freqs[c]
                 tfreq = counts[i] / max(counts[i].sum(), 1)
-                _write_json(
+                _emit(
                     _grouped_fig(skeys, {"source": sfreq, "target": tfreq[: len(skeys)]}, f"drift: {c}"),
                     ends_with(master_path) + "drift_" + c,
                 )
@@ -377,7 +404,7 @@ def charts_to_objects(
                 sample = vals[mask]
                 if len(sample) > chart_sample:
                     sample = np.random.default_rng(0).choice(sample, chart_sample, replace=False)
-                _write_json(_violin_fig(sample, c), ends_with(master_path) + "outlier_" + c)
+                _emit(_violin_fig(sample, c), ends_with(master_path) + "outlier_" + c)
 
     # ---- categorical columns ------------------------------------------------
     for c in cat_cols:
@@ -387,12 +414,12 @@ def charts_to_objects(
         order = np.argsort(-cnts)
         cats = [str(col.vocab[j]) for j in order if cnts[j] > 0]
         vals = [float(cnts[j]) for j in order if cnts[j] > 0]
-        _write_json(_bar_fig(cats, vals, c), ends_with(master_path) + "freqDist_" + c)
+        _emit(_bar_fig(cats, vals, c), ends_with(master_path) + "freqDist_" + c)
         if y is not None:
             tot, evs = _label_code_counts(col, y, ym, vsize)
             with np.errstate(invalid="ignore", divide="ignore"):
                 rate = np.where(tot > 0, evs / np.maximum(tot, 1), 0.0)
-            _write_json(
+            _emit(
                 _bar_fig([str(col.vocab[j]) for j in order if cnts[j] > 0],
                          [float(rate[j]) for j in order if cnts[j] > 0],
                          f"event rate: {c}", global_theme_r),
@@ -401,7 +428,7 @@ def charts_to_objects(
         if c in drift_freqs:
             skeys, sfreq = drift_freqs[c]
             tmap = {str(col.vocab[j]): cnts[j] / max(cnts.sum(), 1) for j in range(vsize)}
-            _write_json(
+            _emit(
                 _grouped_fig(skeys, {"source": sfreq, "target": [tmap.get(k, 0.0) for k in skeys]}, f"drift: {c}"),
                 ends_with(master_path) + "drift_" + c,
             )
@@ -410,7 +437,7 @@ def charts_to_objects(
     # the label is excluded from the per-attribute loops above, but its own
     # frequency chart must exist for the report's label pie
     if label_col and label_col in idf.columns:
-        _write_json(plot_frequency(idf, label_col), ends_with(master_path) + "freqDist_" + label_col)
+        _emit(plot_frequency(idf, label_col), ends_with(master_path) + "freqDist_" + label_col)
 
     # ---- dtype manifest -----------------------------------------------------
     pd.DataFrame(idf.dtypes(), columns=["attribute", "data_type"]).to_csv(
@@ -418,7 +445,10 @@ def charts_to_objects(
     )
 
     # publish the staged chart/manifest files to the configured destination
-    # (no-op for local; aws/azcopy per file for emr/ak8s)
+    # (no-op for local; aws/azcopy per file for emr/ak8s); queued chart
+    # writes must land before the dir listing sees them
+    if async_writer is not None:
+        async_writer.wait([async_key])
     for fname in sorted(os.listdir(master_path)):
         fpath = os.path.join(master_path, fname)
         if os.path.isfile(fpath):

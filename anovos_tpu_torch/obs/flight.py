@@ -9,9 +9,9 @@ tail (``continuum/alerts.py``), so an alert carries the events that led
 up to it.  ``ANOVOS_TPU_FLIGHTREC=0`` disables recording; any other
 integer sets the ring's bound (default 256, at least 16).
 
-The postmortem dumps (``dump``, ``build_snapshot``) are not ported: their
-triggers are the DAG scheduler and backend failover, which the port does
-not have yet (ROADMAP.md Queue A item 6).
+The postmortem dumps (``dump``, ``build_snapshot``) are not ported
+(ROADMAP.md Queue A item 4): their triggers are the scheduler's
+escalations and abandonments and the backend failover (item 5).
 """
 
 from __future__ import annotations

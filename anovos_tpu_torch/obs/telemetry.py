@@ -8,8 +8,12 @@ beat nothing refreshes would read as a dead service).
 
 The HTTP plane that reads the beats (``acquire``/``release``,
 ``/metrics``, ``/healthz``, ``/statusz``, ``ANOVOS_TPU_TELEMETRY``) is
-not ported (ROADMAP.md Queue A item 6): :func:`check_unported_knobs`
-raises where a user asks for it, or for trace rotation.
+not ported (ROADMAP.md Queue A item 4).  :data:`UNPORTED_KNOBS` lists
+every knob the JAX runner, scheduler or renderer reads whose layer the
+port still lacks, each with the ROADMAP item that ports it, and
+:func:`check_unported_knobs` raises where a user sets one instead of
+ignoring it (``workflow.run``/``main`` check them all, the continuum's
+``run`` its two service knobs).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 __all__ = ["beat", "check_unported_knobs", "clear_heartbeat", "heartbeat_ages",
            "refresh_heartbeat"]
@@ -25,22 +29,41 @@ __all__ = ["beat", "check_unported_knobs", "clear_heartbeat", "heartbeat_ages",
 _LOCK = threading.Lock()
 _HEARTBEATS: Dict[str, dict] = {}
 
-# knobs of layers the port does not have yet, each with what it asks for
+# knobs of layers the port does not have yet: what each asks for and the
+# ROADMAP.md Queue A item that ports it
 UNPORTED_KNOBS = {
-    "ANOVOS_TPU_TELEMETRY": "the telemetry HTTP plane",
-    "ANOVOS_TPU_TRACE_ROTATE": "trace rotation",
+    "ANOVOS_TPU_TRACE": ("a Chrome trace of the run", 1),
+    "ANOVOS_TPU_TRACE_BUFFER": ("the tracer's span ring", 1),
+    "ANOVOS_PROFILE": ("a profiler trace of the run", 1),
+    "ANOVOS_TPU_DEVPROF": ("device-time attribution per node", 1),
+    "ANOVOS_TPU_CACHE": ("the node cache", 2),
+    "ANOVOS_TPU_CACHE_LINK": ("the node cache's linked restores", 2),
+    "ANOVOS_TPU_CACHE_MAX_BYTES": ("the node cache's capacity sweep", 2),
+    "ANOVOS_TPU_TELEMETRY": ("the telemetry HTTP plane", 4),
+    "ANOVOS_TPU_SLO_ERROR_BUDGET": ("the telemetry plane's SLO windows", 4),
+    "ANOVOS_TPU_TRACE_ROTATE": ("trace rotation", 4),
+    "ANOVOS_TPU_FLIGHTREC": ("the flight recorder's dumps", 4),
+    "ANOVOS_PERF_LEDGER": ("the report's Perf Ledger tab", 4),
+    "ANOVOS_RUN_DIFF_BASELINE": ("the report's Run Diff tab", 4),
+    "ANOVOS_TPU_HEALTH_TIMEOUT": ("the backend failover's health probe", 5),
+    "ANOVOS_TPU_PLACEMENT": ("multi-device placement", 6),
 }
 
+# the two knobs of the service plane, which the continuum's run checks
+SERVICE_KNOBS = ("ANOVOS_TPU_TELEMETRY", "ANOVOS_TPU_TRACE_ROTATE")
 
-def check_unported_knobs() -> None:
-    """Raise ``NotImplementedError`` when a knob of an unported layer is
-    set to anything but off (unset, ``0``, ``false``, ``off``), instead of
-    ignoring the request."""
-    for knob, what in UNPORTED_KNOBS.items():
+
+def check_unported_knobs(knobs: Optional[Iterable[str]] = None) -> None:
+    """Raise ``NotImplementedError`` when a knob of an unported layer
+    (``knobs``, default all of :data:`UNPORTED_KNOBS`) is set to anything
+    but off (unset, ``0``, ``false``, ``off``), instead of ignoring the
+    request."""
+    for knob in (UNPORTED_KNOBS if knobs is None else knobs):
+        what, item = UNPORTED_KNOBS[knob]
         if os.environ.get(knob, "").strip().lower() not in ("", "0", "false", "off"):
             raise NotImplementedError(
                 f"{knob} asks for {what}, which is not ported to anovos_tpu_torch yet; "
-                "see ROADMAP.md Queue A item 6")
+                f"see ROADMAP.md Queue A item {item}")
 
 
 def beat(name: str, interval_s: float = 30.0,

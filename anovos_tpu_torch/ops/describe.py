@@ -19,6 +19,7 @@
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -235,18 +236,30 @@ def describe_cat(C: torch.Tensor, M: torch.Tensor, max_vocab: int) -> Dict[str, 
 _CAT_SHARED_MAX_VOCAB = 1024
 
 
+_DESCRIBE_LOCK = threading.Lock()
+
+
 def table_describe(idf: Table, num_cols: List[str], cat_cols: List[str]) -> Tuple[dict, dict]:
     """Memoized description: (numeric dict of host arrays, cat dict with
     per-column count/nunique/mode_code/mode_count).  The cache lives on
     the Table instance; every transformation makes a new Table.  The
     compensated mode is part of the cache key, so a change of
     ``ANOVOS_COMPENSATED_MOMENTS`` is not served the other mode's
-    moments."""
-    cache = idf.__dict__.setdefault("_describe_cache", {})
+    moments.  Each key is computed once under its own lock: the
+    concurrent runner's stats nodes ask for the same description at once,
+    and the later ones wait for the first's."""
     compensated = bool(num_cols) and _compensated_enabled(idf.nrows)
     key = (tuple(num_cols), tuple(cat_cols), compensated)
-    if key in cache:
+    with _DESCRIBE_LOCK:
+        cache = idf.__dict__.setdefault("_describe_cache", {})
+        lock = idf.__dict__.setdefault("_describe_locks", {}).setdefault(key, threading.Lock())
+    with lock:
+        if key not in cache:
+            cache[key] = _describe(idf, num_cols, cat_cols, compensated)
         return cache[key]
+
+
+def _describe(idf: Table, num_cols: List[str], cat_cols: List[str], compensated: bool) -> Tuple[dict, dict]:
     num_out: dict = {}
     if num_cols:
         X, M = idf.numeric_block(num_cols)
@@ -300,5 +313,4 @@ def table_describe(idf: Table, num_cols: List[str], cat_cols: List[str]) -> Tupl
                 i = cat_cols.index(c)
                 for kk in cat_out:
                     cat_out[kk][i] = res[kk][j]
-    cache[key] = (num_out, cat_out)
     return num_out, cat_out

@@ -62,5 +62,5 @@ def binned_histograms_cols(Xc: torch.Tensor, Mc: torch.Tensor, cutoffs: torch.Te
                                       scratch.data_ptr(), out.data_ptr(), Xc.shape[1], k, nbins,
                                       Xc.device.index, build.stream_of(Xc)),
                 "binned_histograms")
-    kernels.LAUNCHES["binned_histograms"] += 1
+    kernels.count_launch("binned_histograms")
     return out

@@ -101,5 +101,5 @@ def masked_moments_cols(Xc: torch.Tensor, Mc: torch.Tensor) -> torch.Tensor:
                                    tickets.data_ptr(), out.data_ptr(), rows, k, Xc.device.index,
                                    build.stream_of(Xc)),
                 "masked_moments")
-    kernels.LAUNCHES["masked_moments"] += 1
+    kernels.count_launch("masked_moments")
     return out

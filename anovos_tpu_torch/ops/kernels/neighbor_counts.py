@@ -96,7 +96,7 @@ def neighbor_counts_rows(X: torch.Tensor, eps2: float, tile: int = TILE_ROWS) ->
                                            counts.data_ptr(), n, d, X.device.index,
                                            build.stream_of(X)),
                 "neighbor_counts")
-    kernels.LAUNCHES["neighbor_counts"] += 1
+    kernels.count_launch("neighbor_counts")
     return counts
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 
 import torch
 
@@ -24,19 +25,31 @@ def bf16_sweep() -> bool:
     return os.environ.get("ANOVOS_TPU_BF16", "0") == "1"
 
 
+_PIN_LOCK = threading.Lock()
+_PIN = {"depth": 0, "prev": None}
+
+
 @contextlib.contextmanager
 def true_f32():
     """f32 matmuls run in IEEE f32 (no TF32) inside the block; the caller's
     setting is restored after it.  Uses the ``fp32_precision`` API only:
     reading the legacy ``allow_tf32`` flag raises once both APIs were
-    used in a process."""
+    used in a process.  The setting is process-wide and the concurrent
+    runner enters blocks from several threads, so it is pinned by the
+    first block in and restored by the last one out."""
     m = torch.backends.cuda.matmul
-    prev = m.fp32_precision
-    m.fp32_precision = "ieee"
+    with _PIN_LOCK:
+        if _PIN["depth"] == 0:
+            _PIN["prev"] = m.fp32_precision
+            m.fp32_precision = "ieee"
+        _PIN["depth"] += 1
     try:
         yield
     finally:
-        m.fp32_precision = prev
+        with _PIN_LOCK:
+            _PIN["depth"] -= 1
+            if _PIN["depth"] == 0:
+                m.fp32_precision = _PIN["prev"]
 
 
 def mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:

@@ -54,12 +54,16 @@ installed.  Installation happens once per run in ``workflow.main`` via
 :func:`install_from_env`; fired injections book
 ``chaos_injections_total{kind,site}`` metrics.
 
-In the port the sites are the ingest guard's ``io:<path>`` and the
+In the port the sites are the ingest guard's ``io:<path>``, the
 continuum's ``continuum:fold_committed:<part key>`` (``exc`` there aborts
 a step right after a partition's fold committed, the window a resume
-must cover).  It has no scheduler (whose ``node:`` sites read ``exc`` and
-``hang``) and no failover (which reads ``wedge``) yet.  Every injection
-also lands in the flight recorder's ring (``obs/flight.py``).
+must cover) and the scheduler's ``node:<name>``, visited before each
+attempt of a node (``exc`` and ``hang`` fire there; a hang waits on the
+attempt's interrupt, which the watchdog sets).  The port has no backend
+failover yet (ROADMAP.md Queue A item 5), which is what gives ``wedge``
+its outcome (a flip to the CPU and a clean re-run), so :func:`install`
+refuses a plan with a ``wedge`` directive instead of ignoring it.  Every
+injection also lands in the flight recorder's ring (``obs/flight.py``).
 """
 
 from __future__ import annotations
@@ -238,7 +242,14 @@ def install(spec: Optional[str]) -> Optional[ChaosPlan]:
     if not spec:
         _PLAN = None
         return None
-    _PLAN = ChaosPlan(spec)
+    plan = ChaosPlan(spec)
+    if any(d.kind == "wedge" for d in plan.directives):
+        _PLAN = None
+        raise NotImplementedError(
+            f"{ENV_KNOB}={spec!r} asks for a backend wedge, whose outcome is the "
+            "backend failover, which is not ported to anovos_tpu_torch yet; "
+            "see ROADMAP.md Queue A item 5")
+    _PLAN = plan
     logger.warning(
         "CHAOS plan active (%s): %d directive(s), seed=%d — injected faults "
         "are deliberate", ENV_KNOB, len(_PLAN.directives), _PLAN.seed)

@@ -3,14 +3,16 @@
 
 ``on_error`` accepts ``"raise"``, ``"continue"``, ``"retry:N"``,
 ``"retry:N:degrade"``, ``"retry:N:continue"`` or an :class:`ErrorPolicy`.
-The port has no DAG scheduler yet, so the policy's one reader is the
+Its readers are the DAG scheduler (``parallel/scheduler.py``) and the
 ingest guard's retry loop (``data_ingest/guard.py``).  Jitter is
 hash-derived from (name, attempt), not ``random``: two runs back off
 identically.
 
 The degradation registry is the one record of what a run lost: the
-runner's best-effort sections that failed and the parts the ingest guard
-quarantined (``ingest/<file>``).  ``workflow.main`` resets it per run.
+runner's nodes that exhausted their retries and degraded, and the parts
+the ingest guard quarantined (``ingest/<file>``).  ``workflow.main``
+resets it per run; the concurrent runner records from several threads,
+under the registry's lock.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
-"""Pluggable artifact stores for the ``run_type`` deployment axis (the
-port's own copy of ``anovos_tpu/shared/artifact_store.py``; the port's
-runner writes synchronously, so the JAX package's async write queue is
-not copied).
+"""Pluggable artifact stores for the ``run_type`` deployment axis, and the
+runner's async write queue (the port's own copy of
+``anovos_tpu/shared/artifact_store.py``).
 
 The reference shuttles artifacts with inline shell-outs at every save/read
 site (``aws s3 cp`` for emr — report_preprocessing.py:97-119,
@@ -32,7 +31,8 @@ from __future__ import annotations
 
 import os
 import subprocess
-from typing import Dict, List, Type
+import threading
+from typing import Callable, Dict, List, Type
 
 
 def _is_remote(path: str) -> bool:
@@ -182,6 +182,81 @@ class AzureStore(_ShellStore):
             str(local_dir),
         ])
         return local_dir
+
+
+class AsyncArtifactWriter:
+    """Background write queue so artifact persistence overlaps compute.
+
+    Stats CSVs, chart JSONs and intermediate checkpoints are pure host/disk
+    work; queueing them on a small thread pool lets the workflow's next
+    block start immediately.  Writes are keyed by the resource they produce
+    (``stats:measures_of_counts``, ``charts:objects``, …):
+
+    * ``submit(key, fn)`` — enqueue; in ``sync`` mode runs inline (the
+      sequential executor's path stays the trivially ordered one).
+    * ``wait(keys)`` — block until every write submitted under ``keys`` has
+      landed, re-raising the first failure.  Consumers call this before
+      READING a resource another node produced.
+    * ``drain()`` — the single barrier: wait for everything outstanding and
+      re-raise any failure.  Called before ``report_generation`` reads the
+      master path and before ``main()`` returns, so an async write error
+      can never be silently swallowed.
+
+    The JAX writer's tracer spans, metrics and cache-capture binding ride
+    layers the port does not have yet (ROADMAP.md Queue A items 1 and 2).
+    """
+
+    def __init__(self, workers: int = 2, sync: bool = False):
+        self._sync = sync or workers < 1
+        self._lock = threading.Lock()
+        self._pending: Dict[str, List] = {}
+        self._pool = None
+        self._workers = max(1, workers)
+
+    def _ensure_pool(self):
+        # lock the check-then-create: two concurrent first submits (fanout
+        # nodes under the concurrent executor) would otherwise each build a
+        # pool and orphan one of them past close()'s shutdown
+        with self._lock:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self._workers, thread_name_prefix="artifact-writer"
+                )
+            return self._pool
+
+    def submit(self, key: str, fn: Callable, *args, **kwargs) -> None:
+        if self._sync:
+            fn(*args, **kwargs)
+            return
+        fut = self._ensure_pool().submit(fn, *args, **kwargs)
+        with self._lock:
+            self._pending.setdefault(key, []).append(fut)
+
+    def wait(self, keys) -> None:
+        with self._lock:
+            futs = [f for k in keys for f in self._pending.get(k, ())]
+        for f in futs:
+            f.result()  # re-raises the write's exception with its traceback
+
+    def drain(self) -> None:
+        with self._lock:
+            futs = [f for fl in self._pending.values() for f in fl]
+        for f in futs:
+            f.result()
+        with self._lock:  # all landed: forget completed tickets
+            for k in list(self._pending):
+                self._pending[k] = [f for f in self._pending[k] if not f.done()]
+
+    def close(self) -> None:
+        """Drain best-effort and release the pool threads."""
+        try:
+            self.drain()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
 
 
 _REGISTRY: Dict[str, Type[ArtifactStore]] = {

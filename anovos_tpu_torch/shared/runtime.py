@@ -44,3 +44,9 @@ def get_runtime() -> Runtime:
     if _RUNTIME is None:
         return init_runtime()
     return _RUNTIME
+
+
+def peek_runtime() -> Optional[Runtime]:
+    """The current runtime, or None before any ``init_runtime`` (never
+    picks a device)."""
+    return _RUNTIME

@@ -115,11 +115,14 @@ Phases, in order; any failure exits non-zero:
 9. runner: ``anovos_tpu_torch.workflow.main`` on ``config/configs_basic.yaml``'s
    blocks (a copy, ``BASIC_CONFIG``), its input 1,000,000 synthesized rows of
    the full income schema as parquet and its join side every row's
-   ifa/age/workclass as avro, in a temporary working directory: read, join
+   ifa/age/workclass as avro, in a working directory kept for phase 15,
+   in the runner's default executor mode (``concurrent`` on a host with
+   more than one CPU): read, join
    (inner, so all 1,000,000 rows go on), timestamp detection, the basic
    report (seven stats measures, seven quality checks, IV/IG, the charts
    and the HTML) and the final write, each block's wall from
-   ``workflow.block_times()``.  Then the kernels on the inputs the runner
+   ``workflow.block_times()``, the schedule's summary and the peak device
+   memory.  Then the kernels on the inputs the runner
    gave them (recorded as it ran), against their plain versions, timed.
    Checked against float64 pandas/numpy: every CSV and chart the basic
    report writes exists; the stats CSVs with phase 3's bands, skewness and
@@ -158,7 +161,8 @@ Phases, in order; any failure exits non-zero:
    MF's observed-cell error, auto's output equal to its choice's, and its
    choice against the CPU port's on the same holdout of the first 250,000
    rows; (d) ``workflow.main`` on all of ``configs_full.yaml``
-   (a copy, ``FULL_CONFIG``) over 200,000 synthesized rows: the six
+   (a copy, ``FULL_CONFIG``) over 200,000 synthesized rows in the
+   default executor mode, its input and run kept for phase 15: the six
    intermediate datasets written, the final dataset equal to the same
    chain of direct calls, no block failed.  B1 must have been launched;
    B1 and B2 equal their plain versions on every input the phase gave
@@ -252,6 +256,24 @@ Phases, in order; any failure exits non-zero:
    in (b), none in (c) and (d)), no part with two fold commits after
    (e), and B1 and B2 against their plain versions on day 0's block.
 
+15. the executor and the recommender: (a) the feature recommender on the
+   whole shipped corpus (1,684 rows) under ``FR_BACKEND=tfidf`` and
+   ``hashed``: every public function of the explorer and the mapper and
+   ``sankey_visualization`` on the card, then on the CPU port, each call's
+   wall printed, the results equal (scores within one unit of their 4th
+   decimal) and the float64 cosine matrix of the grouped corpus' 1,433
+   feature texts with themselves within 1e-12 of the CPU's; (b) configs_basic on phase 9's input and
+   configs_full on 10d's again under ``ANOVOS_TPU_EXECUTOR=sequential``:
+   every file, the HTML included, byte-equal to the concurrent runs', the
+   same schedule and launch counts, each launch against its plain version
+   on the inputs the runner gave it, both modes' schedule summaries (wall,
+   serial, critical path, speedup), block walls and peak device memory
+   printed; (c) configs_full on 100,000 rows in the concurrent mode with
+   ``ANOVOS_TPU_CHAOS=hang@node:association_evaluator/IV_calculation`` and
+   ``ANOVOS_TPU_NODE_TIMEOUT=5``: the node escalated, abandoned and
+   degraded within its 12.5 s bound, every other node done, the report's
+   first tab the Degraded Sections tab naming it.
+
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it fails and prints no result.
@@ -297,7 +319,22 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "configs_feast": ("masked_moments", "binned_histograms"),
                 "geo_transformers": (),
                 "streaming": ("masked_moments", "binned_histograms"),
-                "continuum": ("masked_moments", "binned_histograms")}
+                "continuum": ("masked_moments", "binned_histograms"),
+                "recommender": (),
+                "sequential_basic": ("masked_moments", "binned_histograms"),
+                "sequential_full": ("masked_moments", "binned_histograms"),
+                "chaos": ("masked_moments",)}
+# phase 15: the recommender's queries (an industry and a usecase of the
+# corpus, then two misspelt ones the embeddings resolve), the attributes it
+# maps and the descriptions it ranks them against; the chaos run
+REC_QUERY = ("banking financial service and insurance", "fraud detection")
+REC_MISSPELT = ("bankng and finance", "churn of customers")
+REC_ATTRS = {"cust_age": "age of the customer", "txn_amt": "transaction amount in dollars",
+             "loan_default": "whether the borrower defaulted", "CreditScoreBand": ""}
+REC_TARGETS = ["customer age in years", "number of logins", "amount of the transaction"]
+CHAOS_ROWS = 100_000
+CHAOS_NODE = "association_evaluator/IV_calculation"
+CHAOS_TIMEOUT = 5
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -643,6 +680,25 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+class executor:
+    """``ANOVOS_TPU_EXECUTOR`` set to ``mode`` inside the block (``None``:
+    unset, the runner's default), restored after it."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        self.saved = os.environ.pop("ANOVOS_TPU_EXECUTOR", None)
+        if self.mode is not None:
+            os.environ["ANOVOS_TPU_EXECUTOR"] = self.mode
+        return self
+
+    def __exit__(self, *exc):
+        os.environ.pop("ANOVOS_TPU_EXECUTOR", None)
+        if self.saved is not None:
+            os.environ["ANOVOS_TPU_EXECUTOR"] = self.saved
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -2845,109 +2901,169 @@ def check_runner_event_charts(ref, rdir: str, label: str, event: str) -> int:
     return n
 
 
-def phase_runner(torch, seed: int) -> dict:
-    """Phase 9: ``workflow.main`` on configs_basic.yaml's blocks, its
-    input RUNNER_ROWS synthesized rows as parquet and its join side
-    (RUNNER_SIDE_ROWS rows' ifa/age/workclass) as avro, in a temporary
-    working directory; then B1 and B2 on the inputs the runner gave them."""
+def tree_digest(root: str) -> dict:
+    """{relative path: sha1} of every file a run wrote under ``root``
+    (``obs/`` left out: it records the run, not the pipeline)."""
+    import hashlib
+
+    out = {}
+    for d, dirs, files in os.walk(root):
+        dirs[:] = sorted(x for x in dirs if x != "obs")
+        for f in sorted(files):
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = hashlib.sha1(fh.read()).hexdigest()
+    return out
+
+
+def schedule(summary: dict) -> dict:
+    """The parts of ``workflow.LAST_RUN_SUMMARY`` a phase prints and
+    compares: the mode, walls, critical path, speedup and each node's
+    dependencies and stream."""
+    keep = ("mode", "workers", "max_in_flight", "wall_s", "serial_s", "critical_path_s",
+            "parallel_speedup", "critical_path")
+    return {**{k: summary[k] for k in keep},
+            "deps": {n: v["deps"] for n, v in summary["nodes"].items()},
+            "on_stream": sorted(n for n, v in summary["nodes"].items() if v["stream"])}
+
+
+def run_measured(torch, cfg: dict, run_dir: str) -> dict:
+    """``workflow.main(cfg)`` in ``run_dir`` (made here): the wall, the
+    kernel launches it made, block walls, schedule, the peak device memory
+    above what was allocated before it, and the digest of every file it
+    wrote."""
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.ops import kernels
+
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(kernels.LAUNCHES)
+    os.chdir(run_dir)
+    try:
+        t0 = time.perf_counter()
+        workflow.main(cfg, "local")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    return {"wall_s": wall, "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before},
+            "block_times_s": workflow.block_times(), "schedule": schedule(workflow.LAST_RUN_SUMMARY),
+            "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "degraded": workflow.degraded_sections(), "tree": tree_digest(run_dir)}
+
+
+def print_schedule(what: str, run: dict) -> None:
+    s = run["schedule"]
+    print(f"{what}: scheduler[{s['mode']}] workers {s['workers']}, wall {s['wall_s']:.3f} s, serial "
+          f"{s['serial_s']:.3f} s, critical path {s['critical_path_s']:.3f} s "
+          f"({' -> '.join(s['critical_path'])}), speedup {s['parallel_speedup']:.3f}x, at most "
+          f"{s['max_in_flight']} nodes at once, {len(s['on_stream'])} of {len(s['deps'])} nodes on CUDA "
+          f"streams; peak device memory {run['peak_mib']:.1f} MiB", flush=True)
+
+
+def runner_inputs(torch, seed: int, root: str):
+    """Phase 9's input under ``root``: RUNNER_ROWS synthesized rows as
+    parquet and RUNNER_SIDE_ROWS rows' ifa/age/workclass as avro.
+    Returns (the frame, the side's rows, main dir, join dir)."""
+    from examples._data import synthesize
+    from anovos_tpu_torch.data_ingest.data_ingest import write_dataset
+    from anovos_tpu_torch.shared.table import Table
+
+    full = synthesize(RUNNER_ROWS, seed=seed + 9)
+    side_rows = np.arange(0, RUNNER_ROWS, RUNNER_ROWS // RUNNER_SIDE_ROWS)
+    main_dir, join_dir = os.path.join(root, "income"), os.path.join(root, "join")
+    os.makedirs(main_dir)
+    full.to_parquet(os.path.join(main_dir, "part-00000.parquet"), index=False)
+    side = Table.from_pandas(full.iloc[side_rows][["ifa", "age", "workclass"]].reset_index(drop=True))
+    write_dataset(side, join_dir, "avro")
+    torch.cuda.synchronize()
+    return full, side_rows, main_dir, join_dir
+
+
+def phase_runner(torch, seed: int, root: str) -> dict:
+    """Phase 9: ``workflow.main`` on configs_basic.yaml's blocks in the
+    runner's default executor mode, its input (``runner_inputs``) and its
+    working directory under ``root``, which the caller keeps for phase 15;
+    then B1 and B2 on the inputs the runner gave them."""
     import pandas as pd
 
-    from examples._data import synthesize
     from anovos_tpu_torch import workflow
-    from anovos_tpu_torch.data_ingest.data_ingest import write_dataset
     from anovos_tpu_torch.ops import kernels
-    from anovos_tpu_torch.shared.table import Table
 
     out = {"rows": RUNNER_ROWS, "side_rows": RUNNER_SIDE_ROWS}
     t0 = time.perf_counter()
-    full = synthesize(RUNNER_ROWS, seed=seed + 9)
-    side_rows = np.arange(0, RUNNER_ROWS, RUNNER_ROWS // RUNNER_SIDE_ROWS)
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        main_dir, join_dir = os.path.join(tmp, "income"), os.path.join(tmp, "join")
-        os.makedirs(main_dir)
-        full.to_parquet(os.path.join(main_dir, "part-00000.parquet"), index=False)
-        side = Table.from_pandas(full.iloc[side_rows][["ifa", "age", "workclass"]].reset_index(drop=True))
-        write_dataset(side, join_dir, "avro")
-        del side
-        run_dir = os.path.join(tmp, "run")
-        os.makedirs(run_dir)
-        torch.cuda.synchronize()
-        out["setup_s"] = time.perf_counter() - t0
+    full, side_rows, main_dir, join_dir = runner_inputs(torch, seed, root)
+    out.update(main_dir=main_dir, join_dir=join_dir, setup_s=time.perf_counter() - t0)
+    run_dir = os.path.join(root, "run")
+    kernels.reset_launches()
+    with KernelInputs(torch) as given, executor(None):
+        run = run_measured(torch, basic_config(main_dir, join_dir), run_dir)
+    out.update(run)
+    print("runner: block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in out["block_times_s"].items())
+          + f"; workflow.main {out['wall_s']:.3f} s", flush=True)
+    print_schedule("runner", run)
+    print(f"runner: kernel launches {out['launches']}", flush=True)
+    for name in PATH_KERNELS["runner"]:
+        check(out["launches"][name] > 0, f"kernel {name} was not launched by the runner")
+    check(workflow.degraded_sections() == {}, f"runner blocks failed: {workflow.degraded_sections()}")
+    check(list(out["block_times_s"]) == ["join_dataset", "timeseries_analyzer", "Basic Report"],
+          f"runner blocks {list(out['block_times_s'])}")
 
-        kernels.reset_launches()
-        os.chdir(run_dir)
-        try:
-            with KernelInputs(torch) as given:
-                t0 = time.perf_counter()
-                workflow.main(basic_config(main_dir, join_dir), "local")
-                torch.cuda.synchronize()
-                out["wall_s"] = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-        out["launches"] = dict(kernels.LAUNCHES)
-        out["block_times_s"] = workflow.block_times()
-        print("runner: block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in out["block_times_s"].items())
-              + f"; workflow.main {out['wall_s']:.3f} s", flush=True)
-        print(f"runner: kernel launches {out['launches']}", flush=True)
-        for name in PATH_KERNELS["runner"]:
-            check(out["launches"][name] > 0, f"kernel {name} was not launched by the runner")
-        check(workflow.degraded_sections() == {}, f"runner blocks failed: {workflow.degraded_sections()}")
-        check(list(out["block_times_s"]) == ["join_dataset", "timeseries_analyzer", "Basic Report"],
-              f"runner blocks {list(out['block_times_s'])}")
+    # after the run (not counted): each kernel on the inputs the runner
+    # gave it, against its plain version, timed
+    for name, calls in given.seen.items():
+        check(len(calls) == out["launches"][name], f"{name}: {len(calls)} calls recorded, "
+              f"{out['launches'][name]} launches")
+    out["kernels"] = {
+        "masked_moments": [b1_row(torch, Xc, Mc, "runner", f"launch {i + 1} of {len(given.seen['masked_moments'])}")
+                           for i, (Xc, Mc) in enumerate(given.seen["masked_moments"])],
+        "binned_histograms": [b2_row(torch, Xc, Mc, cuts, nbins, "runner", "the numeric charts")
+                              for Xc, Mc, cuts, nbins in given.seen["binned_histograms"]]}
+    del given
 
-        # after the run (not counted): each kernel on the inputs the runner
-        # gave it, against its plain version, timed
-        for name, calls in given.seen.items():
-            check(len(calls) == out["launches"][name], f"{name}: {len(calls)} calls recorded, "
-                  f"{out['launches'][name]} launches")
-        out["kernels"] = {
-            "masked_moments": [b1_row(torch, Xc, Mc, "runner", f"launch {i + 1} of {len(given.seen['masked_moments'])}")
-                               for i, (Xc, Mc) in enumerate(given.seen["masked_moments"])],
-            "binned_histograms": [b2_row(torch, Xc, Mc, cuts, nbins, "runner", "the numeric charts")
-                                  for Xc, Mc, cuts, nbins in given.seen["binned_histograms"]]}
-        del given
-
-        # the checks (float64 pandas/numpy)
-        t0 = time.perf_counter()
-        ref = runner_reference(full, side_rows)
-        del full
-        rdir = os.path.join(run_dir, "report_stats")
-        final = pd.read_parquet(os.path.join(run_dir, "output", "final_dataset"))
-        final = final.sort_values("ifa").reset_index(drop=True)
-        for c in ("dt_1", "dt_2"):
-            final[c] = final[c].astype("datetime64[s]").astype(np.int64)
-            ref[c] = ref[c].astype("datetime64[s]")
-        try:
-            pd.testing.assert_frame_equal(
-                final, ref.assign(dt_1=ref["dt_1"].astype(np.int64), dt_2=ref["dt_2"].astype(np.int64)),
-                check_dtype=False)
-        except AssertionError as e:
-            fail(f"runner: final_dataset differs from the pandas inner join: {e}")
-        out["joined_rows"] = len(final)
-        del final
-        det = pd.read_csv(os.path.join(run_dir, "ts_cols_stats.csv")).set_index("attribute")
-        check(set(det.index[det["status"] == "converted"]) == {"dt_1", "dt_2"}
-              and (det.loc[["dt_1", "dt_2"], "parsed_fraction"] == 1.0).all(), "ts_cols_stats.csv")
-        out["files_checked"] = check_runner_files(ref, rdir)
-        check_runner_stats(ref, rdir)
-        out.update(check_runner_quality(ref, rdir))
-        ivs = pd.read_csv(os.path.join(rdir, "IV_calculation.csv")).set_index("attribute")["iv"]
-        igs = pd.read_csv(os.path.join(rdir, "IG_calculation.csv")).set_index("attribute")["ig"]
-        iv_cols = [c for c in ref.columns if c not in ("ifa", "dt_1", "dt_2", "empty")]
-        iv_ref = iv_ig_reference(ref[iv_cols], "income", ">50K", BIN_SIZE)
-        check(sorted(ivs.index) == sorted(list(iv_ref) + ["empty"]), "IV columns")
-        for c, (iv, ig) in iv_ref.items():
-            check(round(float(ivs[c]), 4) == iv and round(float(igs[c]), 4) == ig,
-                  f"IV/IG of {c}: {ivs[c]}, {igs[c]} vs {iv}, {ig}")
-        check(ivs["empty"] == 0 and igs["empty"] == 0, "IV/IG of the all-null column")
-        out["charts_checked"] = check_runner_charts(ref, rdir)
-        out["event_charts_checked"] = check_runner_event_charts(ref, rdir, "income", ">50K")
-        with open(os.path.join(rdir, "ml_anovos_report.html")) as f:
-            html = f.read()
-        check(html.count("onclick='showTab(") == len(BASIC_TABS)
-              and all(f">{t}</button>" in html for t in BASIC_TABS), "the report's tabs")
-        out["checks_s"] = time.perf_counter() - t0
+    # the checks (float64 pandas/numpy)
+    t0 = time.perf_counter()
+    ref = runner_reference(full, side_rows)
+    del full
+    rdir = os.path.join(run_dir, "report_stats")
+    final = pd.read_parquet(os.path.join(run_dir, "output", "final_dataset"))
+    final = final.sort_values("ifa").reset_index(drop=True)
+    for c in ("dt_1", "dt_2"):
+        final[c] = final[c].astype("datetime64[s]").astype(np.int64)
+        ref[c] = ref[c].astype("datetime64[s]")
+    try:
+        pd.testing.assert_frame_equal(
+            final, ref.assign(dt_1=ref["dt_1"].astype(np.int64), dt_2=ref["dt_2"].astype(np.int64)),
+            check_dtype=False)
+    except AssertionError as e:
+        fail(f"runner: final_dataset differs from the pandas inner join: {e}")
+    out["joined_rows"] = len(final)
+    del final
+    det = pd.read_csv(os.path.join(run_dir, "ts_cols_stats.csv")).set_index("attribute")
+    check(set(det.index[det["status"] == "converted"]) == {"dt_1", "dt_2"}
+          and (det.loc[["dt_1", "dt_2"], "parsed_fraction"] == 1.0).all(), "ts_cols_stats.csv")
+    out["files_checked"] = check_runner_files(ref, rdir)
+    check_runner_stats(ref, rdir)
+    out.update(check_runner_quality(ref, rdir))
+    ivs = pd.read_csv(os.path.join(rdir, "IV_calculation.csv")).set_index("attribute")["iv"]
+    igs = pd.read_csv(os.path.join(rdir, "IG_calculation.csv")).set_index("attribute")["ig"]
+    iv_cols = [c for c in ref.columns if c not in ("ifa", "dt_1", "dt_2", "empty")]
+    iv_ref = iv_ig_reference(ref[iv_cols], "income", ">50K", BIN_SIZE)
+    check(sorted(ivs.index) == sorted(list(iv_ref) + ["empty"]), "IV columns")
+    for c, (iv, ig) in iv_ref.items():
+        check(round(float(ivs[c]), 4) == iv and round(float(igs[c]), 4) == ig,
+              f"IV/IG of {c}: {ivs[c]}, {igs[c]} vs {iv}, {ig}")
+    check(ivs["empty"] == 0 and igs["empty"] == 0, "IV/IG of the all-null column")
+    out["charts_checked"] = check_runner_charts(ref, rdir)
+    out["event_charts_checked"] = check_runner_event_charts(ref, rdir, "income", ">50K")
+    with open(os.path.join(rdir, "ml_anovos_report.html")) as f:
+        html = f.read()
+    check(html.count("onclick='showTab(") == len(BASIC_TABS)
+          and all(f">{t}</button>" in html for t in BASIC_TABS), "the report's tabs")
+    out["checks_s"] = time.perf_counter() - t0
     print(f"runner: configs_basic on {RUNNER_ROWS} rows joined with {RUNNER_SIDE_ROWS} avro rows "
           f"({out['joined_rows']} rows profiled): {out['files_checked']} files written; stats, quality, "
           f"IV/IG, {out['charts_checked']} numeric frequency charts, {out['event_charts_checked']} "
@@ -3577,44 +3693,50 @@ def phase_imputers(torch, df, tmp: str) -> dict:
     return out
 
 
-def phase_full_runner(torch, seed: int, tmp: str) -> dict:
-    """Phase 10d: workflow.main on FULL_CONFIG (configs_full.yaml), its
-    input FULL_ROWS synthesized rows as parquet (the drift source too) and
-    four CSV slices of its numeric columns for the stability index."""
-    import pandas as pd
-
+def full_inputs(seed: int, root: str, rows: int):
+    """10d's input under ``root``: ``rows`` synthesized rows as parquet
+    (the drift source too) and four CSV slices of its numeric columns for
+    the stability index.  Returns (the frame, main dir, the four dirs)."""
     from examples._data import synthesize
-    from anovos_tpu_torch import workflow
-    from anovos_tpu_torch.data_transformer import transformers as tr
 
-    out = {"rows": FULL_ROWS}
-    full = synthesize(FULL_ROWS, seed=seed + 10)
-    main_dir = os.path.join(tmp, "full_income")
+    full = synthesize(rows, seed=seed + 10)
+    main_dir = os.path.join(root, "full_income")
     os.makedirs(main_dir)
     full.to_parquet(os.path.join(main_dir, "part-00000.parquet"), index=False)
     num = full.select_dtypes("number").drop(columns=["empty", "logfnl"])
     si = []
     for i in range(4):
-        d = os.path.join(tmp, "full_si", str(i))
+        d = os.path.join(root, "full_si", str(i))
         os.makedirs(d)
-        num.iloc[i * FULL_ROWS // 4:(i + 1) * FULL_ROWS // 4].to_csv(os.path.join(d, "part-00000.csv"), index=False)
+        num.iloc[i * rows // 4:(i + 1) * rows // 4].to_csv(os.path.join(d, "part-00000.csv"), index=False)
         si.append(d)
-    run_dir = os.path.join(tmp, "full_run")
-    os.makedirs(run_dir)
-    cwd = os.getcwd()
-    os.chdir(run_dir)
+    return full, main_dir, si
+
+
+def phase_full_runner(torch, seed: int, root: str) -> dict:
+    """Phase 10d: workflow.main on FULL_CONFIG (configs_full.yaml) in the
+    runner's default executor mode, its input (``full_inputs``, FULL_ROWS
+    rows) and working directory under ``root``, which the caller keeps for
+    phase 15."""
+    import pandas as pd
+
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.data_transformer import transformers as tr
+
+    out = {"rows": FULL_ROWS}
+    full, main_dir, si = full_inputs(seed, root, FULL_ROWS)
+    out.update(main_dir=main_dir, si_dirs=si)
+    run_dir = os.path.join(root, "full_run")
     walls, launches = {}, {}
     out.update(walls_s=walls, launches_by_step=launches)
-    try:
-        with Recorder(tr, "feature_transformation") as rec:
-            timed_launches(torch, walls, launches, "workflow.main",
-                           lambda: workflow.main(full_config(main_dir, si), "local"))
-    finally:
-        os.chdir(cwd)
+    with Recorder(tr, "feature_transformation") as rec, executor(None):
+        run = run_measured(torch, full_config(main_dir, si), run_dir)
+    walls["workflow.main"], launches["workflow.main"] = run.pop("wall_s"), run.pop("launches")
+    out.update(run)
     out["wall_s"] = walls["workflow.main"]
-    out["block_times_s"] = workflow.block_times()
     print("full runner: block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in out["block_times_s"].items())
           + f"; workflow.main {out['wall_s']:.3f} s", flush=True)
+    print_schedule("full runner", run)
     check(workflow.degraded_sections() == {}, f"runner blocks failed: {workflow.degraded_sections()}")
     tdir = os.path.join(run_dir, "intermediate_data", "data_transformer", "transformers")
     for group in FULL_CONFIG["transformers"].values():
@@ -3638,10 +3760,11 @@ def phase_full_runner(torch, seed: int, tmp: str) -> dict:
     return out
 
 
-def phase_transformers(torch, seed: int, table, df) -> dict:
+def phase_transformers(torch, seed: int, table, df, root: str) -> dict:
     """Phase 10 (10a-d): the counts are set to 0 before it, and its path's
     launches are those of its timed steps; then B1 and B2 against their
-    plain versions on every input the phase gave them on the card."""
+    plain versions on every input the phase gave them on the card.  10d's
+    input and working directory go under ``root`` (phase 15 reads them)."""
     from anovos_tpu_torch.ops import kernels
 
     out = {}
@@ -3652,7 +3775,7 @@ def phase_transformers(torch, seed: int, table, df) -> dict:
             out["direct"] = phase_transformers_direct(torch, table, df, tmp)
             out["autoencoder"] = phase_autoencoder(torch, table, tmp)
             out["imputers"] = phase_imputers(torch, df, tmp)
-            out["runner"] = phase_full_runner(torch, seed, tmp)
+            out["runner"] = phase_full_runner(torch, seed, root)
     # the path's launches: those of the timed steps (each step's own, read
     # before its checks ran)
     out["launches"] = {name: sum(step[name] for part in out.values() for step in part["launches_by_step"].values())
@@ -4500,13 +4623,17 @@ class PassSummaries:
     summary (``ops/streaming._publish_stats``), in order."""
 
     def __enter__(self):
+        import threading
+
         from anovos_tpu_torch.ops import streaming
 
         self.seen, self._orig = [], streaming._publish_stats
+        lock = threading.Lock()  # passes on scheduler workers publish at once
 
         def publish(op, ctl, stats):
-            self._orig(op, ctl, stats)
-            self.seen.append(streaming.last_stream_summary())
+            with lock:
+                self._orig(op, ctl, stats)
+                self.seen.append(streaming.last_stream_summary())
 
         streaming._publish_stats = publish
         return self
@@ -4624,7 +4751,9 @@ def phase_streaming(torch, seed: int, df, tmp: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
         kernels.reset_launches()
-        with PassSummaries() as passes:
+        # one pass at a time, as before the scheduler: the peak-memory
+        # bound (d) is a single pass's window
+        with PassSummaries() as passes, executor("sequential"):
             t0 = time.perf_counter()
             workflow.main(stream_config(folders, model, "report_stats"), "local")
             torch.cuda.synchronize()
@@ -5080,6 +5209,268 @@ def phase_continuum(torch, seed: int, df, feed_in: dict, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the feature recommender, the sequential executor against the
+# concurrent one, and a chaos hang the watchdog degrades
+# ---------------------------------------------------------------------------
+def recommender_calls(fe, fm) -> list:
+    """(name, call) for every public function of the explorer and the
+    mapper and for ``sankey_visualization`` (its four layer cases and the
+    relevance mapping's), on REC_ATTRS and REC_TARGETS."""
+    ind, uc = REC_QUERY
+    calls = [("list_all_industry", fe.list_all_industry), ("list_all_usecase", fe.list_all_usecase),
+             ("list_all_pair", fe.list_all_pair)]
+    for semantic in (False, True):
+        q_ind, q_uc = (ind, uc) if not semantic else REC_MISSPELT
+        calls += [
+            (f"process_industry[{semantic}]", lambda q=q_ind, s=semantic: fe.process_industry(q, s)),
+            (f"process_usecase[{semantic}]", lambda q=q_uc, s=semantic: fe.process_usecase(q, s)),
+            (f"list_usecase_by_industry[{semantic}]",
+             lambda q=q_ind, s=semantic: fe.list_usecase_by_industry(q, s)),
+            (f"list_industry_by_usecase[{semantic}]",
+             lambda q=q_uc, s=semantic: fe.list_industry_by_usecase(q, s)),
+            (f"list_feature_by_industry[{semantic}]",
+             lambda q=q_ind, s=semantic: fe.list_feature_by_industry(q, 20, s)),
+            (f"list_feature_by_usecase[{semantic}]",
+             lambda q=q_uc, s=semantic: fe.list_feature_by_usecase(q, 20, s)),
+            (f"list_feature_by_pair[{semantic}]",
+             lambda a=q_ind, b=q_uc, s=semantic: fe.list_feature_by_pair(a, b, 20, s))]
+    calls += [("feature_mapper", lambda: fm.feature_mapper(REC_ATTRS, top_n=3, threshold=0.0)),
+              ("find_attr_by_relevance",
+               lambda: fm.find_attr_by_relevance(REC_ATTRS, REC_TARGETS, threshold=0.0))]
+    return calls
+
+
+def same_result(got, exp) -> float:
+    """0.0 when a recommender result equals the reference, else fails;
+    similarity scores (the floats of a frame, the sankey's link values)
+    may differ by one unit of their 4th decimal where the float64 products
+    of the two devices round across it: returns the largest such
+    difference."""
+    import pandas as pd
+
+    if isinstance(exp, pd.DataFrame):
+        check(list(got.columns) == list(exp.columns) and len(got) == len(exp), "frame shape")
+        err = 0.0
+        for c in exp.columns:
+            if pd.api.types.is_float_dtype(exp[c]):
+                d = float(np.max(np.abs(got[c].to_numpy(np.float64) - exp[c].to_numpy(np.float64)), initial=0))
+                check(d <= 1e-4 + 1e-12, f"{c} differs by {d}")
+                err = max(err, d)
+            else:
+                check(got[c].astype(str).tolist() == exp[c].astype(str).tolist(), f"column {c} differs")
+        return err
+    if isinstance(exp, dict):  # a sankey figure
+        g, e = got["data"][0], exp["data"][0]
+        check(g["node"] == e["node"] and got["layout"] == exp["layout"]
+              and g["link"]["source"] == e["link"]["source"] and g["link"]["target"] == e["link"]["target"],
+              "sankey nodes or links differ")
+        d = float(np.max(np.abs(np.subtract(g["link"]["value"], e["link"]["value"])), initial=0))
+        check(d <= 1e-4 + 1e-12, f"sankey values differ by {d}")
+        return d
+    check(got == exp, f"{got!r} != {exp!r}")
+    return 0.0
+
+
+def phase_recommender(torch) -> dict:
+    """Phase 15a: the feature recommender at full width, the whole shipped
+    corpus (1,684 rows), under each weight-free backend: every call of
+    ``recommender_calls`` and the sankeys of the two mappings on the card,
+    then on the CPU port, each call's wall kept; the results equal; the
+    cosine self-similarity of the grouped corpus' 1,433 feature texts
+    (float64 on each device) within 1e-12 of the CPU's."""
+    from anovos_tpu_torch.feature_recommender import featrec_init as fi
+    from anovos_tpu_torch.feature_recommender import feature_explorer as fe
+    from anovos_tpu_torch.feature_recommender import feature_mapper as fm
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.runtime import init_runtime
+
+    out = {"backends": {}}
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    saved = os.environ.get("FR_BACKEND")
+    try:
+        for backend in ("tfidf", "hashed"):
+            os.environ["FR_BACKEND"] = backend
+            res, walls, sims = {}, {}, {}
+            for dev in ("cuda", "cpu"):
+                init_runtime(dev)
+                fi.reset_model()
+                res[dev], walls[dev] = {}, {}
+                for name, call in recommender_calls(fe, fm):
+                    t0 = time.perf_counter()
+                    res[dev][name] = call()
+                    torch.cuda.synchronize()
+                    walls[dev][name] = time.perf_counter() - t0
+                for mapping in ("feature_mapper", "find_attr_by_relevance"):
+                    for ind_l, uc_l in ((False, False), (True, False), (False, True), (True, True)):
+                        name = f"sankey_visualization[{mapping},{ind_l},{uc_l}]"
+                        t0 = time.perf_counter()
+                        res[dev][name] = fm.sankey_visualization(res[dev][mapping], ind_l, uc_l)
+                        walls[dev][name] = time.perf_counter() - t0
+                texts, _ = fi.feature_recommendation_prep()
+                model = fi.get_model()
+                model.fit_corpus(texts)
+                emb = model.encode(texts)
+                t0 = time.perf_counter()
+                sims[dev] = fi.cosine_sim_matrix(emb, emb)
+                torch.cuda.synchronize()
+                walls[dev]["cosine_sim_matrix"] = time.perf_counter() - t0
+            check(model.backend == backend, f"backend {model.backend}, asked {backend}")
+            score_err = max(same_result(res["cuda"][n], res["cpu"][n]) for n in res["cpu"])
+            cos_err = float(np.max(np.abs(sims["cuda"] - sims["cpu"])))
+            check(sims["cuda"].dtype == np.float64 and sims["cuda"].shape == (len(texts), len(texts)),
+                  f"cosine matrix {sims['cuda'].dtype} {sims['cuda'].shape}")
+            check(cos_err <= 1e-12, f"{backend}: the card's cosine matrix is {cos_err:.3e} off the CPU's")
+            mapping = res["cuda"]["feature_mapper"]
+            check(len(mapping) == 3 * len(REC_ATTRS), f"{backend}: {len(mapping)} mapped rows")
+            out["backends"][backend] = {
+                "calls": len(res["cuda"]), "cosine_max_abs_err": cos_err, "score_max_abs_err": score_err,
+                "card_s": walls["cuda"], "cpu_s": walls["cpu"],
+                "top_match": {a: str(mapping.loc[mapping["Attribute Name"] == a, "Feature Name"].iloc[0])
+                              for a in REC_ATTRS}}
+            print(f"recommender[{backend}]: {len(res['cuda'])} calls on the card equal the CPU port's "
+                  f"(scores within {score_err:.1e}); cosine {len(texts)} x {len(texts)} float64 within "
+                  f"{cos_err:.3e} of the CPU's, {walls['cuda']['cosine_sim_matrix'] * 1e3:.2f} ms on the card "
+                  f"against {walls['cpu']['cosine_sim_matrix'] * 1e3:.2f} ms; walls on the card: "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in walls["cuda"].items()), flush=True)
+            print(f"recommender[{backend}]: CPU walls: "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in walls["cpu"].items()), flush=True)
+    finally:
+        init_runtime("cuda")
+        fi.reset_model()
+        if saved is None:
+            os.environ.pop("FR_BACKEND", None)
+        else:
+            os.environ["FR_BACKEND"] = saved
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_sequential(torch, runner: dict, full_runner: dict, root: str) -> dict:
+    """Phase 15b: configs_basic (phase 9's input) and configs_full (10d's
+    input) again under ``ANOVOS_TPU_EXECUTOR=sequential``: every file,
+    the HTML included, byte-equal to phase 9's and 10d's runs in the
+    default (concurrent) mode; the same schedule and B1 and B2 launch
+    counts in both modes; each launch against its plain version on the
+    inputs the runner gave it; both modes' schedule summaries, block walls
+    and peak device memory printed."""
+    from anovos_tpu_torch.parallel.scheduler import available_cpus
+
+    out = {}
+    for what, cfg, conc in (
+            ("configs_basic", basic_config(runner["main_dir"], runner["join_dir"]), runner),
+            ("configs_full", full_config(full_runner["main_dir"], full_runner["si_dirs"]), full_runner)):
+        run_dir = os.path.join(root, f"{what}_sequential")
+        with KernelInputs(torch) as given, executor("sequential"):
+            seq = run_measured(torch, cfg, run_dir)
+        conc_launches = conc["launches"] if "launches" in conc else conc["launches_by_step"]["workflow.main"]
+        check(seq["schedule"]["mode"] == "sequential", f"{what}: {seq['schedule']['mode']}")
+        if available_cpus() > 1:
+            check(conc["schedule"]["mode"] == "concurrent", f"{what}: the default mode ran "
+                  f"{conc['schedule']['mode']} on {available_cpus()} CPUs")
+        check(seq["degraded"] == {}, f"{what}: degraded {seq['degraded']}")
+        check(set(seq["tree"]) == set(conc["tree"]),
+              f"{what}: files of one mode only: {sorted(set(seq['tree']) ^ set(conc['tree']))[:8]}")
+        differ = sorted(p for p in seq["tree"] if seq["tree"][p] != conc["tree"][p])
+        check(not differ, f"{what}: files differ between the modes: {differ[:8]}")
+        check(any(p.endswith("ml_anovos_report.html") for p in seq["tree"]), f"{what}: no report")
+        check(seq["schedule"]["deps"] == conc["schedule"]["deps"], f"{what}: the schedules differ")
+        check(seq["launches"] == conc_launches, f"{what}: launches {seq['launches']} sequential, "
+              f"{conc_launches} concurrent")
+        check(not seq["schedule"]["on_stream"], f"{what}: sequential nodes on streams")
+        for name, calls in given.seen.items():
+            check(len(calls) == seq["launches"][name], f"{what}: {len(calls)} {name} calls recorded")
+        shapes = {tuple(a[0].shape) for calls in given.seen.values() for a in calls}
+        _, checked = given_kernel_rows(torch, given, f"sequential {what}", shapes)
+        del given
+        shutil.rmtree(run_dir, ignore_errors=True)
+        print_schedule(f"{what} sequential", seq)
+        print_schedule(f"{what} concurrent", conc)
+        print(f"{what}: sequential block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in seq["block_times_s"].items())
+              + f"; concurrent block walls " + ", ".join(f"{k} {v:.3f} s" for k, v in conc["block_times_s"].items()),
+              flush=True)
+        print(f"{what}: {len(seq['tree'])} files byte-equal in both modes, the HTML included; launches "
+              f"{seq['launches']} in each, B1 on {checked['masked_moments']} and B2 on "
+              f"{checked['binned_histograms']} inputs equal to their plain versions", flush=True)
+        out[what] = {"sequential": {k: seq[k] for k in ("wall_s", "launches", "block_times_s", "schedule",
+                                                         "peak_mib")},
+                     "concurrent": {"wall_s": conc["wall_s"], "launches": conc_launches,
+                                    "block_times_s": conc["block_times_s"], "schedule": conc["schedule"],
+                                    "peak_mib": conc["peak_mib"]},
+                     "files_equal": len(seq["tree"]), "kernel_calls_checked": checked}
+    return out
+
+
+def phase_chaos(torch, seed: int, root: str) -> dict:
+    """Phase 15c: configs_full on CHAOS_ROWS rows in the concurrent mode
+    with ``ANOVOS_TPU_CHAOS=hang@node:<CHAOS_NODE>:secs=600`` (every
+    attempt) and ``ANOVOS_TPU_NODE_TIMEOUT=CHAOS_TIMEOUT``: the watchdog
+    interrupts and escalates the node (x1.5), its re-execution hangs again,
+    and it is abandoned and degraded within its escalated bound; every
+    other node finishes, and the report leads with the Degraded Sections
+    tab naming it.  (configs_basic's one fan-out node is its basic report,
+    which writes the report itself, so a hang there leaves no report to
+    name it.)"""
+    from anovos_tpu_torch import workflow
+
+    _, main_dir, si = full_inputs(seed + 15, os.path.join(root, "chaos"), CHAOS_ROWS)
+    knobs = {"ANOVOS_TPU_CHAOS": f"hang@node:{CHAOS_NODE}:secs=600:n=99",
+             "ANOVOS_TPU_NODE_TIMEOUT": str(CHAOS_TIMEOUT)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        with executor("concurrent"):
+            run = run_measured(torch, full_config(main_dir, si), os.path.join(root, "chaos", "run"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    summary = workflow.LAST_RUN_SUMMARY
+    node = summary["nodes"][CHAOS_NODE]
+    bound = CHAOS_TIMEOUT * (1 + 1.5)
+    check(list(run["degraded"]) == [CHAOS_NODE], f"chaos: degraded {run['degraded']}")
+    check(f"escalated bound ({CHAOS_TIMEOUT}s x1.5)" in run["degraded"][CHAOS_NODE], run["degraded"][CHAOS_NODE])
+    check(node["state"] == "degraded" and node["escalated"] and node["attempts"] == 2,
+          f"chaos: the node {node}")
+    check(bound - 0.1 <= node["dur_s"] <= bound + 2.0, f"chaos: degraded after {node['dur_s']} s, bound {bound} s")
+    check(summary["resilience"]["timeout_escalations"] == 1 and summary["resilience"]["timeout_retries"] == 1,
+          f"chaos: {summary['resilience']}")
+    others = {n: v["state"] for n, v in summary["nodes"].items() if n != CHAOS_NODE}
+    check(all(st == "done" for st in others.values()), f"chaos: other nodes {others}")
+    rdir = os.path.join(root, "chaos", "run", "report_stats")
+    check("IV_calculation.csv" not in os.listdir(rdir), "chaos: the degraded node's CSV was written")
+    with open(os.path.join(rdir, "ml_anovos_report.html")) as f:
+        html = f.read()
+    first_tab = re.search(r"onclick='showTab\(0\)'>([^<]*)</button>", html)
+    check(first_tab is not None and first_tab.group(1) == "Degraded Sections", "chaos: no Degraded Sections tab")
+    check(f"<b>{CHAOS_NODE}</b>" in html and "1 analytics section(s) DEGRADED" in html,
+          "chaos: the tab does not name the node")
+    for name in PATH_KERNELS["chaos"]:
+        check(run["launches"][name] > 0, f"chaos: kernel {name} was not launched")
+    print_schedule("chaos", run)
+    print(f"chaos: {CHAOS_NODE} hung, escalated at {CHAOS_TIMEOUT} s, degraded after {node['dur_s']:.2f} s "
+          f"(bound {bound:.1f} s); the run finished in {run['wall_s']:.2f} s with {len(others)} nodes done; "
+          f"the report's first tab names it; launches {run['launches']}", flush=True)
+    shutil.rmtree(os.path.join(root, "chaos"), ignore_errors=True)
+    return {"wall_s": run["wall_s"], "degraded_after_s": node["dur_s"], "bound_s": bound,
+            "launches": run["launches"], "schedule": run["schedule"], "peak_mib": run["peak_mib"]}
+
+
+def phase_executor(torch, seed: int, runner: dict, full_runner: dict, root: str) -> dict:
+    """Phase 15: 15a, 15b and 15c."""
+    t0 = time.perf_counter()
+    out = {"recommender": phase_recommender(torch),
+           "sequential": phase_sequential(torch, runner, full_runner, root),
+           "chaos": phase_chaos(torch, seed, root)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"executor: phase 15 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -5212,13 +5603,16 @@ def main() -> None:
     ts = phase_timeseries(torch, args.seed, table, df, extra)
     del extra
     print("timeseries " + json.dumps(ts), flush=True)
-    runner = phase_runner(torch, args.seed)
+    # phases 9 and 10d keep their inputs and runs here for phase 15
+    runs_root = tempfile.mkdtemp(prefix="anovos_runs_")
+    runner = phase_runner(torch, args.seed, runs_root)
     runner_kernels = runner.pop("kernels")
-    print("runner " + json.dumps({k: v for k, v in runner.items() if k != "launches"}), flush=True)
-    transform = phase_transformers(torch, args.seed, table, df)
+    print("runner " + json.dumps({k: v for k, v in runner.items() if k not in ("launches", "tree")}), flush=True)
+    transform = phase_transformers(torch, args.seed, table, df, runs_root)
     del table
     transform_kernels = transform.pop("kernels")
-    print("transformers " + json.dumps({k: v for k, v in transform.items() if k != "launches"}), flush=True)
+    print("transformers " + json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "tree"} if k == "runner" else v)
+                                        for k, v in transform.items() if k != "launches"}), flush=True)
     scen = phase_scenarios(torch, args.seed)
     scen_paths = [p for p in PATH_KERNELS if p.startswith("configs_")]
     scen_kernels = {p: scen[p].pop("kernels") for p in scen_paths}
@@ -5237,6 +5631,11 @@ def main() -> None:
         shutil.rmtree(stream_tmp, ignore_errors=True)
     cont_kernels = cont.pop("kernels")
     print("continuum " + json.dumps({k: v for k, v in cont.items() if k != "launches"}), flush=True)
+    try:
+        execu = phase_executor(torch, args.seed, runner, transform["runner"], runs_root)
+    finally:
+        shutil.rmtree(runs_root, ignore_errors=True)
+    print("executor " + json.dumps(execu), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -5259,8 +5658,12 @@ def main() -> None:
                                                      **{p: scen[p]["launches"] for p in scen_paths},
                                                      "geo_transformers": geo_t["launches"],
                                                      "streaming": stream["launches"],
-                                                     "continuum": cont["path_launches"]}, sass)
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "continuum": cont["path_launches"],
+                                                     "recommender": execu["recommender"]["launches"],
+                                                     **{f"sequential_{w[len('configs_'):]}": r["sequential"]["launches"]
+                                                        for w, r in execu["sequential"].items()},
+                                                     "chaos": execu["chaos"]["launches"]}, sass)
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -745,3 +745,46 @@ def test_cuda_continuum_step_equals_the_cpu(tmp_path):
         assert got[c].tolist() == exp[c].tolist(), c
     for c in ("mean", "stddev", "variance", "skewness", "kurtosis"):
         np.testing.assert_allclose(got[c], exp[c], rtol=1e-5, atol=1e-4, err_msg=c)
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_runner_equals_sequential(tmp_path, monkeypatch):
+    """The JAX scheduler gate's demo config (stats, quality treatments,
+    IV, drift, charts, the report, the writes) through the port's runner
+    on the card in both modes: every file byte-equal, the HTML included;
+    B1 and B2 launched as often in each mode; in the concurrent mode the
+    device nodes ran on their workers' CUDA streams, in the sequential
+    mode none did."""
+    from examples._data import synthesize
+
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+    from test_torch_scheduler import _demo_cfg, tree_hashes
+
+    _require_cuda()
+    pq = tmp_path / "parquet"
+    pq.mkdir()
+    synthesize(50_000).to_parquet(pq / "part-0.parquet")
+    prev = get_runtime().device
+    trees, launches, streams = {}, {}, {}
+    try:
+        init_runtime("cuda")
+        for mode in ("sequential", "concurrent"):
+            d = tmp_path / mode
+            d.mkdir()
+            monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", mode)
+            monkeypatch.setenv("ANOVOS_TPU_EXECUTOR_WORKERS", "4")
+            monkeypatch.chdir(d)
+            kernels.reset_launches()
+            workflow.main(_demo_cfg(str(pq)), "local")
+            launches[mode] = dict(kernels.LAUNCHES)
+            streams[mode] = sum(n["stream"] for n in workflow.LAST_RUN_SUMMARY["nodes"].values())
+            trees[mode] = tree_hashes(str(d))
+    finally:
+        init_runtime(prev)
+    assert "report_stats/ml_anovos_report.html" in trees["sequential"]
+    assert trees["sequential"] == trees["concurrent"]
+    assert launches["sequential"] == launches["concurrent"]
+    assert launches["concurrent"]["masked_moments"] > 0 and launches["concurrent"]["binned_histograms"] > 0
+    assert streams["sequential"] == 0 and streams["concurrent"] > 0

@@ -177,6 +177,13 @@ def test_port_never_imports_jax_or_the_jax_package():
         "continuum/__init__", "continuum/__main__", "continuum/sufficient", "continuum/state",
         "continuum/alerts", "continuum/watcher", "data_report/continuum_report", "cache/store",
         "obs/flight", "obs/telemetry")} <= rel
+    # the scheduler slice: the executor, the async writer's module and the
+    # feature recommender (the corpus is the port's own copy)
+    assert {f"anovos_tpu_torch/{m}.py" for m in (
+        "parallel/__init__", "parallel/placement", "parallel/scheduler", "shared/artifact_store",
+        "workflow", "feature_recommender/__init__", "feature_recommender/featrec_init",
+        "feature_recommender/feature_explorer", "feature_recommender/feature_mapper")} <= rel
+    assert (REPO / "anovos_tpu_torch" / "feature_recommender" / "data" / "corpus.jsonl").is_file()
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad
 

@@ -156,19 +156,58 @@ def assert_chart_close(got_path: str, exp_path: str) -> None:
     _assert_json_close(got, exp, name.startswith("freqDist_"), name)
 
 
+# the one sentence of the JAX renderer's Degraded Sections tab that the
+# port leaves out: it points at the run manifest and the run journal, files
+# the port does not write yet (ROADMAP.md Queue A items 1 and 2)
+JAX_ONLY_DEGRADED_TEXT = (" (see the run manifest's <code>resilience</code> section and "
+                          "<code>obs/run_journal.jsonl</code> for the failure record)")
+
+
+def report_tabs(html: str) -> list:
+    """The report's tab names, in order."""
+    import re
+
+    return re.findall(r"onclick='showTab\(\d+\)'>([^<]*)</button>", html)
+
+
+def degraded_tab(html: str):
+    """The Degraded Sections tab's markup, or None when the report has none."""
+    import re
+
+    m = re.search(r"<div class='anv-degraded'>.*?</div>", html, re.S)
+    return m.group(0) if m else None
+
+
+def assert_report_close(got_path: str, exp_path: str) -> None:
+    """Two runners' reports: the same tabs in the same order, and the
+    Degraded Sections tab, where there is one, equal to the JAX one but
+    for ``JAX_ONLY_DEGRADED_TEXT``.  (The other tabs print the runs' own
+    f32 statistics; ``render_both`` holds them byte-equal on one tree.)"""
+    with open(got_path) as fg, open(exp_path) as fe:
+        got, exp = fg.read(), fe.read()
+    assert report_tabs(got) == report_tabs(exp)
+    exp_tab = degraded_tab(exp)
+    assert (exp_tab is None) == (degraded_tab(got) is None)
+    if exp_tab is not None:
+        assert JAX_ONLY_DEGRADED_TEXT in exp_tab
+        assert degraded_tab(got) == exp_tab.replace(JAX_ONLY_DEGRADED_TEXT, "")
+
+
 def assert_dirs_close(got_dir: str, exp_dir: str, rules=None) -> list:
-    """Every file of ``exp_dir`` (``obs/`` and the report HTML left out)
-    present in ``got_dir`` and close: CSVs by ``assert_csv_close``, chart
-    JSONs by ``assert_chart_close``, parquet model parts equal.
-    ``rules``: {file name: check(got_path, exp_path)} replacing those.
-    Returns the relative paths compared."""
-    names = [p for p in tree(exp_dir) if not p.endswith("ml_anovos_report.html")]
-    assert [p for p in tree(got_dir) if not p.endswith("ml_anovos_report.html")] == names
+    """Every file of ``exp_dir`` (``obs/`` left out) present in ``got_dir``
+    and close: CSVs by ``assert_csv_close``, chart JSONs by
+    ``assert_chart_close``, parquet model parts equal, the report HTML by
+    ``assert_report_close``.  ``rules``: {file name: check(got_path,
+    exp_path)} replacing those.  Returns the relative paths compared."""
+    names = tree(exp_dir)
+    assert tree(got_dir) == names
     for rel in names:
         gp, ep = os.path.join(got_dir, rel), os.path.join(exp_dir, rel)
         base = os.path.basename(rel)
         if rules and base in rules:
             rules[base](gp, ep)
+        elif base == "ml_anovos_report.html":
+            assert_report_close(gp, ep)
         elif rel.endswith(".csv"):
             assert_csv_close(gp, ep)
         elif rel.endswith(".parquet"):
@@ -180,21 +219,27 @@ def assert_dirs_close(got_dir: str, exp_dir: str, rules=None) -> list:
     return names
 
 
-def render_both(master_src: str, root: str, **kw) -> tuple:
+def render_both(master_src: str, root: str, degraded=None, **kw) -> tuple:
     """Both packages' ``anovos_report`` over one copy of ``master_src``
     (its report HTML and ``obs/`` left out), each into a fresh output dir,
-    the JAX degradation and quarantine registries reset: (port HTML, JAX
-    HTML) as bytes."""
+    both packages' degradation and quarantine registries reset and then
+    given the same ``degraded`` {section: reason}: (port HTML, JAX HTML)
+    as bytes."""
     from anovos_tpu.data_ingest import guard
     from anovos_tpu.data_report.report_generation import anovos_report as janovos_report
     from anovos_tpu.resilience import policy
+    from anovos_tpu_torch.data_ingest import guard as pguard
     from anovos_tpu_torch.data_report.report_generation import anovos_report
+    from anovos_tpu_torch.resilience import policy as ppolicy
 
     master = os.path.join(root, "master")
     shutil.copytree(master_src, master,
                     ignore=shutil.ignore_patterns("obs", "ml_anovos_report.html"))
-    policy.reset_degraded()
-    guard.reset()
+    for pol, grd in ((policy, guard), (ppolicy, pguard)):
+        pol.reset_degraded()
+        grd.reset()
+        for section, reason in (degraded or {}).items():
+            pol.record_degraded(section, reason)
     out = []
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("ANOVOS_PERF_LEDGER", raising=False)
@@ -290,6 +335,22 @@ def test_renderer_bytes_over_the_jax_tree(runs, tmp_path):
     port, jax = render_both(os.path.join(runs["jax"], "report_stats"), str(tmp_path),
                             id_col="ifa", label_col="income")
     assert port == jax
+
+
+def test_renderer_bytes_with_a_degraded_section(runs, tmp_path):
+    """Both renderers over the JAX run's report_stats with the same two
+    sections in both degradation registries: the same bytes but the one
+    sentence the port leaves out (``JAX_ONLY_DEGRADED_TEXT``), and the
+    Degraded Sections tab first, naming both, escaped."""
+    degraded = {"stats_generator/measures_of_shape": "ChaosError: <injected> & gone",
+                "association_evaluator/IV_calculation": "KeyError: 'income'"}
+    port, jax = render_both(os.path.join(runs["jax"], "report_stats"), str(tmp_path), degraded=degraded,
+                            id_col="ifa", label_col="income")
+    port, jax = port.decode(), jax.decode()
+    assert port == jax.replace(JAX_ONLY_DEGRADED_TEXT, "", 1) and port != jax
+    assert report_tabs(port)[0] == "Degraded Sections" and len(report_tabs(port)) == 7
+    tab = degraded_tab(port)
+    assert "2 analytics section(s) DEGRADED" in tab and "&lt;injected&gt; &amp; gone" in tab
 
 
 @pytest.mark.parametrize("check", ["nullColumns_detection", "IDness_detection", "biasedness_detection"])

@@ -5,7 +5,10 @@ work in both runners, the analytics blocks (``continuous_analysis`` among
 them) skipped under ``basic_report`` as the JAX runner skips them, a
 geospatial name in a transformers block raising AttributeError as in the
 JAX runner, the device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
-importable without a YAML reader.  Also ``chip_smoke.py``'s copy of
+importable without a YAML reader.  Every knob of a layer the port does not
+have yet (``obs/telemetry.UNPORTED_KNOBS``) and a chaos ``wedge`` make
+``workflow.main`` and ``workflow.run`` raise before any work, naming the
+ROADMAP.md item.  Also ``chip_smoke.py``'s copy of
 ``config/configs_basic.yaml`` held equal to the file.
 """
 
@@ -17,6 +20,7 @@ import pandas as pd
 import pytest
 
 from _torch_port import torch_cpu_runtime  # noqa: F401  (autouse fixture)
+from anovos_tpu_torch.obs.telemetry import UNPORTED_KNOBS
 from test_torch_workflow import basic_config, load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -114,6 +118,47 @@ def test_unported_blocks_raise_before_any_work(block, item, tmp_path, monkeypatc
     monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
     with pytest.raises(FileNotFoundError):
         jwf.main(cfg, "local")
+
+
+@pytest.mark.parametrize("knob", sorted(UNPORTED_KNOBS))
+def test_unported_knobs_raise_naming_their_item(knob, tmp_path, monkeypatch):
+    """A set knob of an unported layer makes ``main`` (on a config whose
+    input does not exist, so any work would raise FileNotFoundError) and
+    ``run`` (on a config file that does not exist) raise
+    NotImplementedError naming the knob, what it asks for and its Queue A
+    item; the same knob set to 0 or off is no request."""
+    from anovos_tpu_torch import workflow
+
+    what, item = UNPORTED_KNOBS[knob]
+    cfg = load_config("configs_basic.yaml")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv(knob, "1" if knob != "ANOVOS_PROFILE" else str(tmp_path / "profile"))
+    match = f"{knob} asks for {what}, which is not ported.*ROADMAP.md Queue A item {item}$"
+    with pytest.raises(NotImplementedError, match=match):
+        workflow.main(cfg, "local")
+    with pytest.raises(NotImplementedError, match=match):
+        workflow.run(str(tmp_path / "absent.yaml"), "local")
+    assert os.listdir(tmp_path) == []
+    for off in ("0", "off"):
+        monkeypatch.setenv(knob, off)
+        with pytest.raises(FileNotFoundError):
+            workflow.main(cfg, "local")
+
+
+def test_chaos_wedge_raises_naming_the_failover_item(tmp_path, monkeypatch):
+    """A chaos plan with a ``wedge`` directive: the port has no backend
+    failover, which gives a wedge its outcome, so ``main`` raises before
+    any work instead of ignoring it; ``exc`` and ``hang`` plans run."""
+    from anovos_tpu_torch import workflow
+
+    cfg = load_config("configs_basic.yaml")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ANOVOS_TPU_CHAOS", "seed=3;exc@node:join_dataset;wedge@node:stats_generator/*")
+    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A item 5$"):
+        workflow.main(cfg, "local")
+    monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:join_dataset;hang@node:x:secs=1")
+    with pytest.raises(FileNotFoundError):
+        workflow.main(cfg, "local")
 
 
 def test_basic_report_skips_the_analytics_blocks(tmp_path, monkeypatch):

@@ -25,7 +25,8 @@ import pandas as pd
 import pytest
 
 from _torch_port import torch_cpu_runtime  # noqa: F401  (autouse fixture)
-from test_torch_workflow import assert_chart_close, assert_csv_close, load_config, run_both, tree
+from test_torch_workflow import (assert_chart_close, assert_csv_close, assert_report_close, load_config,
+                                 run_both, tree)
 
 ROWS = 2000
 AE_EPOCHS = 2
@@ -114,11 +115,13 @@ def segmentation_config(root: str) -> dict:
 
 def assert_trees_close(runs: dict, sub: str, latent_rule=None) -> list:
     got_dir, exp_dir = (os.path.join(runs[p], sub) for p in ("port", "jax"))
-    names = [n for n in tree(exp_dir) if not n.endswith("ml_anovos_report.html")]
-    assert [n for n in tree(got_dir) if not n.endswith("ml_anovos_report.html")] == names
+    names = tree(exp_dir)
+    assert tree(got_dir) == names
     for rel in names:
         gp, ep = os.path.join(got_dir, rel), os.path.join(exp_dir, rel)
-        if rel.endswith(".parquet"):
+        if rel.endswith("ml_anovos_report.html"):
+            assert_report_close(gp, ep)
+        elif rel.endswith(".parquet"):
             got, exp = pd.read_parquet(gp), pd.read_parquet(ep)
             if latent_rule and any(c.startswith("latent_") for c in exp.columns):
                 latent_rule(got, exp)

@@ -166,6 +166,57 @@ def test_configs_yaml_degrades_drift_as_jax_does(income_runs):
     assert "drift_statistics.csv" not in os.listdir(os.path.join(income_runs["port"], "report_stats"))
 
 
+def test_configs_yaml_report_names_the_degraded_drift(income_runs):
+    """Both runners' reports on configs.yaml lead with the Degraded Sections
+    tab naming drift_statistics and its error; the port's tab is the JAX
+    markup without the sentence that points at the run manifest and the run
+    journal, which the port does not write yet."""
+    from test_torch_workflow import JAX_ONLY_DEGRADED_TEXT, degraded_tab, report_tabs
+
+    got, exp = (open(os.path.join(income_runs[p], "report_stats", "ml_anovos_report.html")).read()
+                for p in ("port", "jax"))
+    assert report_tabs(got) == report_tabs(exp)
+    assert report_tabs(got)[0] == "Degraded Sections"
+    assert degraded_tab(got) == degraded_tab(exp).replace(JAX_ONLY_DEGRADED_TEXT, "")
+    assert ("1 analytics section(s) DEGRADED" in degraded_tab(got)
+            and "<b>drift_detector/drift_statistics</b>" in degraded_tab(got)
+            and "dupl_age" in degraded_tab(got))
+
+
+def test_quarantined_part_in_the_degraded_tab(data, tmp_path, monkeypatch):
+    """A part the ingest guard quarantines (corrupt on every read, no
+    retry) through both runners: the report's Degraded Sections tab lists
+    the part with its error class and the rows it held, and equals the JAX
+    tab but for ``JAX_ONLY_DEGRADED_TEXT``."""
+    from test_torch_workflow import JAX_ONLY_DEGRADED_TEXT, degraded_tab, report_tabs
+
+    full = pd.read_parquet(os.path.join(data["main"], "part-00000.parquet"))
+    parts = tmp_path / "parts"
+    parts.mkdir()
+    for i in range(2):
+        full.iloc[i * ROWS // 2:(i + 1) * ROWS // 2].to_parquet(parts / f"part-0000{i}.parquet", index=False)
+    cfg = {"input_dataset": {"read_dataset": {"file_path": str(parts), "file_type": "parquet"}},
+           "stats_generator": {"metric": ["measures_of_counts"],
+                               "metric_args": {"list_of_cols": "all", "drop_cols": ["ifa"]}},
+           "report_preprocessing": {"master_path": "report_stats"},
+           "report_generation": {"master_path": "report_stats", "id_col": "ifa",
+                                 "final_report_path": "report_stats"}}
+    monkeypatch.setenv("ANOVOS_INGEST_RETRIES", "0")
+    monkeypatch.setenv("ANOVOS_TPU_CHAOS", "corrupt@io:*part-00001.parquet:n=99")
+    (tmp_path / "runs").mkdir()
+    runs = run_both_recorded(cfg, str(tmp_path / "runs"))
+    assert set(runs["degraded"]) == set(runs["jax_degraded"]) == {"ingest/part-00001.parquet"}
+    got, exp = (open(os.path.join(runs[p], "report_stats", "ml_anovos_report.html")).read()
+                for p in ("port", "jax"))
+    assert report_tabs(got) == report_tabs(exp) and report_tabs(got)[0] == "Degraded Sections"
+    tab = degraded_tab(got)
+    assert tab == degraded_tab(exp).replace(JAX_ONLY_DEGRADED_TEXT, "")
+    assert (f"1 input part(s) QUARANTINED</b> ({ROWS // 2} row(s) lost" in tab
+            and f"<td>part-00001.parquet</td><td>ChaosCorrupt</td><td>{ROWS // 2}</td>" in tab)
+    counts = pd.read_csv(os.path.join(runs["port"], "report_stats", "measures_of_counts.csv"))
+    assert (counts["fill_count"] <= ROWS // 2).all()
+
+
 def test_configs_yaml_concatenates_and_joins(income_runs, data):
     """The joined dataset holds both reads of the input, each row joined to
     its one avro row, as pandas concatenates and merges them; the duplicate

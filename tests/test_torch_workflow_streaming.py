@@ -182,11 +182,17 @@ def test_killed_run_resumes_through_the_cli(data, tmp_path, monkeypatch):
     --resume`` on the CPU there: the four CSVs and the drift model equal
     the uninterrupted run's byte for byte, and fewer parts are decoded
     than the 36 of a fresh run (describe 12, missing 6, outlier 6, drift
-    3 + 3 + 6)."""
+    3 + 3 + 6).  The runs are sequential and retry and degrade nothing
+    (``ANOVOS_TPU_RETRIES=0``, ``ANOVOS_TPU_DEGRADE=0``), so the exception
+    that stands for the kill ends the run, as a kill would, after the
+    commits counted in YAML order."""
     from anovos_tpu_torch import workflow as pwf
     from anovos_tpu_torch.ops import streaming
 
     monkeypatch.setenv("ANOVOS_INGEST_RETRIES", "0")
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
+    monkeypatch.setenv("ANOVOS_TPU_RETRIES", "0")
+    monkeypatch.setenv("ANOVOS_TPU_DEGRADE", "0")
     monkeypatch.delenv("ANOVOS_TPU_CHAOS", raising=False)
     cfg = stream_config(data)
     cfg["streaming_analysis"]["chunk_rows"] = 200
