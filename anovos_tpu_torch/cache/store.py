@@ -11,7 +11,7 @@ The port's one writer is the continuum's snapshot commit
 manifest's ``files`` list is always empty here.  The JAX package's
 content-addressed ``objects/``, its file restore, its LRU ``gc`` and the
 ``ANOVOS_TPU_CACHE*`` knobs serve the runner's node cache, which is not
-ported (ROADMAP.md Queue A item 2).
+ported (ROADMAP.md Queue A item 1).
 
 Commit protocol (crash-safe by ordering): the payload dir lands first
 (tmp dir + rename), then the node manifest (tmp + rename).  A run killed

@@ -39,9 +39,8 @@ never changes the final state.
 
 The step summary has the JAX package's keys plus ``walls_s``: the
 step's wall split into decode, fold, fit, refold, finalize, render,
-alerts and snapshot seconds.  Unlike the JAX package's ``@timed`` step,
-no tracer span is recorded (the tracer is not ported, ROADMAP.md Queue A
-item 6).
+alerts and snapshot seconds.  :func:`step` is ``@timed`` under the JAX
+label ``continuum.step``.
 """
 
 from __future__ import annotations
@@ -73,6 +72,7 @@ from anovos_tpu_torch.continuum.sufficient import (
 )
 from anovos_tpu_torch.obs import flight, telemetry
 from anovos_tpu_torch.obs.metrics import get_metrics
+from anovos_tpu_torch.obs.timed import timed
 
 logger = logging.getLogger(__name__)
 
@@ -455,6 +455,7 @@ def _write_artifacts(out_dir: str, arts: Dict[str, pd.DataFrame]) -> Dict[str, s
     return paths
 
 
+@timed("continuum.step")
 def step(cfg: ContinuumConfig) -> dict:
     """One arrival-loop iteration; returns the step summary (also
     journaled as ``step_end``)."""

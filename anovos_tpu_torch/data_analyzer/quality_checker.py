@@ -29,6 +29,7 @@ from anovos_tpu_torch.data_transformer.model_io import load_model_df, save_model
 from anovos_tpu_torch.data_transformer.imputers import (auto_imputation, imputation_matrixFactorization,
                                                         imputation_sklearn)
 from anovos_tpu_torch.data_transformer.transformers import _emit, imputation_MMM
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.quantiles import masked_quantiles
 from anovos_tpu_torch.ops.reductions import masked_moments
 from anovos_tpu_torch.ops.segment import row_signature, vocab_lookup
@@ -617,6 +618,7 @@ def _outlier_counts_dispatch(lo: torch.Tensor, hi: torch.Tensor):
     return dispatch
 
 
+@timed("quality_checker.missing_stats_streaming")
 def missing_stats_streaming(
     file_path: str,
     file_type: str,
@@ -671,6 +673,7 @@ def missing_stats_streaming(
     return odf
 
 
+@timed("quality_checker.outlier_stats_streaming")
 def outlier_stats_streaming(
     file_path: str,
     file_type: str,

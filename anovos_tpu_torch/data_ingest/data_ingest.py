@@ -30,7 +30,7 @@ import pyarrow.csv as pacsv
 import torch
 
 from anovos_tpu_torch.data_ingest import avro_io, guard
-from anovos_tpu_torch.obs import get_metrics
+from anovos_tpu_torch.obs import devprof, get_metrics, get_tracer
 from anovos_tpu_torch.ops.segment import masked_nunique
 from anovos_tpu_torch.shared.native import NativeEncodedStrings
 from anovos_tpu_torch.shared.table import Column, Table, host_to_column
@@ -171,6 +171,13 @@ def read_dataset(file_path: str, file_type: str, file_configs: Optional[dict] = 
     if file_type not in _EXTENSIONS:
         raise ValueError(f"unsupported file_type: {file_type}")
     cfg = dict(file_configs or {})
+    with get_tracer().span("io:read_dataset", cat="io", path=str(file_path), file_type=file_type):
+        out = _read_table(file_path, file_type, cfg, device)
+    get_metrics().counter("rows_ingested_total", "rows read into device Tables").inc(out.nrows)
+    return out
+
+
+def _read_table(file_path: str, file_type: str, cfg: dict, device) -> Table:
     files = _resolve_files(file_path, file_type)
     out = None
     if file_type == "avro":
@@ -199,7 +206,6 @@ def read_dataset(file_path: str, file_type: str, file_configs: Optional[dict] = 
             out = tables[0] if len(tables) == 1 else concatenate_dataset(*tables, method_type="name")
     if out is None:
         out = Table.from_pandas(read_host_frame(files, file_type, cfg), device=device)
-    get_metrics().counter("rows_ingested_total", "rows read into device Tables").inc(out.nrows)
     return out
 
 
@@ -227,9 +233,11 @@ def write_dataset(
     os.makedirs(file_path, exist_ok=True)
     df = idf.to_pandas()
     parts = np.array_split(np.arange(len(df)), max(repartition, 1))
+    written = []
     for i, part_idx in enumerate(parts):
         part = df if len(parts) == 1 else df.iloc[part_idx]
         stem = os.path.join(file_path, f"part-{i:05d}")
+        written.append(f"{stem}.{file_type}")
         if file_type == "csv":
             header = str(cfg.get("header", True)).lower() in ("true", "1")
             delim = str(cfg.get("delimiter", ","))
@@ -247,6 +255,10 @@ def write_dataset(
                                 write_options=pacsv.WriteOptions(include_header=header,
                                                                  delimiter=delim))
             except pa.ArrowException as e:
+                get_metrics().counter(
+                    "csv_pandas_fallback_total",
+                    "checkpoint CSV parts written by the pandas fallback writer "
+                    "(mixed-format directory risk)").inc()
                 logger.info("pyarrow CSV writer refused %s (%s: %s); writing it with pandas",
                             stem, type(e).__name__, e)
                 part.to_csv(stem + ".csv", index=False, header=header, sep=delim)
@@ -259,6 +271,10 @@ def write_dataset(
         else:
             raise ValueError(f"unsupported file_type: {file_type}")
     open(os.path.join(file_path, "_SUCCESS"), "w").close()
+    reg = get_metrics()
+    reg.counter("bytes_written_total", "artifact bytes written to disk"
+                ).inc(sum(os.path.getsize(f) for f in written))
+    reg.counter("rows_written_total", "rows persisted by write_dataset").inc(len(df))
 
 
 def _concat_columns(cols: List[Column], name: str) -> Column:
@@ -287,7 +303,11 @@ def _concat_columns(cols: List[Column], name: str) -> Column:
             return Column("num", v64.to(torch.float32), mask, dtype_name="bigint", exact=v64)
         # float-wide, or wide mixed with float parts: float64 semantics
         v = torch.cat([(c.exact if c.is_wide else c.data).to(torch.float64) for c in cols])
-        v = torch.where(mask, v, float("nan")).cpu().numpy()
+        v = torch.where(mask, v, float("nan"))
+        # the port concatenates on the device; only this column goes
+        # through the host, to take the encoding rules again
+        with devprof.transfer_bracket("d2h", v.nbytes, label="data_ingest.concat"):
+            v = v.cpu().numpy()
         return host_to_column(v, len(v), dev)
     dtypes = {c.data.dtype for c in cols}
     tgt = torch.float32 if len(dtypes) > 1 else dtypes.pop()

@@ -335,6 +335,11 @@ class DecodePool:
         self._spill_root = spill_dir_spec()
         self._spill_dir: Optional[str] = None
         self._threads: List[threading.Thread] = []
+        # the consuming node's devprof frame: decode on the pool's threads
+        # books to it (those threads carry no frame of their own)
+        from anovos_tpu_torch.obs import devprof
+
+        self._frame = devprof.current_frame()
         if controller.workers > 0:
             self._spawn(controller.workers)
 
@@ -416,6 +421,7 @@ class DecodePool:
     def _decode(self, i: int) -> Tuple[str, object]:
         from anovos_tpu_torch.data_ingest import data_ingest as di
         from anovos_tpu_torch.data_ingest.guard import IngestError
+        from anovos_tpu_torch.obs import devprof
 
         f = self._files[i]
         t0 = time.perf_counter()
@@ -434,6 +440,7 @@ class DecodePool:
                 nbytes = os.path.getsize(f)
             except OSError:
                 nbytes = 0
+            devprof.record_decode(dt, nbytes, label=os.path.basename(f), frame=self._frame)
             if self._stats is not None:
                 self._stats.add_decode(dt, nbytes)
 

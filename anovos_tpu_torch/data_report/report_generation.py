@@ -21,14 +21,14 @@ This is the port's own copy of ``anovos_tpu/data_report/report_generation.py``
 whose input is a file under ``master_path`` is kept byte for byte.  The
 Degraded Sections tab leads the report whenever the degradation registry
 (``resilience/policy.py``) or the ingest guard (``data_ingest/guard.py``)
-holds an entry, with the JAX markup; its text leaves out the JAX text's
-pointer to the run manifest's ``resilience`` section and to
-``obs/run_journal.jsonl``, files the port does not write yet (ROADMAP.md
-Queue A items 1 and 2).  Three parts of the JAX renderer read layers the
-port does not have yet and are left out: the Run Timings tab (obs run
-manifest), the Perf Ledger tab and the Run Diff tab.  In a fresh run
-directory the JAX renderer shows none of the three (``workflow.run``
-refuses ``ANOVOS_PERF_LEDGER`` and ``ANOVOS_RUN_DIFF_BASELINE``).
+holds an entry, with the JAX markup and text.  The Run Timings tab
+renders from ``<master_path>/obs/run_manifest.json`` when a completed run
+left one there (``run_timings_gen``), after Geospatial, as in the JAX
+renderer.  Two parts of the JAX renderer read layers the port does not
+have yet and are left out: the Perf Ledger tab and the Run Diff tab
+(ROADMAP.md Queue A item 3).  In a fresh run directory the JAX renderer
+shows neither (``workflow.run`` refuses ``ANOVOS_PERF_LEDGER`` and
+``ANOVOS_RUN_DIFF_BASELINE``).
 """
 
 from __future__ import annotations
@@ -1197,6 +1197,163 @@ def loc_report_gen(
 
 
 
+def run_timings_gen(master_path: str = ".") -> str:
+    """"Run Timings" tab: the node-timing table from the obs run manifest.
+
+    Reads ``<master_path>/obs/run_manifest.json`` — the machine-readable
+    record the workflow writes AFTER a run completes.  A report generated
+    mid-run against a fresh output directory (the normal in-pipeline
+    ``report_generation`` node) finds no manifest yet and the tab is
+    omitted — which is what keeps the HTML byte-identical across executor
+    modes in the golden parity suite's fresh-directory setup.  When a
+    manifest IS present (a report re-generated over an earlier job's
+    master_path — the split-job flow — or an in-pipeline re-run into the
+    same directory), the tab surfaces THAT completed run's executor mode,
+    critical path, per-node walls and queue waits, stamped with the
+    manifest's generation time so a reader can tell it describes the
+    previous completed run, not necessarily the run that rendered this
+    report.
+    """
+    path = os.path.join(master_path, "obs", "run_manifest.json")
+    if not os.path.exists(path):
+        return ""
+    try:
+        with open(path) as f:
+            man = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        logger.warning("run manifest at %s unreadable (%s); omitting timings tab", path, e)
+        return ""
+    sched = man.get("scheduler") or {}
+    html = ["<h3>Workflow Run Timings</h3>"]
+    import time as _time
+
+    gen = man.get("generated_unix")
+    gen_iso = (
+        _time.strftime("%Y-%m-%dT%H:%M:%SZ", _time.gmtime(gen))
+        if isinstance(gen, (int, float)) else "unknown"
+    )
+    html.append(
+        "<p>From <code>obs/run_manifest.json</code> — the most recent completed "
+        f"run at this master path, generated <b>{escape(gen_iso)}</b> "
+        f"(executor <b>{escape(str(man.get('executor', {}).get('mode')))}</b>, "
+        f"config <code>{escape(str(man.get('config_hash', ''))[:12])}</code>, "
+        f"backend <b>{escape(str(man.get('backend')))}</b>).</p>"
+    )
+    kv = pd.DataFrame(
+        {
+            "metric": ["wall_s", "serial_s", "critical_path_s", "parallel_speedup", "workers"],
+            "value": [sched.get("wall_s"), sched.get("serial_s"),
+                      sched.get("critical_path_s"), sched.get("parallel_speedup"),
+                      sched.get("workers")],
+        }
+    )
+    html.append(_table_html(kv, "scheduler summary"))
+    nodes = sched.get("nodes") or {}
+    if nodes:
+        rows = [
+            {
+                "node": name,
+                "state": nd.get("state"),
+                "dur_s": nd.get("dur_s"),
+                "queue_wait_s": nd.get("queue_wait_s"),
+                "worker": nd.get("thread"),
+                "deps": ", ".join(nd.get("deps") or []),
+            }
+            for name, nd in nodes.items()
+        ]
+        node_df = pd.DataFrame(rows).sort_values(
+            "dur_s", ascending=False, na_position="last")
+        html.append(_table_html(node_df, "per-node execution"))
+    cp = man.get("critical_path") or []
+    if cp:
+        html.append("<p>Critical path: <code>"
+                    + escape(" → ".join(cp)) + "</code></p>")
+    blocks = man.get("block_seconds") or {}
+    if blocks:
+        blk = pd.DataFrame(
+            sorted(blocks.items(), key=lambda kv: -kv[1]),
+            columns=["block", "wall_s"],
+        )
+        html.append(_table_html(blk, "per-block wall time"))
+    html.append(_devprof_split_html(man.get("devprof") or {}))
+    return "".join(html)
+
+
+# devprof stacked-bar segment colors: categorical slots 1-3 of the
+# validated default palette (all-pairs CVD-clean on a light surface) for
+# the three attributed categories, neutral gray for the host remainder;
+# identity never rides color alone — the legend + per-segment tooltips
+# carry it, and the numbers are in the adjacent table
+_DEVPROF_SEGMENTS = (
+    ("device", "device_time_s", "#2a78d6"),
+    ("dispatch", "dispatch_s", "#eb6834"),
+    ("transfer", "transfer_s", "#1baf7a"),
+    ("host", "host_s", "#b4b2ab"),
+)
+
+
+def _devprof_split_html(dev: dict) -> str:
+    """Per-node device/dispatch/transfer/host stacked split from the
+    manifest's ``devprof`` section (obs.devprof); empty string when the
+    manifest predates the section."""
+    rows = [(name, e) for name, e in dev.items()
+            if isinstance(e, dict) and (e.get("wall_s") or 0) > 0]
+    if not rows:
+        return ""
+    rows.sort(key=lambda kv: -(kv[1].get("wall_s") or 0))
+    max_wall = max(e.get("wall_s") or 0 for _, e in rows) or 1.0
+    html = ["<h4>Device-time attribution (obs.devprof)</h4>",
+            "<p>Each node's wall split into <b>device</b> (device-queue "
+            "drain), <b>dispatch</b> (host wall inside jitted ops), "
+            "<b>transfer</b> (host&harr;device materialization) and "
+            "<b>host</b> (the remainder). Bar lengths are scaled to the "
+            "slowest node.</p>"]
+    legend = "".join(
+        f"<span style='display:inline-block;margin-right:14px'>"
+        f"<span style='display:inline-block;width:10px;height:10px;"
+        f"background:{color};border-radius:2px;margin-right:4px'></span>"
+        f"{escape(label)}</span>"
+        for label, _, color in _DEVPROF_SEGMENTS)
+    html.append(f"<div style='margin:4px 0 8px 0'>{legend}</div>")
+    for name, e in rows:
+        wall = e.get("wall_s") or 0.0
+        width_pct = wall / max_wall * 100.0
+        segs = []
+        for label, key, color in _DEVPROF_SEGMENTS:
+            v = float(e.get(key) or 0.0)
+            if v <= 0:
+                continue
+            seg_pct = v / wall * 100.0
+            segs.append(
+                f"<span title='{escape(label)} {v:.4f}s "
+                f"({seg_pct:.0f}%)' style='display:inline-block;"
+                f"height:12px;background:{color};width:{seg_pct:.2f}%;"
+                # 2px surface gap between stacked segments
+                f"border-right:2px solid #fff;box-sizing:border-box'>"
+                "</span>")
+        xfer = (e.get("h2d_bytes") or 0) + (e.get("d2h_bytes") or 0)
+        html.append(
+            "<div style='margin:3px 0;font-size:12px'>"
+            f"<code>{escape(name)}</code> — {wall:.3f}s"
+            + (f", {xfer / 1e6:.1f} MB moved" if xfer else "")
+            + f"<div style='width:{width_pct:.1f}%;min-width:40px;"
+              f"white-space:nowrap;font-size:0'>{''.join(segs)}</div></div>")
+    tbl = pd.DataFrame([
+        {"node": name,
+         "wall_s": e.get("wall_s"),
+         "device_s": e.get("device_time_s"),
+         "dispatch_s": e.get("dispatch_s"),
+         "transfer_s": e.get("transfer_s"),
+         "host_s": e.get("host_s"),
+         "h2d_bytes": e.get("h2d_bytes"),
+         "d2h_bytes": e.get("d2h_bytes"),
+         "last_op": e.get("last_op")}
+        for name, e in rows
+    ])
+    html.append(_table_html(tbl, "devprof per node"))
+    return "".join(html)
+
+
 def degraded_tab() -> Optional[tuple]:
     """("Degraded Sections", html) when this run degraded a section or
     quarantined an input part, else None (a clean run's HTML is unchanged).
@@ -1242,7 +1399,9 @@ def degraded_tab() -> Optional[tuple]:
         "<div class='anv-degraded'><p><b>"
         f"{len(degraded)} analytics section(s) DEGRADED this run"
         "</b>: the nodes below exhausted their retry budget and were "
-        "skipped rather than aborting the pipeline. "
+        "skipped rather than aborting the pipeline (see the run "
+        "manifest's <code>resilience</code> section and "
+        "<code>obs/run_journal.jsonl</code> for the failure record). "
         "Their statistics are missing from the tabs that follow.</p>"
         f"<ul>{items}</ul>{qrows}</div>",
     )
@@ -1330,6 +1489,9 @@ def anovos_report(
     geo_html = loc_report_gen(master_path=master_path)
     if geo_html:
         tabs.append(("Geospatial", geo_html))
+    timings_html = run_timings_gen(master_path)
+    if timings_html:
+        tabs.append(("Run Timings", timings_html))
 
     nav = "".join(
         f"<button class=\"{'active' if i == 0 else ''}\" onclick='showTab({i})'>{escape(t)}</button>"

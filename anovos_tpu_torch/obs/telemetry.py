@@ -8,7 +8,7 @@ beat nothing refreshes would read as a dead service).
 
 The HTTP plane that reads the beats (``acquire``/``release``,
 ``/metrics``, ``/healthz``, ``/statusz``, ``ANOVOS_TPU_TELEMETRY``) is
-not ported (ROADMAP.md Queue A item 4).  :data:`UNPORTED_KNOBS` lists
+not ported (ROADMAP.md Queue A item 3).  :data:`UNPORTED_KNOBS` lists
 every knob the JAX runner, scheduler or renderer reads whose layer the
 port still lacks, each with the ROADMAP item that ports it, and
 :func:`check_unported_knobs` raises where a user sets one instead of
@@ -32,21 +32,17 @@ _HEARTBEATS: Dict[str, dict] = {}
 # knobs of layers the port does not have yet: what each asks for and the
 # ROADMAP.md Queue A item that ports it
 UNPORTED_KNOBS = {
-    "ANOVOS_TPU_TRACE": ("a Chrome trace of the run", 1),
-    "ANOVOS_TPU_TRACE_BUFFER": ("the tracer's span ring", 1),
-    "ANOVOS_PROFILE": ("a profiler trace of the run", 1),
-    "ANOVOS_TPU_DEVPROF": ("device-time attribution per node", 1),
-    "ANOVOS_TPU_CACHE": ("the node cache", 2),
-    "ANOVOS_TPU_CACHE_LINK": ("the node cache's linked restores", 2),
-    "ANOVOS_TPU_CACHE_MAX_BYTES": ("the node cache's capacity sweep", 2),
-    "ANOVOS_TPU_TELEMETRY": ("the telemetry HTTP plane", 4),
-    "ANOVOS_TPU_SLO_ERROR_BUDGET": ("the telemetry plane's SLO windows", 4),
-    "ANOVOS_TPU_TRACE_ROTATE": ("trace rotation", 4),
-    "ANOVOS_TPU_FLIGHTREC": ("the flight recorder's dumps", 4),
-    "ANOVOS_PERF_LEDGER": ("the report's Perf Ledger tab", 4),
-    "ANOVOS_RUN_DIFF_BASELINE": ("the report's Run Diff tab", 4),
-    "ANOVOS_TPU_HEALTH_TIMEOUT": ("the backend failover's health probe", 5),
-    "ANOVOS_TPU_PLACEMENT": ("multi-device placement", 6),
+    "ANOVOS_TPU_CACHE": ("the node cache", 1),
+    "ANOVOS_TPU_CACHE_LINK": ("the node cache's linked restores", 1),
+    "ANOVOS_TPU_CACHE_MAX_BYTES": ("the node cache's capacity sweep", 1),
+    "ANOVOS_TPU_TELEMETRY": ("the telemetry HTTP plane", 3),
+    "ANOVOS_TPU_SLO_ERROR_BUDGET": ("the telemetry plane's SLO windows", 3),
+    "ANOVOS_TPU_TRACE_ROTATE": ("trace rotation", 3),
+    "ANOVOS_TPU_FLIGHTREC": ("the flight recorder's dumps", 3),
+    "ANOVOS_PERF_LEDGER": ("the report's Perf Ledger tab", 3),
+    "ANOVOS_RUN_DIFF_BASELINE": ("the report's Run Diff tab", 3),
+    "ANOVOS_TPU_HEALTH_TIMEOUT": ("the backend failover's health probe", 4),
+    "ANOVOS_TPU_PLACEMENT": ("multi-device placement", 5),
 }
 
 # the two knobs of the service plane, which the continuum's run checks

@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.kernels.neighbor_counts import neighbor_counts_rows, row_sq_norms, sq_dist
 from anovos_tpu_torch.shared.native import native_edge_components_minc
 from anovos_tpu_torch.shared.runtime import get_runtime
@@ -94,6 +95,7 @@ def _lloyd(X: torch.Tensor, C: torch.Tensor, iters: int, active: Optional[torch.
     return C
 
 
+@timed("ops.kmeans_fit")
 def kmeans_fit(X, k: int, iters: int = 50, seed: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Lloyd's algorithm.  X: (n, d) → (centers (k, d), labels (n,),
@@ -129,6 +131,7 @@ def _kmeans_inertia_sweep(X: torch.Tensor, max_k: int, iters: int = 50, seed: in
     return torch.clamp_min(_center_dists(X, C, active).amin(dim=-1).sum(dim=-1), 0.0)
 
 
+@timed("ops.kmeans_elbow")
 def kmeans_elbow(X: np.ndarray, max_k: int = 20, seed: int = 0) -> Tuple[int, np.ndarray]:
     """Pick k by the knee of the inertia curve (elbow method).  The sweep
     runs on at most ``ANOVOS_KMEANS_ELBOW_SAMPLE`` points (0 = all) for
@@ -373,6 +376,7 @@ def dbscan_host_grid_multi(D2: np.ndarray, eps_list: List[float], min_samples_li
     return out
 
 
+@timed("ops.dbscan_grid")
 def dbscan_grid(X: np.ndarray, eps: float, min_samples_list: List[int],
                 counts: Optional[np.ndarray] = None, tile: int = 4096, max_iter: int = 200
                 ) -> np.ndarray:
@@ -411,6 +415,7 @@ def dbscan_grid(X: np.ndarray, eps: float, min_samples_list: List[int],
     return out
 
 
+@timed("ops.dbscan_fit")
 def dbscan_fit(X: np.ndarray, eps: float, min_samples: int, tile: int = 4096, max_iter: int = 200,
                counts: Optional[np.ndarray] = None) -> np.ndarray:
     """DBSCAN labels (−1 = noise).

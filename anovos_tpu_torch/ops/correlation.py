@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.mxu import bf16_sweep, mm
 from anovos_tpu_torch.ops.reductions import masked_mean
 
@@ -22,6 +23,7 @@ def _centred(X: torch.Tensor, M: torch.Tensor):
     return torch.where(M, Xf - masked_mean(Xf, M)[None, :], 0.0), Mf
 
 
+@timed("ops.masked_corr")
 def masked_corr(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """Pairwise-complete Pearson correlation: X, M (rows, k) → (k, k) f32,
     1 on the diagonal, NaN where a pair has no spread."""
@@ -43,6 +45,7 @@ def masked_corr(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return torch.where(eye, 1.0, corr)
 
 
+@timed("ops.masked_cov")
 def masked_cov(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """Pairwise-complete sample covariance (n − 1): (k, k) f32, NaN where a
     pair has fewer than two rows.
@@ -66,6 +69,7 @@ def masked_cov(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return cov.to(torch.float32)
 
 
+@timed("ops.masked_corr_cc")
 def masked_corr_cc(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """Complete-case Pearson correlation: only rows valid in every column."""
     return masked_corr(X, M & M.all(dim=1, keepdim=True))

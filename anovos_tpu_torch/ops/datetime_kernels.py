@@ -19,6 +19,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
+
 SECS_PER_DAY = 86400
 
 # cumulative days before each month, and days in each month (non-leap)
@@ -103,6 +105,7 @@ def _days_in_month(m: torch.Tensor, leap: torch.Tensor) -> torch.Tensor:
     return _table(_MONTH_DAYS, m)[(m - 1).long()] + _i32((m == 2) & leap)
 
 
+@timed("ops.extract_unit")
 def extract_unit(secs: torch.Tensor, unit: str) -> torch.Tensor:
     """One calendar component (pandas ``.dt`` semantics; dayofweek is
     1-based, as the reference's shifted Spark dayofweek)."""
@@ -114,6 +117,7 @@ def extract_unit(secs: torch.Tensor, unit: str) -> torch.Tensor:
     return c[unit]
 
 
+@timed("ops.period_boundary")
 def period_boundary(secs: torch.Tensor, which: str, period: str) -> torch.Tensor:
     """Start or end (midnight) of the month, quarter or year, as epoch
     seconds."""
@@ -133,6 +137,7 @@ def period_boundary(secs: torch.Tensor, which: str, period: str) -> torch.Tensor
     return days * SECS_PER_DAY
 
 
+@timed("ops.is_period_boundary")
 def is_period_boundary(secs: torch.Tensor, which: str, period: str) -> torch.Tensor:
     """pandas is_{month,quarter,year}_{start,end}: the calendar day equals
     the period's boundary day (time of day ignored)."""
@@ -140,6 +145,7 @@ def is_period_boundary(secs: torch.Tensor, which: str, period: str) -> torch.Ten
     return c["days"] * SECS_PER_DAY == period_boundary(secs, which, period)
 
 
+@timed("ops.add_months")
 def add_months(secs: torch.Tensor, months: int) -> torch.Tensor:
     """Month-aware shift with end-of-month clamping (``DateOffset``)."""
     c = civil_from_epoch(secs)

@@ -25,6 +25,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.reductions import masked_moments
 from anovos_tpu_torch.ops.segment import cat_valid_mask, code_histograms
 from anovos_tpu_torch.ops.streaming import _chunk_stats, _pairwise_merge
@@ -62,6 +63,7 @@ def _order_stats(Xs: torch.Tensor, n_int: torch.Tensor) -> Dict[str, torch.Tenso
     }
 
 
+@timed("ops.describe_numeric")
 def describe_numeric(X: torch.Tensor, M: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Moments, percentiles, distinct counts and mode of a (rows, k) block."""
     Xf = X.to(torch.float32)
@@ -111,6 +113,7 @@ def chunk_view(X: torch.Tensor, M: torch.Tensor, chunk: int = _COMPENSATED_CHUNK
     return Xv.view(k * c, chunk), Mv.view(k * c, chunk), shift
 
 
+@timed("ops.compensated_moments")
 def compensated_moments(X: torch.Tensor, M: torch.Tensor,
                         chunk: int = _COMPENSATED_CHUNK) -> Dict[str, np.ndarray]:
     """Chunked Chan moments of a (rows, k) block: count, mean, variance
@@ -177,10 +180,13 @@ def float_from_order_key(key: torch.Tensor) -> torch.Tensor:
     return (key ^ ((key >> 63) & _INT64_MAX)).view(torch.float64)
 
 
+@timed("ops.describe_wide_int")
 def describe_exact(E: torch.Tensor, M: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Exact order statistics of wide columns: E (rows, k) int64 or float64,
     M (rows, k).  Returns count, nunique, percentiles (q, k), mode_value and
-    mode_count, values in E's dtype."""
+    mode_count, values in E's dtype.  Timed under the label of the JAX
+    function whose work it does, ``describe_wide_int`` (which, in the port,
+    only converts (hi, lo) pairs and calls this)."""
     is_float = E.dtype == torch.float64
     keys = float_order_key(E) if is_float else E.to(torch.int64)
     n_int = M.sum(dim=0)
@@ -239,6 +245,7 @@ _CAT_SHARED_MAX_VOCAB = 1024
 _DESCRIBE_LOCK = threading.Lock()
 
 
+@timed("ops.table_describe")
 def table_describe(idf: Table, num_cols: List[str], cat_cols: List[str]) -> Tuple[dict, dict]:
     """Memoized description: (numeric dict of host arrays, cat dict with
     per-column count/nunique/mode_code/mode_count).  The cache lives on

@@ -13,11 +13,13 @@ from typing import Sequence, Tuple
 
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols
 from anovos_tpu_torch.ops.quantiles import masked_quantiles
 from anovos_tpu_torch.ops.segment import code_histograms
 
 
+@timed("ops.binned_histograms")
 def binned_histograms(X: torch.Tensor, M: torch.Tensor, cutoffs: torch.Tensor,
                       nbins: int) -> torch.Tensor:
     """Numeric columns → per-column bin counts.  X/M (rows, k); cutoffs
@@ -28,6 +30,7 @@ def binned_histograms(X: torch.Tensor, M: torch.Tensor, cutoffs: torch.Tensor,
                                   cutoffs.to(torch.float32).contiguous(), nbins)
 
 
+@timed("ops.drift_side_full")
 def drift_side_full(
     num_datas: Sequence[torch.Tensor],
     num_masks: Sequence[torch.Tensor],

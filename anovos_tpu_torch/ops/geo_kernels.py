@@ -23,6 +23,8 @@ from typing import Tuple
 
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
+
 EARTH_RADIUS_M = 6371009.0  # the host codec's, geo_utils.EARTH_RADIUS_M
 
 _WGS84_A = 6_378_137.0
@@ -92,6 +94,7 @@ def _vincenty_terms(lam, sinU1, cosU1, sinU2, cosU2):
     return sin_sigma, cos_sigma, sigma, sin_alpha, cos2_alpha, cos_2sm
 
 
+@timed("ops.vincenty")
 def vincenty(lat1, lon1, lat2, lon2, iters: int = 20) -> torch.Tensor:
     """Vincenty's inverse geodesic on the WGS-84 ellipsoid in metres, a
     fixed ``iters`` rounds of the λ update (no convergence test);
@@ -214,6 +217,7 @@ def _segment_sums(vals, seg, valid, nseg: int) -> torch.Tensor:
     return out[:, :nseg]
 
 
+@timed("ops.segment_centroid")
 def segment_centroid(x, y, z, seg, valid, nseg: int):
     """Per-segment cartesian means → (clat, clon) float64 and the int64
     count of valid rows, each (nseg,)."""
@@ -225,6 +229,7 @@ def segment_centroid(x, y, z, seg, valid, nseg: int):
     return clat, clon, cnt
 
 
+@timed("ops.segment_weighted_centroid")
 def segment_weighted_centroid(x, y, z, w, seg, valid, nseg: int):
     """Per-segment weighted cartesian means → (clat, clon, sum of weights),
     float64 (nseg,); a segment whose weights sum to 0 divides by 1."""
@@ -235,6 +240,7 @@ def segment_weighted_centroid(x, y, z, w, seg, valid, nseg: int):
     return clat, clon, sw
 
 
+@timed("ops.segment_rog")
 def segment_rog(lat, lon, seg, valid, nseg: int):
     """Radius of gyration per segment: the RMS haversine distance of its
     valid rows to its centroid → (rog float64, count int64), (nseg,)."""

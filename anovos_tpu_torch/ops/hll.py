@@ -18,6 +18,7 @@ import warnings
 import numpy as np
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.segment import _U32, _mul_u32
 
 # values (rows × columns) a pass, so a pass's int64 hash lanes stay near 128 MB
@@ -61,6 +62,7 @@ def _ranks(X: torch.Tensor, M: torch.Tensor, p: int):
     return bucket, torch.where(M, _clz32(rest) + 1, 0)
 
 
+@timed("ops.hll_registers")
 def hll_registers(X: torch.Tensor, M: torch.Tensor, p: int) -> torch.Tensor:
     """Per-column HLL registers: X (rows, k) values (floats by their f32
     bit pattern, integers by their int32 value), M (rows, k) → (k, 2^p)

@@ -16,10 +16,12 @@ from typing import Optional, Sequence
 
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.mxu import true_f32
 from anovos_tpu_torch.ops.reductions import masked_mean
 
 
+@timed("ops.knn_impute_tile")
 def knn_impute_tile(
     Xq: torch.Tensor,
     Mq: torch.Tensor,

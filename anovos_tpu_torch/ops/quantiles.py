@@ -7,7 +7,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 
+
+@timed("ops.masked_quantiles")
 def masked_quantiles(X: torch.Tensor, M: torch.Tensor, qs, interpolation: str = "linear") -> torch.Tensor:
     """Exact quantiles per column: X, M (rows, k); qs (q,) in [0, 1] →
     (q, k).  Invalid entries sort to the dtype's max; the index is scaled

@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols
 
 
@@ -48,6 +49,7 @@ def moments_accumulator(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return masked_moments_cols(Xc.contiguous(), M.t().contiguous())
 
 
+@timed("ops.masked_moments")
 def masked_moments(X: torch.Tensor, M: torch.Tensor) -> Dict[str, torch.Tensor]:
     """All central moments per column of a masked (rows, k) block: dict of
     (k,) f32 tensors count, sum, mean, variance (sample), stddev, skewness,

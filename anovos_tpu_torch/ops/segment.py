@@ -8,9 +8,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from anovos_tpu_torch.obs.timed import timed
+
 _U32 = 0xFFFFFFFF
 
 
+@timed("ops.masked_nunique")
 def masked_nunique(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """Exact distinct count per column of the valid entries: X (rows, k)
     of any numeric dtype, M (rows, k) bool → (k,) int64.  Integer inputs
@@ -27,6 +30,7 @@ def masked_nunique(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return (trans & valid).sum(dim=0)
 
 
+@timed("ops.vocab_lookup")
 def vocab_lookup(lut_host, codes: torch.Tensor) -> torch.Tensor:
     """Per-code lookup through a small host-built table; codes are clipped,
     callers keep their own null masking."""
@@ -65,6 +69,7 @@ def cat_valid_mask(codes: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return M & (codes >= 0)
 
 
+@timed("ops.code_counts")
 def code_counts(codes: torch.Tensor, M: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Frequency of each code 0..vocab_size-1 of ONE categorical column
     (codes (rows,) with -1 for null) as f32."""
@@ -72,6 +77,7 @@ def code_counts(codes: torch.Tensor, M: torch.Tensor, vocab_size: int) -> torch.
     return torch.bincount(codes[valid].to(torch.int64), minlength=vocab_size)[:vocab_size].to(torch.float32)
 
 
+@timed("ops.code_label_counts")
 def code_label_counts(codes: torch.Tensor, M: torch.Tensor, y: torch.Tensor,
                       vocab_size: int) -> torch.Tensor:
     """Per-code sum of a row weight or 0/1 label y (rows,) over the valid

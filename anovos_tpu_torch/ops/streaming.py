@@ -47,6 +47,8 @@ import torch
 
 from anovos_tpu_torch.data_ingest.guard import IngestError, guarded_part_read, policy_from_env, raw_reader
 from anovos_tpu_torch.data_ingest.prefetch import DecodePool, StreamController, StreamStats, plan_file_skips
+from anovos_tpu_torch.obs import devprof
+from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols
 from anovos_tpu_torch.ops.quantiles import quantiles_from_histogram
 
@@ -203,6 +205,7 @@ def _iter_chunks(
                 nbytes = os.path.getsize(f)
             except OSError:
                 nbytes = 0
+            devprof.record_decode(dt, nbytes, label=os.path.basename(f))
             if stats is not None:
                 stats.add_decode(dt, nbytes)
                 stats.add_fetch_wait(dt)
@@ -644,6 +647,7 @@ def moments_finish(part: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return _chunk_partial(part["acc"])
 
 
+@timed("ops.describe_streaming")
 def describe_streaming(
     file_path: str,
     file_type: str,

@@ -43,14 +43,27 @@ time, so one block's device compute overlaps another's host work.
   drops cannot be handed by the caching allocator to another stream while
   this node's kernels still read it.  Host nodes take no stream.
   Sequential mode runs every node on the caller's current stream.
+* **Run record.**  Each node runs inside its tracer span (``deps``,
+  ``queue_wait_s``, ``lane``, ``scheduler``) and its devprof bracket
+  (``obs/devprof.py``), and books ``node_wall_seconds`` and
+  ``node_queue_wait_seconds``.  The devprof drain is the stream sync at
+  the end of each attempt: in the concurrent mode the worker stream's
+  sync above, booked as device time under ``ANOVOS_TPU_DEVPROF=full``
+  only (a node's sync waits on its own stream, but the card is shared, so
+  the default books none, as the JAX executor drains no concurrent
+  node); in the sequential mode on the card a sync of the caller's
+  current stream at the end of each attempt, always booked (unless
+  ``ANOVOS_TPU_DEVPROF=0``, which also drops the sync).  Either sync is
+  inside the attempt, so a CUDA error it surfaces meets the node's error
+  policy.
 * **Summary.**  ``run()`` returns per-node start/end/thread spans, the
   measured critical path (longest dependency chain by wall time), the
   serial seconds and the parallel speedup.
 
-The JAX executor's node cache (ROADMAP.md Queue A item 2), tracer spans,
-devprof brackets, flight dumps and telemetry gauges (items 1 and 4),
-backend failover (item 5) and multi-device lanes (item 6) are not
-ported: nothing here stands in for them.
+The JAX executor's node cache (ROADMAP.md Queue A item 1; the summary's
+``cache`` section says ``enabled: false``), flight dumps and telemetry
+gauges (item 3), backend failover (item 4) and multi-device lanes
+(item 5) are not ported: nothing here stands in for them.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Union
 
+from anovos_tpu_torch.obs import devprof, get_metrics, get_tracer
 from anovos_tpu_torch.parallel.placement import Placement, parse_placement
 from anovos_tpu_torch.resilience.policy import ErrorPolicy, parse_policy
 
@@ -154,15 +168,27 @@ def _worker_stream(device, slot: int):
 
 
 @contextlib.contextmanager
-def _on_stream(torch, stream):
+def _on_stream(torch, stream, book: bool):
     """Run the block on ``stream`` and wait for everything it queued there
     before leaving it, failed or not (a retry must not overlap a failed
-    attempt's kernels)."""
+    attempt's kernels).  That sync is the node's devprof drain, booked as
+    device time when ``book``."""
     with torch.cuda.stream(stream):
         try:
             yield
         finally:
-            stream.synchronize()
+            devprof.drain_stream(stream, book=book)
+
+
+@contextlib.contextmanager
+def _drained(torch, device):
+    """Sequential mode on the card: sync the caller's current stream at the
+    end of the attempt, failed or not, and book it as the node's device
+    time."""
+    try:
+        yield
+    finally:
+        devprof.drain_stream(torch.cuda.current_stream(device))
 
 
 class DagScheduler:
@@ -177,6 +203,8 @@ class DagScheduler:
         self._res_lock = threading.Lock()
         self._res_stats = {"retries": 0, "timeout_retries": 0, "timeout_escalations": 0}
         self._device = None          # the card, when nodes run on streams
+        self._drain_device = None    # the card, when sequential nodes drain
+        self._devprof_drain = True   # book drains as device time
         self._worker = threading.local()  # each worker thread's slot
 
     # -- registration ----------------------------------------------------
@@ -248,16 +276,24 @@ class DagScheduler:
         if node_timeout is None:
             node_timeout = float(os.environ.get("ANOVOS_TPU_NODE_TIMEOUT", "900"))
         t0 = time.monotonic()
+        # a drain is a stream sync, which waits out everything queued on
+        # that stream: fine when nodes run one at a time; in the concurrent
+        # mode ANOVOS_TPU_DEVPROF=full opts in to booking it
+        self._devprof_drain = (mode == "sequential"
+                               or os.environ.get("ANOVOS_TPU_DEVPROF", "") == "full")
+        from anovos_tpu_torch.shared.runtime import peek_runtime
+
+        rt = peek_runtime()  # never pick a device just to run a graph
+        card = rt.device if rt is not None and rt.device.type == "cuda" else None
         if mode == "sequential":
             workers = 1
             self._device = None
+            self._drain_device = card if devprof.enabled() else None
             self._run_sequential()
         else:
             workers = min(max_workers or default_workers(), max(len(self._nodes), 1))
-            from anovos_tpu_torch.shared.runtime import peek_runtime
-
-            rt = peek_runtime()  # never pick a device just to run a graph
-            self._device = rt.device if rt is not None and rt.device.type == "cuda" else None
+            self._device = card
+            self._drain_device = None
             if self._device is not None:
                 import torch
 
@@ -269,20 +305,40 @@ class DagScheduler:
 
     def _node_scope(self, node: Node):
         """The worker's CUDA stream for a device node in a concurrent run
-        on the card; nothing otherwise."""
+        on the card; the drain of the current stream for any node in a
+        sequential run on the card; nothing otherwise."""
+        if self._drain_device is not None:
+            import torch
+
+            return _drained(torch, self._drain_device)
         if self._device is None or not node.placement.on_device:
             return contextlib.nullcontext()
         import torch
 
         node.on_stream = True
-        return _on_stream(torch, _worker_stream(self._device, self._worker.slot))
+        return _on_stream(torch, _worker_stream(self._device, self._worker.slot),
+                          book=self._devprof_drain)
+
+    def _drains(self, node: Node) -> bool:
+        """Whether this node's devprof frame books a drain: in the
+        sequential mode always, in the concurrent mode under
+        ANOVOS_TPU_DEVPROF=full for the nodes that run on a worker stream
+        (a host node takes none, so nothing drains it)."""
+        if self._device is None:
+            return self._devprof_drain
+        return self._devprof_drain and node.placement.on_device
 
     def _execute(self, node: Node) -> None:
         node.state = "running"
         node.thread = threading.current_thread().name
         node.start = time.monotonic()
+        lane = node.placement.describe()
         try:
-            self._run_attempts(node)
+            with get_tracer().span(node.name, cat="node", deps=[d.name for d in node.deps],
+                                   queue_wait_s=round(node.queue_wait, 4), lane=lane,
+                                   scheduler=self.name), \
+                    devprof.node_bracket(node.name, drain=self._drains(node), lane=lane):
+                self._run_attempts(node)
             if not node.abandoned:
                 node.state = "degraded" if node.degraded else "done"
         except BaseException as e:
@@ -299,6 +355,11 @@ class DagScheduler:
                 raise
         finally:
             node.end = time.monotonic()
+            reg = get_metrics()
+            reg.histogram("node_wall_seconds", "scheduler node execution wall time"
+                          ).observe(node.end - node.start, node=node.name)
+            reg.histogram("node_queue_wait_seconds", "ready-to-start wait behind the worker pool"
+                          ).observe(node.queue_wait, node=node.name)
 
     # -- resilience --------------------------------------------------------
     def _run_attempts(self, node: Node) -> None:
@@ -355,6 +416,8 @@ class DagScheduler:
                 raise
 
     def _note_retry(self, node: Node, exc: BaseException, kind: str) -> None:
+        get_metrics().counter("node_retries_total", "scheduler node re-executions after failure",
+                              ).inc(node=node.name, kind=kind)
         with self._res_lock:
             self._res_stats["retries"] += 1
             if kind == "timeout_retry":
@@ -484,6 +547,9 @@ class DagScheduler:
                         node.interrupt.set()
                         with self._res_lock:
                             self._res_stats["timeout_escalations"] += 1
+                        get_metrics().counter("node_timeout_escalations_total",
+                                              "watchdog timeouts escalated instead of fatal",
+                                              ).inc(node=node.name)
                         logger.warning(
                             "node %r exceeded its %.1fs bound; interrupting the "
                             "attempt and escalating once to %.1fs before the "
@@ -552,15 +618,22 @@ class DagScheduler:
         for _, delta in events:
             in_flight += delta
             overlap = max(overlap, in_flight)
+        from anovos_tpu_torch.shared.runtime import peek_runtime
+
+        rt = peek_runtime()
         return {
             "mode": mode,
             "workers": workers,  # the pool width this run actually used
-            "max_in_flight": overlap,
+            "n_devices": rt.n_devices if rt is not None else 1,
+            "multidev_overlap": overlap,
             "wall_s": round(wall_s, 4),
             "serial_s": round(serial, 4),
             "critical_path_s": round(cp_len, 4),
             "parallel_speedup": round(serial / wall_s, 3) if wall_s > 0 else 0.0,
             "critical_path": chain,
+            # the node cache is not ported: every node executes
+            "cache": {"enabled": False, "hits": 0, "misses": 0, "restore_s": 0.0,
+                      "uncacheable": len(self._nodes)},
             "resilience": {
                 **res_stats,
                 "degraded": sorted(n.name for n in self._nodes if n.degraded),
@@ -573,8 +646,10 @@ class DagScheduler:
                     "queue_wait_s": round(n.queue_wait, 4) if n.end else None,
                     "thread": n.thread,
                     "lane": n.placement.describe(),
+                    "devices": [],
                     "stream": n.on_stream,
                     "state": n.state,
+                    "cached": False,
                     "attempts": n.attempts,
                     "escalated": n.escalated,
                     "degraded": n.degraded,

@@ -60,7 +60,7 @@ a step right after a partition's fold committed, the window a resume
 must cover) and the scheduler's ``node:<name>``, visited before each
 attempt of a node (``exc`` and ``hang`` fire there; a hang waits on the
 attempt's interrupt, which the watchdog sets).  The port has no backend
-failover yet (ROADMAP.md Queue A item 5), which is what gives ``wedge``
+failover yet (ROADMAP.md Queue A item 4), which is what gives ``wedge``
 its outcome (a flip to the CPU and a clean re-run), so :func:`install`
 refuses a plan with a ``wedge`` directive instead of ignoring it.  Every
 injection also lands in the flight recorder's ring (``obs/flight.py``).
@@ -248,7 +248,7 @@ def install(spec: Optional[str]) -> Optional[ChaosPlan]:
         raise NotImplementedError(
             f"{ENV_KNOB}={spec!r} asks for a backend wedge, whose outcome is the "
             "backend failover, which is not ported to anovos_tpu_torch yet; "
-            "see ROADMAP.md Queue A item 5")
+            "see ROADMAP.md Queue A item 4")
     _PLAN = plan
     logger.warning(
         "CHAOS plan active (%s): %d directive(s), seed=%d — injected faults "
@@ -292,42 +292,43 @@ def chaos_point(site: str, interrupt: Optional[threading.Event] = None) -> None:
     if p is None:
         return
     for d in p.claim(site):
-        from anovos_tpu_torch.obs import flight, get_metrics
+        from anovos_tpu_torch.obs import flight, get_metrics, get_tracer
 
         get_metrics().counter(
             "chaos_injections_total",
             "deliberate chaos-harness fault injections",
         ).inc(kind=d.kind, site=site)
         flight.record("chaos", kind=d.kind, site=site)
-        logger.warning("chaos: injecting %s at %s", d.kind, site)
-        if d.kind == "exc":
-            raise ChaosError(f"chaos-injected exception at {site}")
-        if d.kind == "corrupt":
-            raise ChaosCorrupt(
-                f"chaos-injected corrupt part at {site} (simulated "
-                "bad magic / mangled pages; the ingest guard must "
-                "retry, then quarantine)")
-        if d.kind == "truncate":
-            raise ChaosTruncate(
-                f"chaos-injected truncated part at {site} (simulated "
-                "cut-short footer; retry, then quarantine)")
-        if d.kind == "slowread":
-            time.sleep(d.secs)
-            continue  # the read proceeds normally, just late
-        if d.kind == "wedge":
-            set_wedged()
-            raise BackendWedge(
-                f"chaos-injected backend wedge at {site} (simulated "
-                "accelerator dispatch failure; health probe reports "
-                "wedged until failover)")
-        # hang: wait interruptibly; a watchdog interrupt raises so the
-        # scheduler's timeout-retry path re-executes the attempt
-        if interrupt is not None:
-            if interrupt.wait(d.secs):
-                raise ChaosHang(
-                    f"chaos-injected hang at {site} interrupted by the "
-                    "watchdog (timeout escalation)")
-        else:
-            time.sleep(d.secs)
-        # slept through the full bound with no interrupt: the "hang"
-        # resolved on its own — the node continues normally
+        with get_tracer().span(f"chaos:{d.kind}:{site}", cat="chaos", directive=d.describe()):
+            logger.warning("chaos: injecting %s at %s", d.kind, site)
+            if d.kind == "exc":
+                raise ChaosError(f"chaos-injected exception at {site}")
+            if d.kind == "corrupt":
+                raise ChaosCorrupt(
+                    f"chaos-injected corrupt part at {site} (simulated "
+                    "bad magic / mangled pages; the ingest guard must "
+                    "retry, then quarantine)")
+            if d.kind == "truncate":
+                raise ChaosTruncate(
+                    f"chaos-injected truncated part at {site} (simulated "
+                    "cut-short footer; retry, then quarantine)")
+            if d.kind == "slowread":
+                time.sleep(d.secs)
+                continue  # the read proceeds normally, just late
+            if d.kind == "wedge":
+                set_wedged()
+                raise BackendWedge(
+                    f"chaos-injected backend wedge at {site} (simulated "
+                    "accelerator dispatch failure; health probe reports "
+                    "wedged until failover)")
+            # hang: wait interruptibly; a watchdog interrupt raises so the
+            # scheduler's timeout-retry path re-executes the attempt
+            if interrupt is not None:
+                if interrupt.wait(d.secs):
+                    raise ChaosHang(
+                        f"chaos-injected hang at {site} interrupted by the "
+                        "watchdog (timeout escalation)")
+            else:
+                time.sleep(d.secs)
+            # slept through the full bound with no interrupt: the "hang"
+            # resolved on its own — the node continues normally

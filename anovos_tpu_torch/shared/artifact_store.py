@@ -32,6 +32,7 @@ from __future__ import annotations
 import os
 import subprocess
 import threading
+import time
 from typing import Callable, Dict, List, Type
 
 
@@ -202,8 +203,11 @@ class AsyncArtifactWriter:
       master path and before ``main()`` returns, so an async write error
       can never be silently swallowed.
 
-    The JAX writer's tracer spans, metrics and cache-capture binding ride
-    layers the port does not have yet (ROADMAP.md Queue A items 1 and 2).
+    Each write runs in a ``write:<key>`` tracer span and books
+    ``artifact_writes_total`` and ``artifact_write_seconds``; ``wait`` and
+    ``drain`` record ``artifact:wait`` and ``artifact:drain`` spans.  The
+    JAX writer's cache-capture binding waits for the node cache
+    (ROADMAP.md Queue A item 1).
     """
 
     def __init__(self, workers: int = 2, sync: bool = False):
@@ -226,25 +230,48 @@ class AsyncArtifactWriter:
                 )
             return self._pool
 
+    @staticmethod
+    def _instrumented(key: str, fn: Callable, args, kwargs):
+        """Run one write inside its span and metrics booking (the writer
+        thread's lane in the Chrome trace shows what it wrote)."""
+        from anovos_tpu_torch.obs import get_metrics, get_tracer
+
+        t0 = time.perf_counter()
+        with get_tracer().span(f"write:{key}", cat="artifact", key=key):
+            out = fn(*args, **kwargs)
+        reg = get_metrics()
+        reg.counter("artifact_writes_total", "artifact writes queued+completed").inc(key=key)
+        reg.histogram("artifact_write_seconds", "one artifact write's wall time"
+                      ).observe(time.perf_counter() - t0, key=key)
+        return out
+
     def submit(self, key: str, fn: Callable, *args, **kwargs) -> None:
         if self._sync:
-            fn(*args, **kwargs)
+            self._instrumented(key, fn, args, kwargs)
             return
-        fut = self._ensure_pool().submit(fn, *args, **kwargs)
+        fut = self._ensure_pool().submit(self._instrumented, key, fn, args, kwargs)
         with self._lock:
             self._pending.setdefault(key, []).append(fut)
 
     def wait(self, keys) -> None:
         with self._lock:
             futs = [f for k in keys for f in self._pending.get(k, ())]
-        for f in futs:
-            f.result()  # re-raises the write's exception with its traceback
+        if not futs:
+            return
+        from anovos_tpu_torch.obs import get_tracer
+
+        with get_tracer().span("artifact:wait", cat="artifact", keys=list(keys), pending=len(futs)):
+            for f in futs:
+                f.result()  # re-raises the write's exception with its traceback
 
     def drain(self) -> None:
         with self._lock:
             futs = [f for fl in self._pending.values() for f in fl]
-        for f in futs:
-            f.result()
+        from anovos_tpu_torch.obs import get_tracer
+
+        with get_tracer().span("artifact:drain", cat="artifact", pending=len(futs)):
+            for f in futs:
+                f.result()
         with self._lock:  # all landed: forget completed tickets
             for k in list(self._pending):
                 self._pending[k] = [f for f in self._pending[k] if not f.done()]

@@ -19,6 +19,12 @@ import torch
 class Runtime:
     device: torch.device
 
+    @property
+    def n_devices(self) -> int:
+        """Devices the runtime computes on: always one (the JAX runtime's
+        mesh size; multi-device is ROADMAP.md Queue A item 5)."""
+        return 1
+
 
 _RUNTIME: Optional[Runtime] = None
 

@@ -30,6 +30,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from anovos_tpu_torch.obs import devprof
 from anovos_tpu_torch.shared import native
 from anovos_tpu_torch.shared.native import NativeEncodedStrings
 from anovos_tpu_torch.shared.runtime import get_runtime
@@ -55,7 +56,8 @@ class Column:
     def exact_host(self) -> np.ndarray:
         """Host values with exactness preserved (int64 / float64 when wide)."""
         src = self.exact if self.exact is not None else self.data
-        return src.cpu().numpy()
+        with devprof.transfer_bracket("d2h", src.nbytes, label="column.exact_host"):
+            return src.cpu().numpy()
 
 
 def _spark_dtype_name(np_dtype) -> str:
@@ -71,8 +73,12 @@ def _spark_dtype_name(np_dtype) -> str:
     return "string"
 
 
-def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+def _put(arr: np.ndarray, device: torch.device, label: str = "table.host_to_column") -> torch.Tensor:
+    """The h2d choke point of Table construction, inside a devprof transfer
+    bracket (exact bytes; a pageable copy, so the wall is the copy's)."""
+    arr = np.ascontiguousarray(arr)
+    with devprof.transfer_bracket("h2d", arr.nbytes, label=label):
+        return torch.from_numpy(arr).to(device)
 
 
 def _cat_column(enc: NativeEncodedStrings, n: int, device: torch.device) -> Column:
@@ -255,8 +261,8 @@ class Table:
             raise IndexError(f"gather_rows: index out of range [0, {self.nrows}) "
                              f"(min={live.min()}, max={live.max()})")
         dev = self.device
-        idx_d = _put(np.where(valid, idx, 0).astype(np.int64), dev)
-        return self._take(idx_d, None if valid.all() else _put(valid, dev))
+        idx_d = _put(np.where(valid, idx, 0).astype(np.int64), dev, label="table.gather_rows")
+        return self._take(idx_d, None if valid.all() else _put(valid, dev, label="table.gather_rows"))
 
     def filter_rows(self, keep) -> "Table":
         """Rows where the bool ``keep`` (host array or tensor, length
@@ -265,7 +271,8 @@ class Table:
             raise ValueError(f"filter_rows: keep has length {len(keep)}, expected {self.nrows} (nrows)")
         if isinstance(keep, torch.Tensor):
             return self._take(torch.nonzero(keep.to(self.device)).flatten())
-        return self._take(_put(np.flatnonzero(np.asarray(keep, bool)).astype(np.int64), self.device))
+        return self._take(_put(np.flatnonzero(np.asarray(keep, bool)).astype(np.int64), self.device,
+                               label="table.filter_rows"))
 
     def __getitem__(self, name: str) -> Column:
         return self.columns[name]
@@ -291,8 +298,13 @@ class Table:
         out = {}
         n = self.nrows
         for name, c in self.columns.items():
-            data = c.data.cpu().numpy()
-            mask = c.mask.cpu().numpy()
+            # d2h materialisation boundary: the copy waits for the kernels
+            # that produce the column, so this wall holds the device tail
+            # the fetch waits on (devprof books it as transfer)
+            with devprof.transfer_bracket("d2h", c.data.nbytes + c.mask.nbytes,
+                                          label="table.to_pandas"):
+                data = c.data.cpu().numpy()
+                mask = c.mask.cpu().numpy()
             if c.kind == "cat":
                 vals = np.empty(n, dtype=object)
                 valid = mask & (data >= 0)

@@ -37,8 +37,19 @@ each node), resets the degradation registry and the ingest guard, and
 points the guard's quarantine manifest at ``<master_path or write_main
 path>/obs``.  :func:`main` and :func:`run` raise ``NotImplementedError``
 on a knob of a layer the port does not have yet
-(``obs/telemetry.UNPORTED_KNOBS``: the trace, profiler, node cache,
-telemetry plane, failover and multi-device knobs).
+(``obs/telemetry.UNPORTED_KNOBS``: the node cache, telemetry plane,
+failover and multi-device knobs).
+
+The run record, as in the JAX runner: every run resets the metrics
+registry, the tracer (whose ring ``ANOVOS_TPU_TRACE_BUFFER`` bounds) and
+the devprof results, and writes ``obs/run_manifest.json`` (the schedule,
+block walls, metrics snapshot, per-node devprof split and resilience
+record) through the async writer after the last node;
+:data:`LAST_MANIFEST_PATH` names it.  ``ANOVOS_TPU_TRACE`` exports the
+tracer's Chrome trace (``1``: ``obs/trace.json``), also when the run
+fails.  :func:`run` under ``ANOVOS_PROFILE=<dir>`` records a
+``torch.profiler`` trace of the whole run (CPU and CUDA activity on the
+card) into ``<dir>``, with each node's kernels under its name.
 
 ``resume=True`` resumes only the ``streaming_analysis`` passes from their
 chunk checkpoints (``obs/stream_ckpt/<sub-analysis>``) and runs every
@@ -82,13 +93,16 @@ from anovos_tpu_torch.data_transformer import transformers
 from anovos_tpu_torch.drift_stability import drift_detector as ddetector
 from anovos_tpu_torch.drift_stability import stability as dstability
 from anovos_tpu_torch.feature_store import feast_exporter
-from anovos_tpu_torch.obs import flight, telemetry
+from anovos_tpu_torch.obs import devprof, flight, get_metrics, get_tracer, telemetry
+from anovos_tpu_torch.obs.manifest import build_manifest, write_manifest
+from anovos_tpu_torch.obs.metrics import record_device_memory
+from anovos_tpu_torch.obs.tracing import buffer_size, trace_destination, write_chrome_trace
 from anovos_tpu_torch.parallel.scheduler import DagScheduler, available_cpus
 from anovos_tpu_torch.resilience import chaos
 from anovos_tpu_torch.resilience import policy as res_policy
 from anovos_tpu_torch.resilience.policy import ErrorPolicy
 from anovos_tpu_torch.shared.artifact_store import AsyncArtifactWriter, for_run_type
-from anovos_tpu_torch.shared.runtime import peek_runtime
+from anovos_tpu_torch.shared.runtime import get_runtime, peek_runtime
 from anovos_tpu_torch.shared.table import Table
 
 logger = logging.getLogger("anovos_tpu_torch.workflow")
@@ -96,6 +110,8 @@ logger = logging.getLogger("anovos_tpu_torch.workflow")
 # scheduler summary (mode, wall/serial/critical-path seconds, speedup,
 # per-node spans) of the most recent main() run
 LAST_RUN_SUMMARY: dict = {}
+# obs/run_manifest.json of the most recent main() run
+LAST_MANIFEST_PATH: str = ""
 
 # stats CSVs each downstream function reads (via stats_args):
 # CHECKER_STATS_ARGS is the shared wiring table (one copy, used by the
@@ -120,6 +136,11 @@ def _log_block_time(label: str, start: float) -> None:
     secs = round(time.monotonic() - start, 4)
     with _BLOCK_LOCK:
         _BLOCK_TIMES[label] = round(_BLOCK_TIMES.get(label, 0.0) + secs, 4)
+    get_metrics().counter("anovos_block_seconds",
+                          "per-block wall time of the most recent workflow.main run",
+                          ).inc(secs, block=label)
+    # device-memory high-water marks sampled at every block boundary
+    record_device_memory()
     logger.info(f"{label}: execution time (in secs) = {secs}")
 
 
@@ -475,12 +496,18 @@ def _register_streaming(pipe: _PipelineRun, writer: AsyncArtifactWriter, args: d
 
 def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict] = None,
          resume: bool = False) -> None:
-    global LAST_RUN_SUMMARY
+    global LAST_RUN_SUMMARY, LAST_MANIFEST_PATH
     telemetry.check_unported_knobs()
     start_main = time.monotonic()
     with _BLOCK_LOCK:
         _BLOCK_TIMES.clear()
+    # per-run accounting: the metrics registry and the trace ring describe
+    # the most recent run; the ops' first-call signature sets persist, so a
+    # warm run's manifest books steady-state calls
+    get_metrics().reset()
+    get_tracer().clear(buffer=buffer_size())
     LAST_RUN_SUMMARY = {}
+    LAST_MANIFEST_PATH = ""
     # per-run resilience state: the chaos plan of ANOVOS_TPU_CHAOS (inert
     # when unset), an empty degradation registry and quarantine registry
     chaos.install_from_env()
@@ -499,7 +526,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
         # own part files
         df = None
     else:
-        df = ETL(all_configs.get("input_dataset"))
+        with get_tracer().span("input_dataset/ETL", cat="node"):
+            df = ETL(all_configs.get("input_dataset"))
     # the pre-treatment ingest Table, kept only when drift_statistics will
     # diff the dataset against itself
     base_df = df if (df is not None and _drift_source_matches_input(all_configs)) else None
@@ -529,7 +557,11 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     # the quarantine manifest goes to the run's obs/ subtree (parts the
     # ETL read set aside are written now); a clean run writes nothing
     obs_base = report_input_path or (write_main or {}).get("file_path") or "."
-    obs_dir = os.path.join(for_run_type(run_type, auth_key).staging_dir(obs_base), "obs")
+    obs_store = for_run_type(run_type, auth_key)
+    obs_root = obs_store.staging_dir(obs_base)
+    obs_dir = os.path.join(obs_root, "obs")
+    trace_dest = trace_destination(obs_root)
+    manifest_path = os.path.abspath(os.path.join(obs_dir, "run_manifest.json"))
     ingest_guard.configure(obs_dir)
     # a fresh flight-recorder ring per run (the continuum's alerts carry
     # its tail)
@@ -806,10 +838,31 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                             on_error=ErrorPolicy(mode="retry", retries=1, on_exhausted="raise",
                                                  timeout_factor=2.0))
 
+        # a fresh devprof result set and this run's drain floor
+        devprof.reset()
         run_err = None
         try:
             summary = sched.run(mode=mode)
+            # barrier before the metrics snapshot: every queued write has
+            # landed and booked its counters
             writer.drain()
+            record_device_memory()
+            chaos_plan = chaos.plan()
+            manifest = build_manifest(
+                all_configs, summary, get_metrics().snapshot(), run_type=run_type,
+                block_times=block_times(), trace_path=trace_dest and os.path.abspath(trace_dest),
+                resilience={
+                    **summary.get("resilience", {}),
+                    "degraded_sections": res_policy.degraded_sections(),
+                    "quarantine": ingest_guard.summary(),
+                    "chaos": chaos_plan.summary() if chaos_plan else None,
+                    # the flight recorder's dumps are not ported
+                    "flight_dumps": [],
+                },
+                devprof=devprof.results() or None,
+            )
+            # the manifest rides the async write queue; close() drains it
+            writer.submit("obs:run_manifest", write_manifest, manifest, manifest_path)
         except BaseException as e:
             run_err = e
             raise
@@ -826,6 +879,20 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     if close_err.__context__ is run_err:
                         close_err.__context__ = None
                     run_err.__context__ = close_err
+            if trace_dest:
+                # exported on failure too: an aborted run's trace is what
+                # its post-mortem needs; a failed export must not mask the
+                # run's own outcome
+                try:
+                    logger.info("chrome trace written to %s (open it in Perfetto or "
+                                "chrome://tracing)", write_chrome_trace(os.path.abspath(trace_dest)))
+                except Exception:
+                    logger.exception("chrome trace export to %s failed", trace_dest)
+        LAST_MANIFEST_PATH = manifest_path
+        try:  # remote run_types publish the manifest next to the staged stats
+            obs_store.push(manifest_path, os.path.join(obs_base, "obs"))
+        except Exception:
+            logger.exception("manifest push failed; local copy kept at %s", manifest_path)
         LAST_RUN_SUMMARY = summary
         logger.info(DagScheduler.format_summary(summary))
         df = pipe.current_df()
@@ -865,4 +932,37 @@ def run(config_path: str, run_type: str = "local", auth_key_val: Optional[dict] 
     config_file = store.pull(config_path, "config.yaml")
     with open(config_file, "r") as f:
         all_configs = yaml.load(f, yaml.SafeLoader)
-    main(all_configs, run_type, auth_key_val, resume=resume)
+    profile_dir = os.environ.get("ANOVOS_PROFILE", "")
+    with (_profiled(profile_dir) if profile_dir else contextlib.nullcontext()):
+        main(all_configs, run_type, auth_key_val, resume=resume)
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str):
+    """``torch.profiler`` over the block (the JAX runner's
+    ``jax.profiler.trace``): CPU activity of every thread (the concurrent
+    mode's nodes run on worker threads), and CUDA activity on a CUDA
+    runtime, exported as a Chrome-format trace into ``profile_dir``
+    (``anovos_torch_profile_<pid>.json``), on failure too.  The node
+    brackets' ``record_function`` ranges put each kernel under its node."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    # the runtime main would take at its first Table: the CLI sets none
+    rt = get_runtime()
+    activities = [ProfilerActivity.CPU]
+    if rt.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True))
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize(rt.device)
+        prof.__exit__(None, None, None)
+        path = os.path.join(profile_dir, f"anovos_torch_profile_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)

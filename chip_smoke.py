@@ -273,6 +273,34 @@ Phases, in order; any failure exits non-zero:
    ``ANOVOS_TPU_NODE_TIMEOUT=5``: the node escalated, abandoned and
    degraded within its 12.5 s bound, every other node done, the report's
    first tab the Degraded Sections tab naming it.
+16. the run record: (a) phase 9's run left ``obs/run_manifest.json``,
+   naming every node of its schedule with a devprof entry each, its
+   ``block_seconds`` equal to ``workflow.block_times()``; phase 9's
+   scheduler wall printed beside its wall before the run record, and its
+   per-node devprof
+   split (device, dispatch, transfer, host seconds, h2d and d2h bytes) on
+   a line of its own; (b) configs_basic on the first 200,000 of phase 9's
+   rows twice under ``ANOVOS_TPU_EXECUTOR=sequential``, into two
+   directories: the manifests' ``stable_view`` equal; (c) the same config
+   through ``workflow.run`` on a written config file with
+   ``ANOVOS_TPU_TRACE=1``, ``ANOVOS_TPU_DEVPROF=full`` and
+   ``ANOVOS_PROFILE=<dir>`` in the default mode, with no runtime set, as
+   ``python -m anovos_tpu_torch`` starts it.  Checked: the node spans
+   of each lane of the Chrome trace sum to at most 1.10 x the scheduler
+   wall + 0.05 s; every node's device + dispatch + transfer + host is at
+   most its wall; each node that launched B1 or B2 (the launches
+   attributed to nodes as they happen) has its devprof entry; the h2d bytes
+   the manifest books are at least 5 bytes a cell of the two inputs
+   (each column's values of 4 bytes or more and its 1-byte mask) and at
+   most the bytes of the host-to-device copies in the profiler trace (the
+   ops' own small uploads, bounds and lookup tables, are outside the
+   manifest's count, as in the JAX package); the profiler trace holds B1's and B2's
+   kernels as often as phase 15b launched them, each inside the range of
+   a node that launched it; a report rendered over the run's output has
+   the Run Timings tab.  Its split is printed like (a)'s.  Then a scheduler
+   node that leaves a device sleep in flight, in each mode under
+   ``ANOVOS_TPU_DEVPROF=full``: its drain books at least 0.8x the
+   sleep's CUDA-event time, and at most the node's wall.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -323,7 +351,8 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "recommender": (),
                 "sequential_basic": ("masked_moments", "binned_histograms"),
                 "sequential_full": ("masked_moments", "binned_histograms"),
-                "chaos": ("masked_moments",)}
+                "chaos": ("masked_moments",),
+                "run_record": ("masked_moments", "binned_histograms")}
 # phase 15: the recommender's queries (an industry and a usecase of the
 # corpus, then two misspelt ones the embeddings resolve), the attributes it
 # maps and the descriptions it ranks them against; the chaos run
@@ -637,6 +666,15 @@ STREAM_QUANTILES = (0.01, 0.05, 0.10, 0.25, 0.50, 0.75, 0.90, 0.95, 0.99)
 CONTINUUM_DRIFT = {"baseline": "base-*", "method_type": "all", "bin_size": 10, "threshold": 0.1}
 CONTINUUM_SHIFT = 1.0
 CONTINUUM_CLI = (sys.executable, "-m", "anovos_tpu_torch.continuum")
+# phase 16: the rows of (b) and (c), phase 9's scheduler wall on the H100
+# before the run record was added (PERF.md §5), the kernels' names in
+# the profiler trace and the slack between a kernel's device interval and
+# the node range it runs under (the two clocks are aligned by the profiler)
+RECORD_ROWS = 200_000
+RUNNER_WALL_BEFORE_S = 16.44
+PROFILE_KERNEL_NAMES = {"masked_moments": "moments_kernel", "binned_histograms": "hist_kernel"}
+PROFILE_KERNEL_CAT = "kernel"
+RANGE_SLACK_US = 500.0
 # the walls of the steps the host codec now runs, before the codec (PERF.md
 # section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's
@@ -2920,7 +2958,7 @@ def schedule(summary: dict) -> dict:
     """The parts of ``workflow.LAST_RUN_SUMMARY`` a phase prints and
     compares: the mode, walls, critical path, speedup and each node's
     dependencies and stream."""
-    keep = ("mode", "workers", "max_in_flight", "wall_s", "serial_s", "critical_path_s",
+    keep = ("mode", "workers", "multidev_overlap", "wall_s", "serial_s", "critical_path_s",
             "parallel_speedup", "critical_path")
     return {**{k: summary[k] for k in keep},
             "deps": {n: v["deps"] for n, v in summary["nodes"].items()},
@@ -2951,6 +2989,7 @@ def run_measured(torch, cfg: dict, run_dir: str) -> dict:
         os.chdir(cwd)
     return {"wall_s": wall, "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before},
             "block_times_s": workflow.block_times(), "schedule": schedule(workflow.LAST_RUN_SUMMARY),
+            "manifest_path": workflow.LAST_MANIFEST_PATH,
             "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
             "degraded": workflow.degraded_sections(), "tree": tree_digest(run_dir)}
 
@@ -2960,7 +2999,7 @@ def print_schedule(what: str, run: dict) -> None:
     print(f"{what}: scheduler[{s['mode']}] workers {s['workers']}, wall {s['wall_s']:.3f} s, serial "
           f"{s['serial_s']:.3f} s, critical path {s['critical_path_s']:.3f} s "
           f"({' -> '.join(s['critical_path'])}), speedup {s['parallel_speedup']:.3f}x, at most "
-          f"{s['max_in_flight']} nodes at once, {len(s['on_stream'])} of {len(s['deps'])} nodes on CUDA "
+          f"{s['multidev_overlap']} nodes at once, {len(s['on_stream'])} of {len(s['deps'])} nodes on CUDA "
           f"streams; peak device memory {run['peak_mib']:.1f} MiB", flush=True)
 
 
@@ -5471,6 +5510,285 @@ def phase_executor(torch, seed: int, runner: dict, full_runner: dict, root: str)
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the run record
+# ---------------------------------------------------------------------------
+def devprof_split(man: dict) -> dict:
+    """{node: [wall, device, dispatch, transfer, host seconds, h2d bytes,
+    d2h bytes]} of a manifest's devprof section."""
+    keys = ("wall_s", "device_time_s", "dispatch_s", "transfer_s", "host_s", "h2d_bytes", "d2h_bytes")
+    return {n: [e[k] for k in keys] for n, e in sorted((man.get("devprof") or {}).items())}
+
+
+def check_devprof(man: dict, what: str) -> None:
+    """Every node of the schedule has a devprof entry whose four parts sum
+    to at most its wall."""
+    nodes = set(man["scheduler"]["nodes"])
+    dev = man.get("devprof") or {}
+    check(set(dev) == nodes, f"{what}: devprof entries {sorted(dev)} for nodes {sorted(nodes)}")
+    for n, e in dev.items():
+        parts = e["device_time_s"] + e["dispatch_s"] + e["transfer_s"] + e["host_s"]
+        check(parts <= e["wall_s"] + 1e-6, f"{what}: {n}'s parts {parts} exceed its wall {e['wall_s']}")
+
+
+class LaunchNodes:
+    """While in its ``with`` block: the scheduler node each kernel launch
+    happens in (``obs.devprof.current_node`` at ``kernels.count_launch``)."""
+
+    def __enter__(self):
+        from anovos_tpu_torch.obs import devprof
+        from anovos_tpu_torch.ops import kernels
+
+        self.nodes = {name: set() for name in kernels.LAUNCHES}
+        self.saved = kernels.count_launch
+        count = kernels.count_launch
+
+        def counted(name):
+            self.nodes[name].add(devprof.current_node())
+            count(name)
+
+        kernels.count_launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        from anovos_tpu_torch.ops import kernels
+
+        kernels.count_launch = self.saved
+
+
+def traced_htod(path: str) -> tuple:
+    """(bytes, copies) of the host-to-device copies in a torch.profiler
+    Chrome trace (CUPTI's memcpy records, each with its ``bytes``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    check(all("bytes" in e.get("args", {}) for e in copies), "profiler trace: a memcpy without its bytes")
+    return sum(int(e["args"]["bytes"]) for e in copies), len(copies)
+
+
+def parquet_cells(path: str) -> int:
+    """Rows x columns of the parquet files in the folder ``path``."""
+    import pyarrow.parquet as pq
+
+    metas = [pq.ParquetFile(os.path.join(path, f)).metadata for f in os.listdir(path) if f.endswith(".parquet")]
+    return sum(m.num_rows * m.num_columns for m in metas)
+
+
+def profiled_kernels(path: str, node_names) -> dict:
+    """From a torch.profiler Chrome trace: per kernel of
+    PROFILE_KERNEL_NAMES, the count of its device events and, for each, the
+    node ranges (``record_function``) that contain it; how many of them the
+    trace ties to a launch event by correlation id."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in node_names]
+    launches = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    out = {}
+    for kname, sym in PROFILE_KERNEL_NAMES.items():
+        ks = [e for e in events if e.get("cat") == PROFILE_KERNEL_CAT and sym in e.get("name", "")]
+        out[kname] = {
+            "count": len(ks),
+            "under": [sorted({n for n, t0, t1 in ranges if t0 - RANGE_SLACK_US <= float(k["ts"])
+                              and float(k["ts"]) + float(k.get("dur", 0)) <= t1 + RANGE_SLACK_US})
+                      for k in ks],
+            "correlated": sum(1 for k in ks if k.get("args", {}).get("correlation") in launches)}
+    out["node_ranges"] = len(ranges)
+    return out
+
+
+def drain_probe(torch) -> dict:
+    """A scheduler node that leaves a known stretch of device work in
+    flight (``torch.cuda._sleep`` of QUEUE_CYCLES on its stream, timed by
+    CUDA events around it) and returns, in each mode under
+    ``ANOVOS_TPU_DEVPROF=full``: the device time its drain books against
+    that stretch."""
+    from anovos_tpu_torch.obs import devprof
+    from anovos_tpu_torch.parallel.scheduler import DagScheduler
+
+    out = {}
+    saved = os.environ.get("ANOVOS_TPU_DEVPROF")
+    os.environ["ANOVOS_TPU_DEVPROF"] = "full"
+    try:
+        for mode in ("sequential", "concurrent"):
+            events = []
+
+            def body():
+                stream = torch.cuda.current_stream()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record(stream)
+                torch.cuda._sleep(QUEUE_CYCLES)
+                b.record(stream)
+                events.append((a, b))
+
+            sched = DagScheduler(name="drain-probe")
+            sched.add("in_flight", body, placement="device")
+            devprof.reset()
+            summary = sched.run(mode=mode, max_workers=1)
+            a, b = events[0]
+            b.synchronize()
+            slept = a.elapsed_time(b) / 1e3
+            r = devprof.results()["in_flight"]
+            check(summary["nodes"]["in_flight"]["stream"] == (mode == "concurrent"),
+                  f"drain probe ({mode}): stream {summary['nodes']['in_flight']['stream']}")
+            check(0.8 * slept <= r["device_time_s"] <= r["wall_s"],
+                  f"drain probe ({mode}): {slept * 1e3:.3f} ms in flight, device time booked {r}")
+            out[mode] = {"in_flight_s": round(slept, 6), "device_time_s": r["device_time_s"],
+                         "wall_s": r["wall_s"], "floor_s": round(devprof._PROBE_FLOOR, 9)}
+    finally:
+        os.environ.pop("ANOVOS_TPU_DEVPROF", None)
+        if saved is not None:
+            os.environ["ANOVOS_TPU_DEVPROF"] = saved
+    return out
+
+
+def phase_record(torch, runner: dict, seq_launches: dict, root: str) -> dict:
+    """Phase 16: (a), (b) and (c) of the module docstring."""
+    import pandas as pd
+
+    from anovos_tpu_torch import obs, workflow
+    from anovos_tpu_torch.data_report.report_generation import anovos_report
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared import runtime
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) phase 9's manifest
+    man = obs.load_manifest(runner["manifest_path"])
+    check(set(man["scheduler"]["nodes"]) == set(runner["schedule"]["deps"]),
+          f"phase 9's manifest names {sorted(man['scheduler']['nodes'])}")
+    check_devprof(man, "phase 9")
+    check(man["block_seconds"] == runner["block_times_s"],
+          f"phase 9: block_seconds {man['block_seconds']} vs block_times() {runner['block_times_s']}")
+    check(man["backend"] == get_runtime().device.type and man["executor"]["mode"] == runner["schedule"]["mode"],
+          f"phase 9's manifest: {man['backend']}, {man['executor']}")
+    out["runner"] = {"wall_s": runner["wall_s"], "scheduler_wall_s": man["scheduler"]["wall_s"],
+                     "scheduler_wall_before_s": RUNNER_WALL_BEFORE_S,
+                     "mode": man["executor"]["mode"], "devprof": devprof_split(man)}
+    print(f"record: phase 9 scheduler wall {man['scheduler']['wall_s']:.3f} s in the {man['executor']['mode']} "
+          f"mode (before the run record: {RUNNER_WALL_BEFORE_S} s), workflow.main {runner['wall_s']:.3f} s; "
+          f"its manifest names all "
+          f"{len(man['scheduler']['nodes'])} nodes; block_seconds equal block_times()", flush=True)
+    print("record_phase9_devprof " + json.dumps(out["runner"]["devprof"]), flush=True)
+
+    # (b) two sequential runs on RECORD_ROWS of phase 9's rows
+    base = os.path.join(root, "record")
+    sub_dir = os.path.join(base, "income")
+    os.makedirs(sub_dir)
+    pd.read_parquet(runner["main_dir"]).iloc[:RECORD_ROWS].to_parquet(
+        os.path.join(sub_dir, "part-00000.parquet"), index=False)
+    cfg = basic_config(sub_dir, runner["join_dir"])
+    views, seq = [], []
+    for i in (1, 2):
+        with executor("sequential"):
+            run = run_measured(torch, cfg, os.path.join(base, f"sequential_{i}"))
+        m = obs.load_manifest(run["manifest_path"])
+        check_devprof(m, f"sequential run {i}")
+        views.append(obs.stable_view(m))
+        seq.append({"wall_s": run["wall_s"], "devprof": devprof_split(m)})
+    check(views[0] == views[1], "the two sequential runs' stable_view differ: "
+          + str(sorted(k for k in views[0] if views[0][k] != views[1].get(k))))
+    out["sequential"] = seq
+    print(f"record: two sequential runs on {RECORD_ROWS} rows ({seq[0]['wall_s']:.3f} s, "
+          f"{seq[1]['wall_s']:.3f} s): stable_view equal", flush=True)
+    print("record_sequential_devprof " + json.dumps(seq[1]["devprof"]), flush=True)
+
+    # (c) workflow.run with the trace, devprof=full and the profiler
+    run_dir, prof_dir = os.path.join(base, "traced"), os.path.join(base, "profile")
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(base, "configs_basic.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    env = {"ANOVOS_TPU_TRACE": "1", "ANOVOS_TPU_DEVPROF": "full", "ANOVOS_PROFILE": prof_dir}
+    saved = {k: os.environ.get(k) for k in env}
+    cwd = os.getcwd()
+    device = get_runtime().device
+    kernels.reset_launches()
+    os.environ.update(env)
+    # as `python -m anovos_tpu_torch` starts: no runtime set, so the
+    # profiler's wrapper takes the one main will use
+    runtime._RUNTIME = None
+    try:
+        with executor(None), LaunchNodes() as seen:
+            os.chdir(run_dir)
+            t0 = time.perf_counter()
+            workflow.run(cfg_path, "local")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    out["launches"] = dict(kernels.LAUNCHES)
+    check(runtime.peek_runtime() is not None and runtime.peek_runtime().device == device,
+          f"the traced run's runtime {runtime.peek_runtime()}, {device} before it")
+    man = obs.load_manifest(workflow.LAST_MANIFEST_PATH)
+    nodes = set(man["scheduler"]["nodes"])
+    check_devprof(man, "the traced run")
+    with open(man["trace_path"]) as f:
+        events = json.load(f)["traceEvents"]
+    lanes = {}
+    for e in events:
+        if e.get("cat") == "node" and e["ph"] == "X" and e["name"] in nodes:
+            lanes[e["tid"]] = lanes.get(e["tid"], 0.0) + e["dur"] / 1e6
+    sched_wall = man["scheduler"]["wall_s"]
+    check(lanes and max(lanes.values()) <= 1.10 * sched_wall + 0.05,
+          f"node spans of a lane sum to {max(lanes.values(), default=0):.3f} s, scheduler wall {sched_wall} s")
+    launching = {n for name in PROFILE_KERNEL_NAMES for n in seen.nodes[name]}
+    check(None not in launching and launching,
+          f"kernel launches outside any node: {seen.nodes}")
+    (prof_path,) = [os.path.join(prof_dir, p) for p in os.listdir(prof_dir)]
+    h2d = man["metrics"]["transfer_h2d_bytes_total"]["series"][""]
+    htod, copies = traced_htod(prof_path)
+    # the main input's cells and the join side's (its rows' ifa, age and workclass)
+    least = 5 * (parquet_cells(sub_dir) + 3 * runner["side_rows"])
+    check(least <= h2d <= htod, f"manifest h2d bytes {h2d}: the inputs need at least {least}, "
+          f"the profiler trace copied {htod} in {copies} copies")
+    prof = profiled_kernels(prof_path, nodes)
+    for name in PROFILE_KERNEL_NAMES:
+        p = prof[name]
+        check(p["count"] == out["launches"][name] == seq_launches[name],
+              f"profiler trace: {p['count']} {name} kernels, {out['launches'][name]} launched, "
+              f"{seq_launches[name]} in phase 15b")
+        check(all(set(u) & seen.nodes[name] for u in p["under"]),
+              f"profiler trace: {name} kernels outside their launching node's range: {p['under']} "
+              f"(launched in {sorted(map(str, seen.nodes[name]))})")
+    html = anovos_report(master_path=os.path.dirname(os.path.dirname(workflow.LAST_MANIFEST_PATH)),
+                         final_report_path=os.path.join(base, "rendered"))
+    with open(html) as f:
+        tabs = re.findall(r"onclick='showTab\(\d+\)'>([^<]*)</button>", f.read())
+    check(tabs[-1:] == ["Run Timings"], f"the re-rendered report's tabs: {tabs}")
+    out["traced"] = {"wall_s": wall, "mode": man["executor"]["mode"], "h2d_bytes": h2d,
+                     "h2d_least_bytes": least, "htod_trace_bytes": htod, "htod_trace_copies": copies,
+                     "lane_sums_s": sorted(round(v, 4) for v in lanes.values()), "scheduler_wall_s": sched_wall,
+                     "launching_nodes": {k: sorted(map(str, v)) for k, v in seen.nodes.items() if v},
+                     "profile": {k: ({kk: vv for kk, vv in v.items() if kk != "under"} if isinstance(v, dict) else v)
+                                 for k, v in prof.items()},
+                     "profile_mib": os.path.getsize(prof_path) / 2**20, "devprof": devprof_split(man)}
+    print(f"record: traced run ({man['executor']['mode']}, devprof full, profiler on) {wall:.3f} s; lanes "
+          f"{out['traced']['lane_sums_s']} s of node spans against a {sched_wall} s scheduler wall; B1/B2 "
+          f"launched in {out['traced']['launching_nodes']} and in the profiler trace "
+          f"({out['traced']['profile_mib']:.1f} MiB) {prof['masked_moments']['count']} and "
+          f"{prof['binned_histograms']['count']} times under their nodes' ranges "
+          f"({prof['masked_moments']['correlated'] + prof['binned_histograms']['correlated']} tied to a "
+          f"launch by correlation id); h2d {h2d:.0f} B booked, at least {least} B of input, {htod} B in "
+          f"{copies} copies in the profiler trace; the re-rendered report ends with Run Timings",
+          flush=True)
+    print("record_traced_devprof " + json.dumps(out["traced"]["devprof"]), flush=True)
+    out["drain_probe"] = drain_probe(torch)
+    print("record: drain probe " + ", ".join(
+        f"{m}: {v['in_flight_s'] * 1e3:.3f} ms in flight, {v['device_time_s'] * 1e3:.3f} ms booked "
+        f"(floor {v['floor_s'] * 1e6:.2f} us)" for m, v in out["drain_probe"].items()), flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"record: phase 16 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -5633,9 +5951,12 @@ def main() -> None:
     print("continuum " + json.dumps({k: v for k, v in cont.items() if k != "launches"}), flush=True)
     try:
         execu = phase_executor(torch, args.seed, runner, transform["runner"], runs_root)
+        print("executor " + json.dumps(execu), flush=True)
+        record = phase_record(torch, runner, execu["sequential"]["configs_basic"]["sequential"]["launches"],
+                              runs_root)
     finally:
         shutil.rmtree(runs_root, ignore_errors=True)
-    print("executor " + json.dumps(execu), flush=True)
+    print("record " + json.dumps({k: v for k, v in record.items() if k != "launches"}), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -5662,8 +5983,9 @@ def main() -> None:
                                                      "recommender": execu["recommender"]["launches"],
                                                      **{f"sequential_{w[len('configs_'):]}": r["sequential"]["launches"]
                                                         for w, r in execu["sequential"].items()},
-                                                     "chaos": execu["chaos"]["launches"]}, sass)
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "chaos": execu["chaos"]["launches"],
+                                                     "run_record": record["launches"]}, sass)
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

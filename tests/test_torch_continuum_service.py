@@ -108,7 +108,7 @@ def test_run_refuses_the_unported_service_knobs(tmp_path, monkeypatch, knob, val
     _write_feed(feed, {1: {}})
     cfg = _cfg(str(tmp_path), "t", feed_dir=feed, drift=False)
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match=f"{knob}.*Queue A item 4"):
+    with pytest.raises(NotImplementedError, match=f"{knob}.*Queue A item 3"):
         run(cfg, max_iterations=1)
     assert not os.path.exists(cfg.state_dir)
     monkeypatch.setenv(knob, "0")

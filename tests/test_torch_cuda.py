@@ -788,3 +788,89 @@ def test_cuda_concurrent_runner_equals_sequential(tmp_path, monkeypatch):
     assert launches["sequential"] == launches["concurrent"]
     assert launches["concurrent"]["masked_moments"] > 0 and launches["concurrent"]["binned_histograms"] > 0
     assert streams["sequential"] == 0 and streams["concurrent"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sequential_run_attributes_every_node(tmp_path, monkeypatch):
+    """The scheduler gate's demo config through the port's runner on the
+    card in the sequential mode: the manifest's backend is cuda, every
+    node (those that launched B1 or B2 among them, attributed as the
+    launches happen) has a devprof entry whose parts sum to at most its
+    wall.  (Those nodes fetch their results before they end, so their device time is the
+    sync's jitter above the floor: a few microseconds or 0;
+    ``test_cuda_drain_books_the_work_in_flight`` holds the drain to work
+    that is in flight.)"""
+    from examples._data import synthesize
+
+    from anovos_tpu_torch import obs, workflow
+    from anovos_tpu_torch.obs import devprof
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+    from test_torch_scheduler import _demo_cfg
+
+    _require_cuda()
+    pq = tmp_path / "parquet"
+    pq.mkdir()
+    synthesize(50_000).to_parquet(pq / "part-0.parquet")
+    launching = set()
+    count = kernels.count_launch
+
+    def counted(name):
+        if name in ("masked_moments", "binned_histograms"):
+            launching.add(devprof.current_node())
+        count(name)
+
+    monkeypatch.setattr(kernels, "count_launch", counted)
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
+    monkeypatch.delenv("ANOVOS_TPU_DEVPROF", raising=False)
+    monkeypatch.chdir(tmp_path)
+    prev = get_runtime().device
+    try:
+        init_runtime("cuda")
+        workflow.main(_demo_cfg(str(pq)), "local")
+    finally:
+        init_runtime(prev)
+    man = obs.load_manifest(workflow.LAST_MANIFEST_PATH)
+    assert man["backend"] == "cuda" and set(man["devprof"]) == set(man["scheduler"]["nodes"])
+    assert launching and None not in launching and launching <= set(man["devprof"])
+    for e in man["devprof"].values():
+        assert e["device_time_s"] + e["dispatch_s"] + e["transfer_s"] + e["host_s"] <= e["wall_s"] + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sequential", "concurrent"])
+def test_cuda_drain_books_the_work_in_flight(mode, monkeypatch):
+    """A scheduler node that returns with a device sleep still queued on
+    its stream: under ANOVOS_TPU_DEVPROF=full the drain that ends it books
+    at least 0.8x the sleep's CUDA-event time as device time, and at most
+    the node's wall."""
+    from anovos_tpu_torch.obs import devprof
+    from anovos_tpu_torch.parallel.scheduler import DagScheduler
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+
+    _require_cuda()
+    monkeypatch.setenv("ANOVOS_TPU_DEVPROF", "full")
+    events = []
+
+    def body():
+        stream = torch.cuda.current_stream()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        torch.cuda._sleep(20_000_000)
+        b.record(stream)
+        events.append((a, b))
+
+    prev = get_runtime().device
+    try:
+        init_runtime("cuda")
+        sched = DagScheduler(name="drain")
+        sched.add("in_flight", body, placement="device")
+        devprof.reset()
+        summary = sched.run(mode=mode, max_workers=1)
+    finally:
+        init_runtime(prev)
+    a, b = events[0]
+    slept = a.elapsed_time(b) / 1e3
+    r = devprof.results()["in_flight"]
+    assert summary["nodes"]["in_flight"]["stream"] == (mode == "concurrent")
+    assert 0.8 * slept <= r["device_time_s"] <= r["wall_s"], (slept, r)

@@ -117,7 +117,7 @@ def test_independent_nodes_actually_overlap():
     summary = s.run(mode="concurrent", max_workers=2, node_timeout=30)
     assert summary["nodes"]["a"]["state"] == "done"
     assert summary["nodes"]["b"]["state"] == "done"
-    assert summary["max_in_flight"] == 2
+    assert summary["multidev_overlap"] == 2
 
 
 def test_spine_vs_fanout_ordering():

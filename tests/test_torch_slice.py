@@ -183,6 +183,10 @@ def test_port_never_imports_jax_or_the_jax_package():
         "parallel/__init__", "parallel/placement", "parallel/scheduler", "shared/artifact_store",
         "workflow", "feature_recommender/__init__", "feature_recommender/featrec_init",
         "feature_recommender/feature_explorer", "feature_recommender/feature_mapper")} <= rel
+    # the run-record slice: the tracer, @timed, devprof, the manifest and
+    # the version the manifest records
+    assert {f"anovos_tpu_torch/{m}.py" for m in (
+        "obs/__init__", "obs/tracing", "obs/timed", "obs/devprof", "obs/manifest", "version")} <= rel
     assert (REPO / "anovos_tpu_torch" / "feature_recommender" / "data" / "corpus.jsonl").is_file()
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad

@@ -7,7 +7,8 @@ avro), each in a working directory of its own.
 Parity standard (ROADMAP.md): integer results exact; f32 statistics within
 one unit of the 4th decimal the CSVs are rounded to plus 1e-5 relative
 (``ATOL``/``RTOL``); chart counts exact and event rates within 1e-6; the
-final dataset equal.  ``obs/`` is left out: the port writes none.  No file
+final dataset equal.  ``obs/`` holds the run manifest in both trees; its
+contents are held to JAX's in ``tests/test_torch_run_record.py``.  No file
 of this run carries a divergence by design (no sampling at 2,000 rows, no
 k-means).  Also here: the port's renderer over the JAX run's
 ``report_stats`` gives the same bytes, and the port's checkers read the
@@ -156,13 +157,6 @@ def assert_chart_close(got_path: str, exp_path: str) -> None:
     _assert_json_close(got, exp, name.startswith("freqDist_"), name)
 
 
-# the one sentence of the JAX renderer's Degraded Sections tab that the
-# port leaves out: it points at the run manifest and the run journal, files
-# the port does not write yet (ROADMAP.md Queue A items 1 and 2)
-JAX_ONLY_DEGRADED_TEXT = (" (see the run manifest's <code>resilience</code> section and "
-                          "<code>obs/run_journal.jsonl</code> for the failure record)")
-
-
 def report_tabs(html: str) -> list:
     """The report's tab names, in order."""
     import re
@@ -180,17 +174,13 @@ def degraded_tab(html: str):
 
 def assert_report_close(got_path: str, exp_path: str) -> None:
     """Two runners' reports: the same tabs in the same order, and the
-    Degraded Sections tab, where there is one, equal to the JAX one but
-    for ``JAX_ONLY_DEGRADED_TEXT``.  (The other tabs print the runs' own
-    f32 statistics; ``render_both`` holds them byte-equal on one tree.)"""
+    Degraded Sections tab, where there is one, equal to the JAX one.
+    (The other tabs print the runs' own f32 statistics; ``render_both``
+    holds them byte-equal on one tree.)"""
     with open(got_path) as fg, open(exp_path) as fe:
         got, exp = fg.read(), fe.read()
     assert report_tabs(got) == report_tabs(exp)
-    exp_tab = degraded_tab(exp)
-    assert (exp_tab is None) == (degraded_tab(got) is None)
-    if exp_tab is not None:
-        assert JAX_ONLY_DEGRADED_TEXT in exp_tab
-        assert degraded_tab(got) == exp_tab.replace(JAX_ONLY_DEGRADED_TEXT, "")
+    assert degraded_tab(got) == degraded_tab(exp)
 
 
 def assert_dirs_close(got_dir: str, exp_dir: str, rules=None) -> list:
@@ -272,10 +262,11 @@ BASIC_CSVS = ["global_summary", "measures_of_counts", "measures_of_centralTenden
 
 
 def test_same_files(runs):
-    """The same file tree, obs/ left out (the JAX run's only extra)."""
-    assert tree(runs["port"]) == tree(runs["jax"])
+    """The same file tree, obs/ included: both runs leave their run
+    manifest under the write_main path."""
+    assert tree(runs["port"], skip=()) == tree(runs["jax"], skip=())
     assert "ts_cols_stats.csv" in tree(runs["port"])
-    assert set(tree(runs["jax"], skip=())) - set(tree(runs["port"])) == {"output/obs/run_manifest.json"}
+    assert "output/obs/run_manifest.json" in tree(runs["port"], skip=())
 
 
 @pytest.mark.parametrize("name", BASIC_CSVS)
@@ -339,18 +330,19 @@ def test_renderer_bytes_over_the_jax_tree(runs, tmp_path):
 
 def test_renderer_bytes_with_a_degraded_section(runs, tmp_path):
     """Both renderers over the JAX run's report_stats with the same two
-    sections in both degradation registries: the same bytes but the one
-    sentence the port leaves out (``JAX_ONLY_DEGRADED_TEXT``), and the
-    Degraded Sections tab first, naming both, escaped."""
+    sections in both degradation registries: the same bytes, and the
+    Degraded Sections tab first, naming both, escaped, with the JAX
+    sentence that points at the manifest's resilience section."""
     degraded = {"stats_generator/measures_of_shape": "ChaosError: <injected> & gone",
                 "association_evaluator/IV_calculation": "KeyError: 'income'"}
     port, jax = render_both(os.path.join(runs["jax"], "report_stats"), str(tmp_path), degraded=degraded,
                             id_col="ifa", label_col="income")
     port, jax = port.decode(), jax.decode()
-    assert port == jax.replace(JAX_ONLY_DEGRADED_TEXT, "", 1) and port != jax
+    assert port == jax
     assert report_tabs(port)[0] == "Degraded Sections" and len(report_tabs(port)) == 7
     tab = degraded_tab(port)
     assert "2 analytics section(s) DEGRADED" in tab and "&lt;injected&gt; &amp; gone" in tab
+    assert "run manifest's <code>resilience</code> section" in tab
 
 
 @pytest.mark.parametrize("check", ["nullColumns_detection", "IDness_detection", "biasedness_detection"])

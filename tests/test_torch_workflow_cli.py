@@ -8,7 +8,9 @@ JAX runner, the device never falling back to the CPU, and ``anovos_tpu_torch.wor
 importable without a YAML reader.  Every knob of a layer the port does not
 have yet (``obs/telemetry.UNPORTED_KNOBS``) and a chaos ``wedge`` make
 ``workflow.main`` and ``workflow.run`` raise before any work, naming the
-ROADMAP.md item.  Also ``chip_smoke.py``'s copy of
+ROADMAP.md item, and the four knobs of the run record work
+(``ANOVOS_TPU_TRACE``, ``ANOVOS_TPU_TRACE_BUFFER``, ``ANOVOS_PROFILE``,
+``ANOVOS_TPU_DEVPROF``).  Also ``chip_smoke.py``'s copy of
 ``config/configs_basic.yaml`` held equal to the file.
 """
 
@@ -132,7 +134,7 @@ def test_unported_knobs_raise_naming_their_item(knob, tmp_path, monkeypatch):
     what, item = UNPORTED_KNOBS[knob]
     cfg = load_config("configs_basic.yaml")
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv(knob, "1" if knob != "ANOVOS_PROFILE" else str(tmp_path / "profile"))
+    monkeypatch.setenv(knob, "1")
     match = f"{knob} asks for {what}, which is not ported.*ROADMAP.md Queue A item {item}$"
     with pytest.raises(NotImplementedError, match=match):
         workflow.main(cfg, "local")
@@ -154,7 +156,7 @@ def test_chaos_wedge_raises_naming_the_failover_item(tmp_path, monkeypatch):
     cfg = load_config("configs_basic.yaml")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "seed=3;exc@node:join_dataset;wedge@node:stats_generator/*")
-    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A item 5$"):
+    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A item 4$"):
         workflow.main(cfg, "local")
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:join_dataset;hang@node:x:secs=1")
     with pytest.raises(FileNotFoundError):
@@ -248,3 +250,65 @@ def test_chip_smoke_runs_the_full_config():
     exp["report_generation"]["metricDict_path"] = "NA"
     assert got == exp and list(got) == list(exp)
     assert [list(g) for g in got["transformers"].values()] == [list(g) for g in exp["transformers"].values()]
+
+
+# the four knobs of the run record, which the runner used to refuse: each
+# now does what it asks for (one test a knob, in place of its case above)
+
+def _record_run(tmp_path, monkeypatch, **env):
+    """``workflow.run`` of the mini config of tests/test_obs.py on 300
+    rows, sequential, under ``env``; returns its manifest."""
+    import yaml
+
+    from anovos_tpu_torch import obs, workflow
+    from test_torch_obs import mini_cfg, mini_parquet
+
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(mini_cfg(mini_parquet(tmp_path, 300))))
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", "sequential")
+    for knob, value in env.items():
+        monkeypatch.setenv(knob, value)
+    monkeypatch.chdir(tmp_path)
+    workflow.run(str(cfg_path), "local")
+    return obs.load_manifest(workflow.LAST_MANIFEST_PATH)
+
+
+def test_trace_knob_writes_the_chrome_trace(tmp_path, monkeypatch):
+    man = _record_run(tmp_path, monkeypatch, ANOVOS_TPU_TRACE="1")
+    path = tmp_path / "report_stats" / "obs" / "trace.json"
+    assert man["trace_path"] == str(path)
+    import json
+
+    events = json.loads(path.read_text())["traceEvents"]
+    nodes = {e["name"] for e in events if e.get("cat") == "node" and e["ph"] == "X"}
+    assert set(man["scheduler"]["nodes"]) | {"input_dataset/ETL"} == nodes
+
+
+def test_trace_buffer_knob_bounds_the_ring(tmp_path, monkeypatch):
+    from anovos_tpu_torch import obs
+
+    man = _record_run(tmp_path, monkeypatch, ANOVOS_TPU_TRACE_BUFFER="5")
+    tracer = obs.get_tracer()
+    assert tracer.maxlen == 5 and tracer.span_count() == 5 and tracer.dropped > 0
+    # the manifest's snapshot is taken before its own write's spans land
+    assert 0 < man["metrics"]["trace_spans_dropped_total"]["series"][""] <= tracer.dropped
+    monkeypatch.delenv("ANOVOS_TPU_TRACE_BUFFER")
+    (tmp_path / "again").mkdir()
+    _record_run(tmp_path / "again", monkeypatch)
+    assert obs.get_tracer().maxlen == 200_000
+
+
+def test_profile_knob_writes_a_profiler_trace(tmp_path, monkeypatch):
+    prof = tmp_path / "profile"
+    _record_run(tmp_path, monkeypatch, ANOVOS_PROFILE=str(prof))
+    (trace,) = prof.iterdir()
+    assert trace.name.startswith("anovos_torch_profile_") and trace.stat().st_size > 0
+
+
+def test_devprof_knob_off_leaves_the_manifest_section_null(tmp_path, monkeypatch):
+    man = _record_run(tmp_path, monkeypatch, ANOVOS_TPU_DEVPROF="0")
+    assert man["devprof"] is None
+    assert not any(k.startswith(("devprof_", "transfer_")) for k in man["metrics"])
+    (tmp_path / "on").mkdir()
+    monkeypatch.setenv("ANOVOS_TPU_DEVPROF", "1")
+    assert set(_record_run(tmp_path / "on", monkeypatch)["devprof"]) == set(man["scheduler"]["nodes"])

@@ -12,7 +12,7 @@ frames).  ``obs/`` is left out everywhere.
 * So do the JAX package's two modes.
 * Across packages, in each mode: the same files, the same schedule, the
   same degraded sections and reports with the same tabs, the Degraded
-  Sections tab equal but for ``JAX_ONLY_DEGRADED_TEXT``.  The values in
+  Sections tab equal.  The values in
   the files are held to JAX's by the per-config tests
   (``test_torch_workflow*.py``); the segmentation config's autoencoder
   draws from each package's own generator here.
@@ -30,8 +30,7 @@ import pytest
 
 from _torch_port import torch_cpu_runtime  # noqa: F401  (autouse fixture)
 from test_torch_scheduler import tree_hashes
-from test_torch_workflow import (JAX_ONLY_DEGRADED_TEXT, assert_report_close, basic_config, degraded_tab,
-                                 income_data, report_tabs, tree)
+from test_torch_workflow import assert_report_close, basic_config, degraded_tab, income_data, report_tabs, tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ["configs_basic", "configs_full", "configs", "configs_mlflow", "configs_feast",
@@ -221,4 +220,4 @@ def test_chaos_hang_tabs_equal_across_packages(runs):
     got, exp = (open(os.path.join(runs["root"], p, "hang", "report_stats", "ml_anovos_report.html")).read()
                 for p in ("port", "jax"))
     assert report_tabs(got) == report_tabs(exp)
-    assert degraded_tab(got) == degraded_tab(exp).replace(JAX_ONLY_DEGRADED_TEXT, "")
+    assert degraded_tab(got) == degraded_tab(exp)

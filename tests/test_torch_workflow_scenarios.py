@@ -169,15 +169,14 @@ def test_configs_yaml_degrades_drift_as_jax_does(income_runs):
 def test_configs_yaml_report_names_the_degraded_drift(income_runs):
     """Both runners' reports on configs.yaml lead with the Degraded Sections
     tab naming drift_statistics and its error; the port's tab is the JAX
-    markup without the sentence that points at the run manifest and the run
-    journal, which the port does not write yet."""
-    from test_torch_workflow import JAX_ONLY_DEGRADED_TEXT, degraded_tab, report_tabs
+    markup."""
+    from test_torch_workflow import degraded_tab, report_tabs
 
     got, exp = (open(os.path.join(income_runs[p], "report_stats", "ml_anovos_report.html")).read()
                 for p in ("port", "jax"))
     assert report_tabs(got) == report_tabs(exp)
     assert report_tabs(got)[0] == "Degraded Sections"
-    assert degraded_tab(got) == degraded_tab(exp).replace(JAX_ONLY_DEGRADED_TEXT, "")
+    assert degraded_tab(got) == degraded_tab(exp)
     assert ("1 analytics section(s) DEGRADED" in degraded_tab(got)
             and "<b>drift_detector/drift_statistics</b>" in degraded_tab(got)
             and "dupl_age" in degraded_tab(got))
@@ -187,8 +186,8 @@ def test_quarantined_part_in_the_degraded_tab(data, tmp_path, monkeypatch):
     """A part the ingest guard quarantines (corrupt on every read, no
     retry) through both runners: the report's Degraded Sections tab lists
     the part with its error class and the rows it held, and equals the JAX
-    tab but for ``JAX_ONLY_DEGRADED_TEXT``."""
-    from test_torch_workflow import JAX_ONLY_DEGRADED_TEXT, degraded_tab, report_tabs
+    tab."""
+    from test_torch_workflow import degraded_tab, report_tabs
 
     full = pd.read_parquet(os.path.join(data["main"], "part-00000.parquet"))
     parts = tmp_path / "parts"
@@ -210,7 +209,7 @@ def test_quarantined_part_in_the_degraded_tab(data, tmp_path, monkeypatch):
                 for p in ("port", "jax"))
     assert report_tabs(got) == report_tabs(exp) and report_tabs(got)[0] == "Degraded Sections"
     tab = degraded_tab(got)
-    assert tab == degraded_tab(exp).replace(JAX_ONLY_DEGRADED_TEXT, "")
+    assert tab == degraded_tab(exp)
     assert (f"1 input part(s) QUARANTINED</b> ({ROWS // 2} row(s) lost" in tab
             and f"<td>part-00001.parquet</td><td>ChaosCorrupt</td><td>{ROWS // 2}</td>" in tab)
     counts = pd.read_csv(os.path.join(runs["port"], "report_stats", "measures_of_counts.csv"))
