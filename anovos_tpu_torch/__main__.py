@@ -1,10 +1,13 @@
 """``python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json] [--resume]``:
 run a YAML config through the port's runner on the GPU.  ``--resume``
-re-runs a killed config: its streaming passes resume from their chunk
-checkpoints, every other block runs again."""
+re-runs a killed config in the same directory: it sets ``ANOVOS_TPU_CACHE``
+to ``.anovos_cache`` when it is unset, so the nodes the killed run
+committed restore from the node cache, and the streaming passes resume
+from their chunk checkpoints."""
 
 import json
 import logging
+import os
 import sys
 
 USAGE = "usage: python -m anovos_tpu_torch <config.yaml> [run_type] [auth_key_json] [--resume]"
@@ -33,6 +36,9 @@ def parse_args(argv):
 
 if __name__ == "__main__":
     config_path, run_type, auth_key_val, resume = parse_args(sys.argv)
+    if resume:
+        # a resume needs a cache root, set before the runner is imported
+        os.environ.setdefault("ANOVOS_TPU_CACHE", ".anovos_cache")
     # entrypoint-only root-logger setup: library modules never call
     # logging.basicConfig
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")

@@ -1,10 +1,29 @@
-"""Canonical config hashing, dataset fingerprints and the environment
-fingerprint (counterpart of ``anovos_tpu/cache/fingerprint.py``
-``canonical``, ``digest``, ``dataset_fingerprint``, ``KNOWN_ENV_KNOBS`` and
-``env_fingerprint``).  The digest of the same inputs is the JAX package's,
-byte for byte.  The run manifest's ``env`` section reads the knob list and
-the environment fingerprint; ``base_material`` and ``node_fingerprint``
-wait for the node cache (ROADMAP.md Queue A item 1)."""
+"""Node fingerprints: the cache key of one scheduler node's outputs
+(counterpart of ``anovos_tpu/cache/fingerprint.py``).
+
+A node's artifacts are a pure function of the input dataset, its config
+slice, the code version, the runtime knobs that change numerics and the
+outputs of the nodes it reads through RAW edges.  The fingerprint is the
+sha256 over exactly those parts:
+
+``H(base ∥ node name ∥ canonical(config slice) ∥ writes-set ∥ RAW-dep
+fingerprints)`` where ``base = H(version ∥ package ∥ env knobs and
+backend ∥ dataset fingerprint ∥ global path config)``.
+
+``canonical``, ``digest``, ``dataset_fingerprint`` and
+``node_fingerprint`` give the JAX package's digest byte for byte on the
+same inputs.  ``base_material`` folds in one part the JAX package's lacks,
+the package name: both packages are version 0.1.0 and both default
+``--resume`` to ``.anovos_cache``, and their artifacts differ at the f32
+level by design, so a root the two share must never hand one package's
+results to the other.
+
+``KNOWN_ENV_KNOBS`` lists the environment variables that can change a
+node's artifacts: the JAX package's list and the port's one own knob,
+``ANOVOS_GEOCODE_TABLE``.  ``EXEMPT_ENV_KNOBS`` lists those a node body
+reads that cannot, each with its reason.  ``tests/test_torch_cache.py``
+parses the port's sources and holds every node-reachable read to the two
+lists (the JAX package's graftcheck rule GC008 does it there)."""
 
 from __future__ import annotations
 
@@ -12,9 +31,18 @@ import hashlib
 import json
 import os
 import sys
-from typing import Optional
+from typing import Iterable, Optional
 
-__all__ = ["KNOWN_ENV_KNOBS", "canonical", "digest", "dataset_fingerprint", "env_fingerprint"]
+__all__ = [
+    "KNOWN_ENV_KNOBS",
+    "EXEMPT_ENV_KNOBS",
+    "canonical",
+    "digest",
+    "dataset_fingerprint",
+    "env_fingerprint",
+    "base_material",
+    "node_fingerprint",
+]
 
 # Environment variables whose value changes node ARTIFACTS.  Pure
 # performance/telemetry knobs (worker counts, timeouts, trace paths, probe
@@ -123,7 +151,41 @@ KNOWN_ENV_KNOBS = (
     # Pallas kernel backend: alternative lowerings change float artifacts
     # (same policy as ANOVOS_MATMUL_PRECISION)
     "ANOVOS_USE_PALLAS",
+    # the port's own: the offline city table reverse_geocoding reads
+    # (data_transformer/geospatial.py); another table names other cities
+    "ANOVOS_GEOCODE_TABLE",
 )
+
+# Environment variables that node-reachable code READS but that cannot
+# change artifacts, each with its reason (the JAX package's list, less the
+# knobs of layers the port does not read).  A name here is a reviewed
+# claim: a knob that starts to change artifacts moves to KNOWN_ENV_KNOBS.
+EXEMPT_ENV_KNOBS = {
+    "ANOVOS_ARTIFACT_STORE":
+        "selects WHERE artifacts persist (store backend override), never "
+        "their bytes",
+    "ANOVOS_DBSCAN_BATCH_MAX":
+        "memory bound splitting the min_samples sweep into independent "
+        "fits; per-fit results are unchanged and stacked in input order",
+    "ANOVOS_DBSCAN_HOST_CC_MAX":
+        "picks host vs on-device connected-components propagation; "
+        "cluster labels are exact graph connectivity either way",
+    "ANOVOS_INGEST_RETRIES":
+        "retry budget: a successful re-read is byte-identical (same "
+        "policy as ANOVOS_TPU_RETRIES)",
+    "ANOVOS_PLOTLY_JS":
+        "chart-runtime embedding choice (inline plotly.min.js vs CDN "
+        "tag): a rendering asset, not a computed statistic",
+    "ANOVOS_TPU_CACHE":
+        "cache-store root: selects where node artifacts persist, not "
+        "their contents",
+    "ANOVOS_TPU_DEVPROF":
+        "device-time attribution telemetry toggle; outputs live under "
+        "the parity-excluded obs/ subtree",
+    "ANOVOS_TPU_FLIGHTREC":
+        "flight-recorder telemetry toggle; outputs live under the "
+        "parity-excluded obs/ subtree",
+}
 
 
 def canonical(obj) -> str:
@@ -201,3 +263,42 @@ def env_fingerprint() -> str:
             backend, n_devices = "", 0
     knobs = {k: os.environ.get(k, "") for k in KNOWN_ENV_KNOBS}
     return digest(canonical(knobs), backend, str(n_devices))
+
+
+def base_material(all_configs: dict, run_type: str = "local") -> str:
+    """The run-wide part of every node fingerprint: code version, package,
+    audited env knobs and backend, the input dataset, and the global
+    output-path config (a changed write destination must recompute: the
+    capture recorded the old destinations)."""
+    from anovos_tpu_torch.version import __version__
+
+    global_slice = {
+        "run_type": run_type,
+        "write_main": all_configs.get("write_main"),
+        "write_intermediate": all_configs.get("write_intermediate"),
+        "write_stats": all_configs.get("write_stats"),
+        "report_preprocessing": {
+            "master_path": (all_configs.get("report_preprocessing") or {}).get("master_path")
+        },
+    }
+    return digest(
+        __version__,
+        "anovos_tpu_torch",  # the package part, which the JAX package's base lacks
+        env_fingerprint(),
+        dataset_fingerprint(all_configs.get("input_dataset")),
+        canonical(global_slice),
+    )
+
+
+def node_fingerprint(
+    base: str,
+    name: str,
+    config_slice,
+    writes: Iterable[str] = (),
+    dep_fingerprints: Iterable[str] = (),
+) -> str:
+    """Fold one node's identity: run base, node name, its canonicalized
+    config slice, its declared writes-set, and the fingerprints of the
+    nodes it reads through RAW edges."""
+    return digest(base, name, canonical(config_slice),
+                  canonical(sorted(writes)), *sorted(dep_fingerprints))

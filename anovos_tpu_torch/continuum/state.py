@@ -415,7 +415,8 @@ class ContinuumState:
                             os.path.join(self.parts_dir, e["npz"]),
                             os.path.join(tmp_dir, "parts", e["npz"]))
 
-            store.commit(fp, f"{SNAPSHOT_NODE}:{self.config_sig[:16]}", _payload)
+            store.commit(fp, f"{SNAPSHOT_NODE}:{self.config_sig[:16]}", (),
+                         payload_write=_payload)
         self.journal.append("snapshot_commit", fp=fp, parts=len(self.parts))
         return fp
 

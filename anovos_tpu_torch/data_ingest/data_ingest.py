@@ -29,6 +29,7 @@ import pyarrow as pa
 import pyarrow.csv as pacsv
 import torch
 
+from anovos_tpu_torch.cache import capture
 from anovos_tpu_torch.data_ingest import avro_io, guard
 from anovos_tpu_torch.obs import devprof, get_metrics, get_tracer
 from anovos_tpu_torch.ops.segment import masked_nunique
@@ -271,6 +272,11 @@ def write_dataset(
         else:
             raise ValueError(f"unsupported file_type: {file_type}")
     open(os.path.join(file_path, "_SUCCESS"), "w").close()
+    # the node cache's capture: pyarrow's writers bypass the builtins.open
+    # hook, so this choke point books every part (a no-op unless a
+    # recorder is active on this thread)
+    for f in written + [os.path.join(file_path, "_SUCCESS")]:
+        capture.record_artifact(f)
     reg = get_metrics()
     reg.counter("bytes_written_total", "artifact bytes written to disk"
                 ).inc(sum(os.path.getsize(f) for f in written))

@@ -26,7 +26,7 @@ renders from ``<master_path>/obs/run_manifest.json`` when a completed run
 left one there (``run_timings_gen``), after Geospatial, as in the JAX
 renderer.  Two parts of the JAX renderer read layers the port does not
 have yet and are left out: the Perf Ledger tab and the Run Diff tab
-(ROADMAP.md Queue A item 3).  In a fresh run directory the JAX renderer
+(ROADMAP.md Queue A item 2).  In a fresh run directory the JAX renderer
 shows neither (``workflow.run`` refuses ``ANOVOS_PERF_LEDGER`` and
 ``ANOVOS_RUN_DIFF_BASELINE``).
 """

@@ -26,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from anovos_tpu_torch.cache import capture
 from anovos_tpu_torch.ops.als import als_impute
 from anovos_tpu_torch.ops.knn import knn_impute_tile
 from anovos_tpu_torch.ops.mxu import true_f32
@@ -211,6 +212,7 @@ def imputation_sklearn(
         if model_file:
             os.makedirs(local_model_dir, exist_ok=True)
             np.savez(model_file, feat_cols=np.array(feat_cols), Xs=Xs.cpu().numpy(), Ms=Ms.cpu().numpy())
+            capture.record_artifact(model_file)  # zipfile opens through io.open, past the hook
             store.push(model_file, model_path)
     else:
         means, coefs = _fit_iterative_ridge(X, M)
@@ -218,6 +220,7 @@ def imputation_sklearn(
             os.makedirs(local_model_dir, exist_ok=True)
             np.savez(model_file, feat_cols=np.array(feat_cols), means=means.cpu().numpy(),
                      coefs=coefs.cpu().numpy())
+            capture.record_artifact(model_file)
             store.push(model_file, model_path)
 
     if method_type == "KNN":

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from anovos_tpu_torch.cache import capture
 from anovos_tpu_torch.ops.mxu import true_f32
 
 logger = logging.getLogger(__name__)
@@ -224,6 +225,8 @@ class AutoEncoder:
                     flat[f"{lname}.{k}"] = v
         np.savez(os.path.join(d, "model.npz"), n_inputs=self.n_inputs,
                  n_bottleneck=self.n_bottleneck, **flat)
+        # zipfile opens through io.open, which the capture hook does not see
+        capture.record_artifact(os.path.join(d, "model.npz"))
 
     @staticmethod
     def load(model_path: str, device=None) -> Tuple["AutoEncoder", AENet]:

@@ -22,8 +22,7 @@ Recording is always on; trace-file export is gated by
 ``torch.profiler`` trace of ``workflow.run`` by ``ANOVOS_PROFILE=<dir>``.
 Not ported: the compile census (an XLA compile counter), the Prometheus
 exposition, trace rotation, flight dumps, the telemetry HTTP plane and
-the perf doctor (ROADMAP.md Queue A item 3), and ``record_cache_stats``
-(item 1).
+the perf doctor (ROADMAP.md Queue A item 2).
 """
 
 from anovos_tpu_torch.obs import devprof, flight, telemetry
@@ -43,6 +42,7 @@ from anovos_tpu_torch.obs.metrics import (
     MetricsRegistry,
     get_metrics,
     memory_by_device,
+    record_cache_stats,
     record_device_memory,
 )
 from anovos_tpu_torch.obs.timed import timed
@@ -72,6 +72,7 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "get_metrics",
+    "record_cache_stats",
     "record_device_memory",
     "timed",
     "Span",

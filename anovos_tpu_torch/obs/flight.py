@@ -10,8 +10,8 @@ up to it.  ``ANOVOS_TPU_FLIGHTREC=0`` disables recording; any other
 integer sets the ring's bound (default 256, at least 16).
 
 The postmortem dumps (``dump``, ``build_snapshot``) are not ported
-(ROADMAP.md Queue A item 3): their triggers are the scheduler's
-escalations and abandonments and the backend failover (item 4).
+(ROADMAP.md Queue A item 2): their triggers are the scheduler's
+escalations and abandonments and the backend failover (item 3).
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ config give manifests equal under ``stable_view``.
 
 Same keys as the JAX manifest: ``compile_census`` is always ``None``
 (eager torch compiles nothing; ``obs/compile_census.py`` is a TPU
-workaround left unported) and ``cache`` is ``None`` until the node cache
-lands (ROADMAP.md Queue A item 1); ``backend`` is the runtime's device
+workaround left unported) and ``cache`` is ``None`` unless the node
+cache is on (``ANOVOS_TPU_CACHE``); ``backend`` is the runtime's device
 type (``"cuda"`` or ``"cpu"``).  The port's scheduler summary has one
 key the JAX one lacks, each node's ``stream``: telemetry, which
 ``stable_view`` strips by name (:data:`PORT_ONLY_NODE_FIELDS`).

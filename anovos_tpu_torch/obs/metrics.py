@@ -10,22 +10,25 @@ JSON-able dict (sorted metric names, sorted label series) that the run
 manifest embeds.
 
 Labels are kwargs at observation time (``counter.inc(1, block="ETL")``);
-each distinct label combination is an independent series.  The JAX
-package's Prometheus text exposition and ``record_cache_stats`` wait for
-their first readers, the live plane and the node cache (ROADMAP.md Queue A
-items 3 and 1).
+each distinct label combination is an independent series.  The node
+cache books ``cache_hits_total``, ``cache_misses_total`` and
+``cache_restore_seconds`` in the scheduler and the store's footprint
+through :func:`record_cache_stats`.  The JAX package's Prometheus text
+exposition waits for its first reader, the live plane (ROADMAP.md Queue A
+item 2).
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 import sys
 import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_metrics",
-           "memory_by_device", "record_device_memory"]
+           "memory_by_device", "record_cache_stats", "record_device_memory"]
 
 # wall-time histogram bounds (seconds): sub-ms ops through multi-minute
 # blocks; one shared default keeps every duration metric comparable
@@ -250,3 +253,19 @@ def record_device_memory(registry: Optional[MetricsRegistry] = None) -> None:
     reg.gauge("device_mesh_bytes_high_water",
               "max observed mesh-wide device memory allocation"
               ).set_max(mesh_in_use)
+
+
+def record_cache_stats(store, registry: Optional[MetricsRegistry] = None) -> None:
+    """Record the node cache store's footprint (total bytes on disk,
+    committed node entries) as gauges.  ``store`` is a ``CacheStore`` or
+    ``None`` (no-op); never raises."""
+    if store is None:
+        return
+    reg = registry or _REGISTRY
+    try:
+        n_nodes = sum(1 for f in os.listdir(store.nodes_dir) if f.endswith(".json"))
+        reg.gauge("cache_store_bytes", "on-disk size of the node-result cache store"
+                  ).set(float(store.total_bytes()))
+        reg.gauge("cache_store_nodes", "committed node entries in the cache store").set(float(n_nodes))
+    except Exception:
+        return

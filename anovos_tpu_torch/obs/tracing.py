@@ -22,7 +22,7 @@ walls: kernels that a span's body enqueues on a CUDA stream may still run
 after the span closes (``ANOVOS_PROFILE`` gives the device's own trace).
 
 Trace rotation (``TraceRotator``, ``ANOVOS_TPU_TRACE_ROTATE``) waits for
-the live plane (ROADMAP.md Queue A item 3).
+the live plane (ROADMAP.md Queue A item 2).
 """
 
 from __future__ import annotations

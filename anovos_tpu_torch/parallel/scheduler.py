@@ -56,14 +56,28 @@ time, so one block's device compute overlaps another's host work.
   ``ANOVOS_TPU_DEVPROF=0``, which also drops the sync).  Either sync is
   inside the attempt, so a CUDA error it surfaces meets the node's error
   policy.
+* **Node cache.**  With a ``cache_store`` (``cache.CacheStore``), a node
+  registered with a ``cache`` policy (``cache.NodeCachePolicy``) gets a
+  fingerprint at ``add``: its key material folded with the fingerprints
+  of its RAW-edge producers (none when a producer has none).  Before the
+  first attempt the executor looks the fingerprint up; a hit restores the
+  committed files and payload (``cache:restore:<node>`` span,
+  ``cache_hits_total``, ``cache_restore_seconds``, a ``node_restored``
+  journal line) and skips the body, so a restored node launches nothing
+  on the card.  A miss runs the body inside a capture recorder
+  (``cache.capture``), waits for the node's queued async writes, and
+  commits what it created (``node_begin``, ``node_commit`` or
+  ``node_failed`` in the journal).  An abandoned attempt that finishes
+  late commits nothing.  Between retries the failed attempt's files are
+  unlinked, append-mode files kept.
 * **Summary.**  ``run()`` returns per-node start/end/thread spans, the
   measured critical path (longest dependency chain by wall time), the
-  serial seconds and the parallel speedup.
+  serial seconds, the parallel speedup and the ``cache`` counts
+  (``enabled``, ``hits``, ``misses``, ``restore_s``, ``uncacheable``).
 
-The JAX executor's node cache (ROADMAP.md Queue A item 1; the summary's
-``cache`` section says ``enabled: false``), flight dumps and telemetry
-gauges (item 3), backend failover (item 4) and multi-device lanes
-(item 5) are not ported: nothing here stands in for them.
+The JAX executor's flight dumps and telemetry gauges (ROADMAP.md Queue A
+item 2), backend failover (item 3) and multi-device lanes (item 4) are
+not ported: nothing here stands in for them.
 """
 
 from __future__ import annotations
@@ -75,6 +89,8 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Union
 
+from anovos_tpu_torch.cache import capture
+from anovos_tpu_torch.cache.fingerprint import digest
 from anovos_tpu_torch.obs import devprof, get_metrics, get_tracer
 from anovos_tpu_torch.parallel.placement import Placement, parse_placement
 from anovos_tpu_torch.resilience.policy import ErrorPolicy, parse_policy
@@ -112,6 +128,7 @@ class Node:
     __slots__ = (
         "name", "fn", "reads", "writes", "on_error", "deps", "dependents",
         "pending", "state", "start", "end", "ready", "thread", "error",
+        "cache", "fingerprint", "cached", "rec",
         "placement", "on_stream",
         "policy", "attempts", "attempt_start", "interrupt",
         "timeout_retried", "escalated", "degraded", "abandoned",
@@ -136,6 +153,10 @@ class Node:
         self.ready = 0.0            # when the last dep finished (queue-wait origin)
         self.thread = ""
         self.error: Optional[BaseException] = None
+        self.cache = None           # NodeCachePolicy (or None: always execute)
+        self.fingerprint: Optional[str] = None
+        self.cached = False         # True when this run restored instead of ran
+        self.rec = None             # the CURRENT attempt's capture recorder
         self.attempts = 0           # executions of the body this run
         self.attempt_start = 0.0    # monotonic start of the CURRENT attempt
         self.interrupt = threading.Event()  # per-attempt cooperative interrupt
@@ -194,12 +215,16 @@ def _drained(torch, device):
 class DagScheduler:
     """Register nodes with resource reads/writes, then ``run()`` them."""
 
-    def __init__(self, name: str = "dag"):
+    def __init__(self, name: str = "dag", cache_store=None, journal=None):
         self.name = name
         self._nodes: List[Node] = []
         self._by_name: Dict[str, Node] = {}
         self._last_writer: Dict[str, Node] = {}
         self._readers_since_write: Dict[str, List[Node]] = {}
+        self.cache_store = cache_store   # cache.CacheStore | None
+        self.journal = journal           # cache.RunJournal | None
+        self._cache_lock = threading.Lock()
+        self._cache_stats = {"hits": 0, "misses": 0, "restore_s": 0.0}
         self._res_lock = threading.Lock()
         self._res_stats = {"retries": 0, "timeout_retries": 0, "timeout_escalations": 0}
         self._device = None          # the card, when nodes run on streams
@@ -215,6 +240,7 @@ class DagScheduler:
         reads: Iterable[str] = (),
         writes: Iterable[str] = (),
         on_error: Union[str, ErrorPolicy] = "raise",
+        cache=None,
         placement: Union[None, str, Placement] = None,
     ) -> Node:
         """Register ``fn`` as node ``name``.
@@ -224,16 +250,20 @@ class DagScheduler:
         consumer registered before its producer would also find only what
         pre-exists on disk.  ``on_error`` is ``"raise"``, ``"continue"``,
         ``"retry:N[:degrade|:continue]"`` or an ``ErrorPolicy``;
+        ``cache`` (a ``cache.NodeCachePolicy``) makes the node cacheable;
         ``placement`` (``None`` means ``host``) is kept on the node.
         """
         if name in self._by_name:
             raise ValueError(f"duplicate node name {name!r}")
         node = Node(name, fn, reads, writes, on_error, placement=placement)
+        node.cache = cache
         deps: "dict[int, Node]" = {}  # id -> Node, insertion-ordered, deduped
+        raw_deps: "dict[int, Node]" = {}  # the content-carrying subset
         for r in node.reads:
             w = self._last_writer.get(r)
             if w is not None:
                 deps[id(w)] = w  # read-after-write
+                raw_deps[id(w)] = w
         for w in node.writes:
             prev = self._last_writer.get(w)
             if prev is not None:
@@ -250,6 +280,13 @@ class DagScheduler:
         for w in node.writes:
             self._last_writer[w] = node
             self._readers_since_write[w] = []
+        raw_deps.pop(id(node), None)
+        if cache is not None:
+            # fingerprint = key material ⊕ RAW-producer fingerprints; a
+            # producer without one makes this node's inputs unidentifiable
+            dep_fps = [d.fingerprint for d in raw_deps.values()]
+            if all(fp is not None for fp in dep_fps):
+                node.fingerprint = digest(cache.key_material, *sorted(dep_fps))
         self._nodes.append(node)
         self._by_name[name] = node
         return node
@@ -338,7 +375,10 @@ class DagScheduler:
                                    queue_wait_s=round(node.queue_wait, 4), lane=lane,
                                    scheduler=self.name), \
                     devprof.node_bracket(node.name, drain=self._drains(node), lane=lane):
-                self._run_attempts(node)
+                # a restored node runs no attempt: it takes no stream and
+                # launches nothing; the bracket's own exit closes its frame
+                if not self._try_restore(node):
+                    self._run_attempts(node)
             if not node.abandoned:
                 node.state = "degraded" if node.degraded else "done"
         except BaseException as e:
@@ -383,7 +423,7 @@ class DagScheduler:
             try:
                 with self._node_scope(node):
                     chaos.chaos_point(f"node:{node.name}", interrupt=node.interrupt)
-                    node.fn()
+                    self._run_body(node)
                 return
             except KeyboardInterrupt:
                 raise
@@ -395,11 +435,13 @@ class DagScheduler:
                 if retryable and node.interrupt.is_set() and not node.timeout_retried:
                     node.timeout_retried = True
                     self._note_retry(node, e, kind="timeout_retry")
+                    self._discard_partial(node)
                     continue
                 # 2) policy retries with exponential backoff + jitter
                 if retries_left > 0:
                     retries_left -= 1
                     self._note_retry(node, e, kind="retry")
+                    self._discard_partial(node)
                     time.sleep(rpolicy.backoff_delay(node.name, node.attempts, pol))
                     continue
                 # 3) exhausted: degrade (the run continues, the section is
@@ -408,6 +450,9 @@ class DagScheduler:
                     node.degraded = True
                     node.error = e
                     rpolicy.record_degraded(node.name, f"{type(e).__name__}: {e}")
+                    if self.journal is not None:
+                        self.journal.append("node_degraded", node=node.name, attempts=node.attempts,
+                                            error=repr(e)[:300])
                     logger.warning(
                         "node %r exhausted %d attempt(s) (%r); marking its "
                         "section DEGRADED and continuing — the report renders "
@@ -422,8 +467,112 @@ class DagScheduler:
             self._res_stats["retries"] += 1
             if kind == "timeout_retry":
                 self._res_stats["timeout_retries"] += 1
+        if self.journal is not None:
+            self.journal.append("node_retry", node=node.name, kind=kind, attempt=node.attempts,
+                                error=repr(exc)[:300])
         logger.warning("node %r attempt %d failed (%r); re-executing (%s)",
                        node.name, node.attempts, exc, kind)
+
+    def _discard_partial(self, node: Node) -> None:
+        """Between attempts, drop the failed attempt's partial artifacts:
+        wait out its in-flight async writes (so a stale queued write never
+        lands after the retry's fresh one), then unlink the files the
+        capture recorder booked, except append-mode files, whose earlier
+        content must survive.  Best-effort: a retry that overwrites is
+        already safe for exact-contract nodes."""
+        rec, node.rec = node.rec, None
+        if rec is None:
+            return
+        try:
+            if node.cache is not None and node.cache.flush is not None and rec.keys:
+                node.cache.flush(sorted(rec.keys))
+        except Exception:
+            logger.debug("retry of node %r: async flush of partial writes failed "
+                         "(likely the original error)", node.name, exc_info=True)
+        for p in sorted(rec.discardable_paths()):
+            try:
+                if os.path.isfile(p):
+                    os.remove(p)
+            except OSError:
+                pass
+
+    # -- cache ------------------------------------------------------------
+    def _try_restore(self, node: Node) -> bool:
+        """Cache hit: restore the node's committed artifacts and report
+        True (the body is skipped).  Any restore failure logs and reports
+        False: executing is always a safe fallback."""
+        if self.cache_store is None or node.fingerprint is None:
+            return False
+        manifest = self.cache_store.lookup(node.fingerprint)
+        if manifest is None:
+            return False
+        t0 = time.monotonic()
+        try:
+            with get_tracer().span(f"cache:restore:{node.name}", cat="cache",
+                                   fingerprint=node.fingerprint[:12],
+                                   files=len(manifest.get("files", ()))):
+                n_files = self.cache_store.restore(manifest)
+                if node.cache.on_hit is not None:
+                    pdir = (self.cache_store.payload_dir(node.fingerprint)
+                            if manifest.get("payload") else None)
+                    node.cache.on_hit(pdir)
+        except Exception:
+            logger.exception("cache restore for node %r failed; executing", node.name)
+            return False
+        restore_s = time.monotonic() - t0
+        node.cached = True
+        reg = get_metrics()
+        reg.counter("cache_hits_total", "scheduler nodes restored from cache").inc(node=node.name)
+        reg.histogram("cache_restore_seconds", "one node's artifact restore wall"
+                      ).observe(restore_s, node=node.name)
+        with self._cache_lock:
+            self._cache_stats["hits"] += 1
+            self._cache_stats["restore_s"] += restore_s
+        if self.journal is not None:
+            self.journal.append("node_restored", node=node.name, fp=node.fingerprint, files=n_files)
+        return True
+
+    def _run_body(self, node: Node) -> None:
+        """Execute the body; on a cacheable miss, capture the artifacts it
+        creates and commit them (a commit failure logs: the run's own
+        outputs are already on disk and must not be lost to a cache
+        error)."""
+        if self.cache_store is None or node.fingerprint is None:
+            node.fn()
+            return
+        get_metrics().counter("cache_misses_total", "scheduler nodes executed (no cache entry)"
+                              ).inc(node=node.name)
+        with self._cache_lock:
+            self._cache_stats["misses"] += 1
+        if self.journal is not None:
+            self.journal.append("node_begin", node=node.name, fp=node.fingerprint)
+        rec = capture.Recorder()
+        node.rec = rec  # the retry path discards this attempt's partials
+        try:
+            with capture.recording(rec):
+                node.fn()
+        except BaseException:
+            if self.journal is not None:
+                self.journal.append("node_failed", node=node.name, fp=node.fingerprint)
+            raise
+        if node.abandoned:
+            # a zombie attempt the watchdog already gave up on (booked
+            # degraded, dependents ran): its late result must not become a
+            # committed entry a later run would restore as a success
+            logger.warning("abandoned node %r finished late; its result is NOT committed "
+                           "(section already degraded)", node.name)
+            return
+        try:
+            if node.cache.flush is not None and rec.keys:
+                # the node's queued async writes land before the commit
+                node.cache.flush(sorted(rec.keys))
+            manifest = self.cache_store.commit(node.fingerprint, node.name, rec.paths,
+                                               payload_write=node.cache.payload_write)
+            if self.journal is not None:
+                self.journal.append("node_commit", node=node.name, fp=node.fingerprint,
+                                    files=len(manifest.get("files", ())))
+        except Exception:
+            logger.exception("cache commit for node %r failed; run continues uncached", node.name)
 
     def _run_sequential(self) -> None:
         for node in self._nodes:
@@ -515,6 +664,9 @@ class DagScheduler:
             node.state = "degraded"
             node.end = time.monotonic()
             rpolicy.record_degraded(node.name, reason)
+            if self.journal is not None:
+                self.journal.append("node_degraded", node=node.name, attempts=node.attempts,
+                                    error=reason[:300])
             logger.warning("%s — abandoning the stuck attempt (thread leaked, "
                            "worker replaced) and DEGRADING the section", reason)
             running.pop(node.name, None)
@@ -609,6 +761,8 @@ class DagScheduler:
             chain.reverse()
         else:
             cp_len = 0.0
+        with self._cache_lock:
+            cache_stats = dict(self._cache_stats)
         with self._res_lock:
             res_stats = dict(self._res_stats)
         # the most nodes in flight at once, from the measured spans (> 1
@@ -631,9 +785,13 @@ class DagScheduler:
             "critical_path_s": round(cp_len, 4),
             "parallel_speedup": round(serial / wall_s, 3) if wall_s > 0 else 0.0,
             "critical_path": chain,
-            # the node cache is not ported: every node executes
-            "cache": {"enabled": False, "hits": 0, "misses": 0, "restore_s": 0.0,
-                      "uncacheable": len(self._nodes)},
+            "cache": {
+                "enabled": self.cache_store is not None,
+                "hits": cache_stats["hits"],
+                "misses": cache_stats["misses"],
+                "restore_s": round(cache_stats["restore_s"], 4),
+                "uncacheable": sum(1 for n in self._nodes if n.fingerprint is None),
+            },
             "resilience": {
                 **res_stats,
                 "degraded": sorted(n.name for n in self._nodes if n.degraded),
@@ -649,7 +807,7 @@ class DagScheduler:
                     "devices": [],
                     "stream": n.on_stream,
                     "state": n.state,
-                    "cached": False,
+                    "cached": n.cached,
                     "attempts": n.attempts,
                     "escalated": n.escalated,
                     "degraded": n.degraded,

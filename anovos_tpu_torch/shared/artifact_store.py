@@ -205,9 +205,11 @@ class AsyncArtifactWriter:
 
     Each write runs in a ``write:<key>`` tracer span and books
     ``artifact_writes_total`` and ``artifact_write_seconds``; ``wait`` and
-    ``drain`` record ``artifact:wait`` and ``artifact:drain`` spans.  The
-    JAX writer's cache-capture binding waits for the node cache
-    (ROADMAP.md Queue A item 1).
+    ``drain`` record ``artifact:wait`` and ``artifact:drain`` spans.
+    ``submit`` books its key into the submitting thread's cache-capture
+    recorder (the node's commit barrier waits on it) and re-binds that
+    recorder on the writer thread, so a queued write stays attributed to
+    the node that queued it.
     """
 
     def __init__(self, workers: int = 2, sync: bool = False):
@@ -231,13 +233,15 @@ class AsyncArtifactWriter:
             return self._pool
 
     @staticmethod
-    def _instrumented(key: str, fn: Callable, args, kwargs):
+    def _instrumented(key: str, fn: Callable, args, kwargs, recorder=None):
         """Run one write inside its span and metrics booking (the writer
-        thread's lane in the Chrome trace shows what it wrote)."""
+        thread's lane in the Chrome trace shows what it wrote), with the
+        submitting node's capture ``recorder`` bound on this thread."""
+        from anovos_tpu_torch.cache import capture
         from anovos_tpu_torch.obs import get_metrics, get_tracer
 
         t0 = time.perf_counter()
-        with get_tracer().span(f"write:{key}", cat="artifact", key=key):
+        with get_tracer().span(f"write:{key}", cat="artifact", key=key), capture.recording(recorder):
             out = fn(*args, **kwargs)
         reg = get_metrics()
         reg.counter("artifact_writes_total", "artifact writes queued+completed").inc(key=key)
@@ -246,10 +250,16 @@ class AsyncArtifactWriter:
         return out
 
     def submit(self, key: str, fn: Callable, *args, **kwargs) -> None:
+        from anovos_tpu_torch.cache import capture
+
+        recorder = capture.current()
+        if recorder is not None:
+            # the node's cache commit barriers on its keys
+            recorder.add_key(key)
         if self._sync:
             self._instrumented(key, fn, args, kwargs)
             return
-        fut = self._ensure_pool().submit(self._instrumented, key, fn, args, kwargs)
+        fut = self._ensure_pool().submit(self._instrumented, key, fn, args, kwargs, recorder)
         with self._lock:
             self._pending.setdefault(key, []).append(fut)
 

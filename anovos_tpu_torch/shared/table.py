@@ -18,11 +18,17 @@ approximation in ``data`` for the moment kernels and the exact values in
 the card has 64-bit types, so no (hi, lo) int32 pair is needed.
 
 Tables are not padded: every column has exactly ``nrows`` rows.
+
+:func:`save_table` and :func:`load_table` keep a Table on disk exactly as
+it is in memory (every column's kind, Spark dtype name, data, mask, exact
+values and vocabulary, used or not): the node cache's df checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -336,3 +342,60 @@ class Table:
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.kind}" for n, c in self.columns.items())
         return f"Table[{self.nrows} rows]({cols})"
+
+
+_TABLE_META = "table.json"
+_TABLE_ARRAYS = "columns.npz"
+
+
+def save_table(table: Table, path: str) -> None:
+    """Write ``table`` into the directory ``path``: ``table.json`` (rows,
+    and each column's name, kind, dtype name and which arrays it has) and
+    ``columns.npz`` (each column's data, mask and exact values as they are
+    on the device, and a categorical vocabulary as its UTF-8 bytes and
+    offsets), so :func:`load_table` rebuilds an equal Table."""
+    import pyarrow as pa
+
+    os.makedirs(path, exist_ok=True)
+    arrays, cols = {}, []
+    for i, (name, c) in enumerate(table.columns.items()):
+        with devprof.transfer_bracket("d2h", c.data.nbytes + c.mask.nbytes, label="table.save"):
+            arrays[f"d{i}"] = c.data.cpu().numpy()
+            arrays[f"m{i}"] = c.mask.cpu().numpy()
+        if c.exact is not None:
+            arrays[f"e{i}"] = c.exact_host()
+        if c.vocab is not None:
+            strs = pa.array([str(v) for v in c.vocab], type=pa.large_string())
+            _, offsets, data = strs.buffers()
+            arrays[f"vo{i}"] = np.frombuffer(offsets, np.int64)[:len(strs) + 1]
+            arrays[f"vb{i}"] = np.frombuffer(data, np.uint8) if data is not None else np.zeros(0, np.uint8)
+        cols.append({"name": name, "kind": c.kind, "dtype_name": c.dtype_name,
+                     "exact": c.exact is not None, "vocab": c.vocab is not None})
+    with open(os.path.join(path, _TABLE_ARRAYS), "wb") as f:
+        np.savez(f, **arrays)
+    with open(os.path.join(path, _TABLE_META), "w") as f:
+        json.dump({"nrows": table.nrows, "columns": cols}, f)
+
+
+def load_table(path: str, device=None) -> Table:
+    """The Table :func:`save_table` wrote into ``path``, its columns
+    uploaded to ``device`` (default: the runtime's)."""
+    import pyarrow as pa
+
+    dev = torch.device(device) if device is not None else get_runtime().device
+    with open(os.path.join(path, _TABLE_META)) as f:
+        meta = json.load(f)
+    cols: "OrderedDict[str, Column]" = OrderedDict()
+    with np.load(os.path.join(path, _TABLE_ARRAYS), allow_pickle=False) as z:
+        for i, m in enumerate(meta["columns"]):
+            vocab = None
+            if m["vocab"]:
+                offsets = z[f"vo{i}"]
+                strs = pa.LargeStringArray.from_buffers(
+                    len(offsets) - 1, pa.py_buffer(offsets.tobytes()), pa.py_buffer(z[f"vb{i}"].tobytes()))
+                vocab = np.asarray(strs.to_numpy(zero_copy_only=False), dtype=object)
+            cols[m["name"]] = Column(
+                m["kind"], _put(z[f"d{i}"], dev, "table.load"), _put(z[f"m{i}"], dev, "table.load"),
+                vocab=vocab, dtype_name=m["dtype_name"],
+                exact=_put(z[f"e{i}"], dev, "table.load") if m["exact"] else None)
+    return Table(cols, meta["nrows"])

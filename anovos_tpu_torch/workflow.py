@@ -37,8 +37,8 @@ each node), resets the degradation registry and the ingest guard, and
 points the guard's quarantine manifest at ``<master_path or write_main
 path>/obs``.  :func:`main` and :func:`run` raise ``NotImplementedError``
 on a knob of a layer the port does not have yet
-(``obs/telemetry.UNPORTED_KNOBS``: the node cache, telemetry plane,
-failover and multi-device knobs).
+(``obs/telemetry.UNPORTED_KNOBS``: the telemetry plane, failover and
+multi-device knobs).
 
 The run record, as in the JAX runner: every run resets the metrics
 registry, the tracer (whose ring ``ANOVOS_TPU_TRACE_BUFFER`` bounds) and
@@ -51,9 +51,9 @@ fails.  :func:`run` under ``ANOVOS_PROFILE=<dir>`` records a
 ``torch.profiler`` trace of the whole run (CPU and CUDA activity on the
 card) into ``<dir>``, with each node's kernels under its name.
 
-``resume=True`` resumes only the ``streaming_analysis`` passes from their
-chunk checkpoints (``obs/stream_ckpt/<sub-analysis>``) and runs every
-other block again, as the JAX runner does without ``ANOVOS_TPU_CACHE``.
+``resume=True`` resumes the ``streaming_analysis`` passes from their
+chunk checkpoints (``obs/stream_ckpt/<sub-analysis>``); without
+``ANOVOS_TPU_CACHE`` every other block runs again, as in the JAX runner.
 A config without ``input_dataset`` but with ``streaming_analysis`` or
 ``continuous_analysis`` reads no Table.  A ``transformers`` step resolves
 its function on ``data_transformer.transformers`` by ``getattr``, so a
@@ -63,6 +63,23 @@ columns before the final write and then writes the Feast repository file.
 Each block's wall time is logged under the JAX runner's labels and kept
 for :func:`block_times`; :data:`LAST_RUN_SUMMARY` holds the schedule's
 summary (critical path, serial seconds, speedup).
+
+The node cache, as in the JAX runner: ``ANOVOS_TPU_CACHE=<dir>`` opts
+in.  Each registration passes its config slice (``cache_slice``, the JAX
+runner's slices; ``None`` keeps a node uncacheable: the continuum step,
+the report, and any block that loads a pre-existing model or source); the
+slice, folded with the run's base (version, package, audited env knobs,
+dataset fingerprint, output paths) and by the scheduler with the
+RAW-dep fingerprints, is the node's key.  A hit restores the node's
+files and skips its body.  A spine node also checkpoints its output df
+version into the store's payload (``shared.table.save_table``, exact);
+a hit hands downstream nodes that version as a :class:`_LazyTable`,
+loaded and uploaded to the card at its first read.  The run journal
+``obs/run_journal.jsonl`` (append-only across runs) records run and node
+events, the manifest's ``cache`` section the counts and ``resumed_from``,
+and ``ANOVOS_TPU_CACHE_MAX_BYTES`` sweeps the store at the end of the run.
+``resume=True`` with the cache on restores a killed run's committed
+nodes and resumes the streaming passes from their chunk checkpoints.
 """
 
 from __future__ import annotations
@@ -78,6 +95,19 @@ from typing import Optional
 
 import pandas as pd
 
+from anovos_tpu_torch.cache import (
+    CacheStore,
+    NodeCachePolicy,
+    RunJournal,
+    base_material,
+    cache_root,
+    committed_fingerprints,
+    dataset_fingerprint,
+    node_fingerprint,
+    read_journal,
+)
+from anovos_tpu_torch.cache import capture as cache_capture
+from anovos_tpu_torch.cache.store import parse_bytes
 from anovos_tpu_torch.data_analyzer import association_evaluator, quality_checker, stats_generator
 from anovos_tpu_torch.data_ingest import data_ingest
 from anovos_tpu_torch.data_ingest import guard as ingest_guard
@@ -94,8 +124,8 @@ from anovos_tpu_torch.drift_stability import drift_detector as ddetector
 from anovos_tpu_torch.drift_stability import stability as dstability
 from anovos_tpu_torch.feature_store import feast_exporter
 from anovos_tpu_torch.obs import devprof, flight, get_metrics, get_tracer, telemetry
-from anovos_tpu_torch.obs.manifest import build_manifest, write_manifest
-from anovos_tpu_torch.obs.metrics import record_device_memory
+from anovos_tpu_torch.obs.manifest import build_manifest, config_hash, write_manifest
+from anovos_tpu_torch.obs.metrics import record_cache_stats, record_device_memory
 from anovos_tpu_torch.obs.tracing import buffer_size, trace_destination, write_chrome_trace
 from anovos_tpu_torch.parallel.scheduler import DagScheduler, available_cpus
 from anovos_tpu_torch.resilience import chaos
@@ -103,7 +133,7 @@ from anovos_tpu_torch.resilience import policy as res_policy
 from anovos_tpu_torch.resilience.policy import ErrorPolicy
 from anovos_tpu_torch.shared.artifact_store import AsyncArtifactWriter, for_run_type
 from anovos_tpu_torch.shared.runtime import get_runtime, peek_runtime
-from anovos_tpu_torch.shared.table import Table
+from anovos_tpu_torch.shared.table import Table, load_table, save_table
 
 logger = logging.getLogger("anovos_tpu_torch.workflow")
 
@@ -314,6 +344,29 @@ def _drift_source_matches_input(all_configs: dict) -> bool:
     return bool(src) and _clean_spec(src) == _clean_spec(all_configs.get("input_dataset"))
 
 
+def _uses_preexisting(cfg) -> bool:
+    """True when a config subtree loads pre-existing models or sources from
+    disk: state the cache key cannot see, so such nodes stay uncacheable
+    rather than risk a stale hit."""
+    if isinstance(cfg, dict):
+        for k, v in cfg.items():
+            if k in ("pre_existing_model", "pre_existing_source") and bool(v):
+                return True
+            if _uses_preexisting(v):
+                return True
+    elif isinstance(cfg, (list, tuple)):
+        return any(_uses_preexisting(v) for v in cfg)
+    return False
+
+
+def _slice_or_none(slice_: dict, *gate_cfgs) -> Optional[dict]:
+    """The cache slice, or None (uncacheable) when any gate config pulls
+    pre-existing on-disk state into the computation."""
+    if any(_uses_preexisting(g) for g in gate_cfgs):
+        return None
+    return slice_
+
+
 def _node_policies() -> tuple:
     """(spine policy, fan-out policy) of this run's registrations: both
     retry ``ANOVOS_TPU_RETRIES`` times (default 1); a spine node that
@@ -326,6 +379,33 @@ def _node_policies() -> tuple:
     fanout = ErrorPolicy(mode="retry", retries=retries,
                          on_exhausted="degrade" if degrade else "raise", timeout_factor=1.5)
     return spine, fanout
+
+
+class _LazyTable:
+    """A df version restored from the cache, loaded at its first read.
+
+    On a fully cached run only the final version is ever read (by the
+    ``write_main`` save), so every intermediate checkpoint stays on disk;
+    an incremental run loads exactly the versions its re-executing cone
+    reads.  Two fan-out nodes on different worker streams may race for the
+    first read: the lock holds the second until the first has loaded the
+    Table and its upload on the first node's stream is complete on the
+    card."""
+
+    __slots__ = ("_path", "_table", "_lock")
+
+    def __init__(self, path: str):
+        self._path = path
+        self._table = None
+        self._lock = threading.Lock()
+
+    def get(self) -> Table:
+        with self._lock:
+            if self._table is None:
+                table = load_table(self._path)
+                _settle()
+                self._table = table
+            return self._table
 
 
 def _write_frame_csv(df: pd.DataFrame, path: str) -> None:
@@ -343,11 +423,20 @@ class _PipelineRun:
     concurrently running analyzer.  A version is dropped once its last
     registered reader releases it, so peak memory is the live working set,
     not the version history.  A body settles its CUDA stream before it
-    releases the version it read."""
+    releases the version it read.
 
-    def __init__(self, sched: DagScheduler, writer: AsyncArtifactWriter, df0: Optional[Table]):
+    With ``cache_base`` set (``ANOVOS_TPU_CACHE``), registrations that pass
+    a ``cache_slice`` get a ``NodeCachePolicy``: the slice folded with the
+    run base and the node's placement, name and writes (the scheduler
+    folds the RAW-dep fingerprints on top).  Spine nodes also checkpoint
+    their output df version into the store's payload, so a hit hands the
+    table downstream as a :class:`_LazyTable`."""
+
+    def __init__(self, sched: DagScheduler, writer: AsyncArtifactWriter, df0: Optional[Table],
+                 cache_base: Optional[str] = None):
         self.sched = sched
         self.writer = writer
+        self.cache_base = cache_base
         self.spine_policy, self.fanout_policy = _node_policies()
         self._versions = {0: df0}
         self._planned_readers: dict = {}
@@ -366,16 +455,35 @@ class _PipelineRun:
             if self._planned_readers[v] <= 0 and v != self._ver:
                 self._versions.pop(v, None)
 
+    def _resolve(self, v: int) -> Optional[Table]:
+        df = self._versions[v]
+        return df.get() if isinstance(df, _LazyTable) else df
+
     def current_df(self) -> Optional[Table]:
-        return self._versions[self._ver]
+        return self._resolve(self._ver)
 
     def _track(self, writes) -> None:
         for w in writes:
             if w not in self.artifact_keys:
                 self.artifact_keys.append(w)
 
+    # -- cache wiring ------------------------------------------------------
+    def _policy(self, name, cache_slice, writes, placement="mesh", payload_write=None, on_hit=None):
+        if self.cache_base is None or cache_slice is None:
+            return None
+        # the placement is part of the node's identity, as in the JAX runner
+        return NodeCachePolicy(
+            key_material=node_fingerprint(self.cache_base, name,
+                                          {"placement": placement, "slice": cache_slice}, writes),
+            flush=self.writer.wait, payload_write=payload_write, on_hit=on_hit)
+
+    def _save_df(self, v: int, payload_dir: str) -> None:
+        """Checkpoint a spine node's output version into the cache payload,
+        exactly (``shared.table.save_table``)."""
+        save_table(self._resolve(v), os.path.join(payload_dir, "df"))
+
     # -- node registration -------------------------------------------------
-    def spine(self, name, fn, reads=(), writes=(), timed=None, on_error=None,
+    def spine(self, name, fn, reads=(), writes=(), timed=None, cache_slice=None, on_error=None,
               placement="mesh") -> None:
         """``fn(df) -> df`` changes the table: df version N → N+1."""
         v, out_v = self._ver, self._ver + 1
@@ -385,7 +493,7 @@ class _PipelineRun:
 
         def body():
             self.writer.wait(reads)
-            df_in = self._versions[v]
+            df_in = self._resolve(v)
             t0 = time.monotonic()
             df_out = fn(df_in)
             if timed:
@@ -393,12 +501,21 @@ class _PipelineRun:
             self._versions[out_v] = df_out if df_out is not None else df_in
             self._release(v)
 
+        def on_hit(payload_dir, v=v, out_v=out_v):
+            # the skipped body's output version, from its checkpoint
+            if payload_dir is None:  # an entry committed without its df is unusable
+                raise RuntimeError("spine cache entry has no df payload")
+            self._versions[out_v] = _LazyTable(os.path.join(payload_dir, "df"))
+            self._release(v)
+
         self.sched.add(name, body, reads=(f"df:{v}",) + reads, writes=(f"df:{out_v}",) + tuple(writes),
                        on_error=on_error if on_error is not None else self.spine_policy,
-                       placement=placement)
+                       placement=placement,
+                       cache=self._policy(name, cache_slice, writes, placement=placement,
+                                          payload_write=lambda d: self._save_df(out_v, d), on_hit=on_hit))
         self._track(writes)
 
-    def aside(self, name, fn, reads=(), writes=(), timed=None, on_error=None,
+    def aside(self, name, fn, reads=(), writes=(), timed=None, cache_slice=None, on_error=None,
               placement="host") -> None:
         """``fn()`` never touches the df spine (a streaming pass or the
         continuum step reads its own part files), so the scheduler may
@@ -414,10 +531,10 @@ class _PipelineRun:
 
         self.sched.add(name, body, reads=reads, writes=tuple(writes),
                        on_error=on_error if on_error is not None else self.fanout_policy,
-                       placement=placement)
+                       placement=placement, cache=self._policy(name, cache_slice, writes, placement=placement))
         self._track(writes)
 
-    def fanout(self, name, fn, reads=(), writes=(), timed=None, on_error=None,
+    def fanout(self, name, fn, reads=(), writes=(), timed=None, cache_slice=None, on_error=None,
                placement="mesh") -> None:
         """``fn(df)`` only reads the table: pinned to the current version."""
         v = self._ver
@@ -426,7 +543,7 @@ class _PipelineRun:
 
         def body():
             self.writer.wait(reads)
-            df_in = self._versions[v]
+            df_in = self._resolve(v)
             t0 = time.monotonic()
             fn(df_in)
             if timed:
@@ -435,7 +552,9 @@ class _PipelineRun:
 
         self.sched.add(name, body, reads=(f"df:{v}",) + reads, writes=tuple(writes),
                        on_error=on_error if on_error is not None else self.fanout_policy,
-                       placement=placement)
+                       placement=placement,
+                       cache=self._policy(name, cache_slice, writes, placement=placement,
+                                          on_hit=lambda _pdir, v=v: self._release(v)))
         self._track(writes)
 
 
@@ -459,8 +578,11 @@ def _register_streaming(pipe: _PipelineRun, writer: AsyncArtifactWriter, args: d
                or "stream_stats")
     ckpt_base = os.path.join(report_input_path or (write_main or {}).get("file_path") or ".",
                              "obs", "stream_ckpt")
+    fp_of = lambda path: dataset_fingerprint({"read_dataset": {"file_path": path}})  # noqa: E731
+    s_fp = fp_of(s_path)
     # (name, output file, function, positional arguments, keyword
-    # arguments, extra resources written, placement)
+    # arguments, extra resources written, placement, the cache slice's
+    # extra entries)
     runs = []
     for name, file, fn, place in (("describe", "stream_describe.csv", describe_streaming, "device"),
                                   ("quality_missing", "stream_missing.csv",
@@ -468,7 +590,7 @@ def _register_streaming(pipe: _PipelineRun, writer: AsyncArtifactWriter, args: d
         # an empty dict means "enabled with the defaults" (the YAML `describe: {}`)
         if args.get(name) is not None and args.get(name) is not False:
             runs.append((name, file, fn, (s_path, s_type),
-                         args[name] if isinstance(args[name], dict) else {}, (), place))
+                         args[name] if isinstance(args[name], dict) else {}, (), place, {}))
     if args.get("quality_outlier"):
         o_cfg = dict(args["quality_outlier"])
         o_model = o_cfg.pop("model_path", None)
@@ -476,13 +598,13 @@ def _register_streaming(pipe: _PipelineRun, writer: AsyncArtifactWriter, args: d
             raise TypeError("streaming_analysis.quality_outlier requires model_path "
                             "(pre-fitted outlier bounds)")
         runs.append(("quality_outlier", "stream_outlier.csv", quality_checker.outlier_stats_streaming,
-                     (s_path, s_type, o_model), o_cfg, (), "device"))
+                     (s_path, s_type, o_model), o_cfg, (), "device", {"model_fp": fp_of(o_model)}))
     if args.get("drift"):
         dr_cfg = dict(args["drift"])
         dr_src = dr_cfg.pop("source_file_path", None)
         runs.append(("drift", "stream_drift.csv", ddetector.statistics_streaming, (s_path, s_type, dr_src),
-                     dr_cfg, ("drift:model",), "device"))
-    for name, file, fn, fn_args, cfg, extra, place in runs:
+                     dr_cfg, ("drift:model",), "device", {"source_fp": fp_of(dr_src)}))
+    for name, file, fn, fn_args, cfg, extra, place, slice_extra in runs:
         key = "stats:" + file[:-len(".csv")]
 
         def _stream(name=name, file=file, fn=fn, fn_args=fn_args, cfg=cfg, key=key):
@@ -491,7 +613,8 @@ def _register_streaming(pipe: _PipelineRun, writer: AsyncArtifactWriter, args: d
             writer.submit(key, _write_frame_csv, odf, os.path.join(out_dir, file))
 
         pipe.aside(f"streaming_analysis/{name}", _stream, writes=(key,) + extra,
-                   timed=f"streaming_analysis, {name}", placement=place)
+                   timed=f"streaming_analysis, {name}", placement=place,
+                   cache_slice={name: cfg, "chunk_rows": s_chunk, "dataset_fp": s_fp, **slice_extra})
 
 
 def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict] = None,
@@ -515,10 +638,6 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     ingest_guard.reset()
     auth_key = _auth_key(auth_key_val)
     basic_report_flag = (all_configs.get("anovos_basic_report", {}) or {}).get("basic_report", False)
-    if resume:
-        logger.warning("--resume requested but ANOVOS_TPU_CACHE is unset; "
-                       "nothing to resume from — executing every node")
-
     if all_configs.get("input_dataset") is None and (
             all_configs.get("streaming_analysis") or all_configs.get("continuous_analysis")):
         # out-of-core / continuum mode: the dataset never materializes as
@@ -573,8 +692,18 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
         "concurrent" if available_cpus() > 1 else "sequential")
     writer = AsyncArtifactWriter(workers=int(os.environ.get("ANOVOS_TPU_WRITER_WORKERS", "2")),
                                  sync=(mode == "sequential"))
-    sched = DagScheduler(name="workflow")
-    pipe = _PipelineRun(sched, writer, df)
+    # the node cache: ANOVOS_TPU_CACHE=<dir> opts in; the registrations
+    # below pass their config slices, the scheduler folds the RAW-edge
+    # fingerprints and restores the nodes whose results are committed
+    cache_store = cache_base = None
+    if cache_root():
+        cache_store = CacheStore(cache_root())
+        cache_base = base_material(all_configs, run_type)
+    elif resume:
+        logger.warning("--resume requested but ANOVOS_TPU_CACHE is unset; "
+                       "nothing to resume from — executing every node")
+    sched = DagScheduler(name="workflow", cache_store=cache_store)
+    pipe = _PipelineRun(sched, writer, df, cache_base=cache_base)
 
     def _stats_out(df_stats, name, folder):
         """A stats frame to the master path (``stats:<name>``), else to
@@ -594,7 +723,9 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         *idfs, method_type=args.get("method", args.get("method_type", "name")))
                     return save(out, write_intermediate, "data_ingest/concatenate_dataset",
                                 reread=True, writer=writer)
-                pipe.spine("concatenate_dataset", _concat, timed="concatenate_dataset")
+                pipe.spine("concatenate_dataset", _concat, timed="concatenate_dataset",
+                           cache_slice={"concatenate_dataset": args, "dataset_fps": [
+                               dataset_fingerprint(args[k]) for k in args if k not in ("method", "method_type")]})
                 continue
 
             if key == "join_dataset" and args is not None:
@@ -604,7 +735,9 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         *idfs, join_cols=args.get("join_cols"), join_type=args.get("join_type"))
                     return save(out, write_intermediate, "data_ingest/join_dataset",
                                 reread=True, writer=writer)
-                pipe.spine("join_dataset", _join, timed="join_dataset")
+                pipe.spine("join_dataset", _join, timed="join_dataset",
+                           cache_slice={"join_dataset": args, "dataset_fps": [
+                               dataset_fingerprint(args[k]) for k in args if k not in ("join_type", "join_cols")]})
                 continue
 
             if key == "timeseries_analyzer" and args is not None:
@@ -623,7 +756,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                                                        f"{type(e).__name__}: {e}")
                             return df
                     pipe.spine("timeseries_analyzer/auto_detection", _ts_auto,
-                               writes=("report:ts_autodetect",), timed="timeseries_analyzer")
+                               writes=("report:ts_autodetect",), timed="timeseries_analyzer",
+                               cache_slice={"timeseries_analyzer": opt, "mode": "auto"})
                 if opt.get("inspection", False):
                     def _ts_inspect(df, opt=opt):
                         from anovos_tpu_torch.data_analyzer.ts_analyzer import ts_analyzer
@@ -639,7 +773,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                             res_policy.record_degraded("timeseries_analyzer/inspection",
                                                        f"{type(e).__name__}: {e}")
                     pipe.fanout("timeseries_analyzer/inspection", _ts_inspect,
-                                writes=("report:ts_inspection",), timed="timeseries_analyzer")
+                                writes=("report:ts_inspection",), timed="timeseries_analyzer",
+                                cache_slice={"timeseries_analyzer": opt, "mode": "inspect"})
                 continue
 
             if key == "geospatial_controller" and args is not None:
@@ -660,14 +795,15 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                             logger.exception("geospatial_analyzer failed; continuing without geo analysis")
                             res_policy.record_degraded("geospatial_controller", f"{type(e).__name__}: {e}")
                     pipe.fanout("geospatial_controller", _geo, writes=("report:geo",),
-                                timed="geospatial_controller")
+                                timed="geospatial_controller", cache_slice={"geospatial_controller": ga})
                 continue
 
             if key == "anovos_basic_report" and args is not None and args.get("basic_report", False):
                 def _basic(df, args=args):
                     anovos_basic_report(df, **args.get("report_args", {}), run_type=run_type,
                                         auth_key=auth_key)
-                pipe.fanout("anovos_basic_report", _basic, writes=("report:basic",), timed="Basic Report")
+                pipe.fanout("anovos_basic_report", _basic, writes=("report:basic",), timed="Basic Report",
+                            cache_slice={"anovos_basic_report": args})
                 continue
 
             if basic_report_flag:
@@ -680,7 +816,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         _stats_out(getattr(stats_generator, m)(df, **args["metric_args"]), m,
                                    "data_analyzer/stats_generator/" + m)
                     pipe.fanout(f"stats_generator/{m}", _stat, writes=(f"stats:{m}",),
-                                timed=f"stats_generator, {m}", placement="device")
+                                timed=f"stats_generator, {m}", placement="device",
+                                cache_slice={"metric": m, "metric_args": args["metric_args"]})
 
             if key == "quality_checker" and args is not None:
                 for subkey, value in args.items():
@@ -702,8 +839,11 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                                       reread=True, writer=writer)
                         _stats_out(df_stats, subkey, "data_analyzer/quality_checker/" + subkey)
                         return df_out
+                    # the slice is the whole block: the other checks'
+                    # treatment flags feed this node's stats_args
                     pipe.spine(f"quality_checker/{subkey}", _qc, reads=_stats_deps(all_configs, subkey),
-                               writes=(f"stats:{subkey}",), timed=f"quality_checker, {subkey}")
+                               writes=(f"stats:{subkey}",), timed=f"quality_checker, {subkey}",
+                               cache_slice=_slice_or_none({"quality_checker": args}, value))
 
             if key == "association_evaluator" and args is not None:
                 for subkey, value in args.items():
@@ -718,9 +858,13 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                             df_in = transformers.cat_to_num_transformer(df, **cat_params)
                         _stats_out(getattr(association_evaluator, subkey)(df_in, **value, **extra_args),
                                    subkey, "data_analyzer/association_evaluator/" + subkey)
+                    assoc_slice = {subkey: value}
+                    if subkey == "correlation_matrix":
+                        assoc_slice["cat_to_num_transformer"] = all_configs.get("cat_to_num_transformer")
                     pipe.fanout(f"association_evaluator/{subkey}", _assoc,
                                 reads=_stats_deps(all_configs, subkey), writes=(f"stats:{subkey}",),
-                                timed=f"{key}, {subkey}", placement="device")
+                                timed=f"{key}, {subkey}", placement="device",
+                                cache_slice=_slice_or_none(assoc_slice, value))
 
             if key == "drift_detector" and args is not None:
                 for subkey, value in args.items():
@@ -743,9 +887,14 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                             # model (the charts' drift tab reads it)
                             _stats_out(ddetector.statistics(df, source, **value["configs"]),
                                        "drift_statistics", "drift_detector/drift_statistics")
+                        # the source files are a second input dataset
                         pipe.fanout("drift_detector/drift_statistics", _drift,
                                     writes=("stats:drift_statistics", "drift:model"),
-                                    timed=f"{key}, drift_statistics")
+                                    timed=f"{key}, drift_statistics",
+                                    cache_slice=_slice_or_none(
+                                        {"drift_statistics": value,
+                                         "source_fp": dataset_fingerprint(value.get("source_dataset"))},
+                                        value))
                     else:
                         def _stability(df, value=value):
                             idfs = [ETL(value[k]) for k in value if k != "configs"]
@@ -770,9 +919,21 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                         stab_retry = None
                         if stab_cfg.get("appended_metric_path") or stab_cfg.get("existing_metric_path"):
                             stab_retry = "raise"
+                        # the metric paths are cross-run state: their on-disk
+                        # signature is part of the key
+                        metric_paths = (stab_cfg.get("appended_metric_path", ""),
+                                        stab_cfg.get("existing_metric_path", ""))
                         pipe.fanout("drift_detector/stability_index", _stability,
                                     writes=("stats:stability_index", "stats:stabilityIndex_metrics"),
-                                    timed=f"{key}, stability_index", on_error=stab_retry, placement="device")
+                                    timed=f"{key}, stability_index", on_error=stab_retry, placement="device",
+                                    cache_slice=_slice_or_none(
+                                        {"stability_index": value,
+                                         "dataset_fps": {k: dataset_fingerprint(value[k])
+                                                         for k in sorted(value) if k != "configs"},
+                                         "metric_path_fps": [
+                                             dataset_fingerprint({"read_dataset": {"file_path": p}})
+                                             for p in metric_paths if p]},
+                                        value))
 
             if key == "transformers" and args is not None:
                 for subkey, value in args.items():
@@ -788,7 +949,7 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                             return save(df_out, write_intermediate, "data_transformer/transformers/" + fn,
                                         reread=True, writer=writer)
                         pipe.spine(f"transformers/{fn}", _tf, reads=_stats_deps(all_configs, fn),
-                                   timed=f"{key}, {fn}")
+                                   timed=f"{key}, {fn}", cache_slice=_slice_or_none({fn: fn_args}, fn_args))
 
             if key == "streaming_analysis" and args is not None:
                 _register_streaming(pipe, writer, args, report_input_path, write_main, write_stats, resume)
@@ -796,7 +957,9 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
 
             if key == "continuous_analysis" and args is not None:
                 # one continuum step over the section's feed (a retry resumes
-                # from the partitions the failed attempt committed)
+                # from the partitions the failed attempt committed);
+                # uncacheable: its output depends on the fold frontier, cross-
+                # run state the node fingerprint cannot see
                 def _continuum_step(c_args=dict(args)):
                     from anovos_tpu_torch.continuum.watcher import ContinuumConfig
                     from anovos_tpu_torch.continuum.watcher import step as continuum_step
@@ -825,7 +988,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                                               run_type=run_type, auth_key=auth_key, async_writer=writer,
                                               async_key="charts:objects")
                         pipe.fanout(f"report_preprocessing/{subkey}", _charts, reads=chart_reads,
-                                    writes=("charts:objects",), timed=f"{key}, {subkey}")
+                                    writes=("charts:objects",), timed=f"{key}, {subkey}",
+                                    cache_slice={"charts_to_objects": value})
 
             if key == "report_generation" and args is not None:
                 # the report reads the whole master_path subtree: it waits
@@ -840,17 +1004,40 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
 
         # a fresh devprof result set and this run's drain floor
         devprof.reset()
+        journal = None
+        resumed_from = 0
+        if cache_store is not None:
+            journal_path = os.path.join(obs_dir, "run_journal.jsonl")
+            # the journal is append-only across runs: a killed run's
+            # committed frontier is still here when --resume re-runs
+            if resume:
+                resumed_from = len(committed_fingerprints(read_journal(journal_path)))
+                logger.info("resume: journal at %s records %d previously committed node result(s); "
+                            "matching nodes will restore from %s", journal_path, resumed_from,
+                            cache_store.root)
+            journal = RunJournal(journal_path, writer)
+            journal.append("run_begin", config_hash=config_hash(all_configs), cache_root=cache_store.root,
+                           resume=bool(resume), executor=mode)
+            sched.journal = journal
+            # parts quarantined from here on also land in the journal
+            ingest_guard.set_journal(journal)
+            cache_capture.install_open_hook()
         run_err = None
         try:
             summary = sched.run(mode=mode)
+            if journal is not None:
+                journal.append("run_end", hits=summary["cache"]["hits"], misses=summary["cache"]["misses"])
             # barrier before the metrics snapshot: every queued write has
             # landed and booked its counters
             writer.drain()
             record_device_memory()
+            record_cache_stats(cache_store)
             chaos_plan = chaos.plan()
             manifest = build_manifest(
                 all_configs, summary, get_metrics().snapshot(), run_type=run_type,
                 block_times=block_times(), trace_path=trace_dest and os.path.abspath(trace_dest),
+                cache={"enabled": True, "root": cache_store.root, "resumed_from": resumed_from,
+                       **summary["cache"]} if cache_store is not None else None,
                 resilience={
                     **summary.get("resilience", {}),
                     "degraded_sections": res_policy.degraded_sections(),
@@ -879,6 +1066,13 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     if close_err.__context__ is run_err:
                         close_err.__context__ = None
                     run_err.__context__ = close_err
+            if cache_store is not None:
+                cache_capture.uninstall_open_hook()
+                if run_err is None:
+                    # load a restored final df before the sweep can evict
+                    # its payload: the final write below reads it
+                    pipe.current_df()
+                _sweep(cache_store)
             if trace_dest:
                 # exported on failure too: an aborted run's trace is what
                 # its post-mortem needs; a failed export must not mask the
@@ -917,11 +1111,31 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     logger.info(f"execution time w/o report (in sec) = {round(time.monotonic() - start_main, 4)}")
 
 
+def _sweep(store: CacheStore) -> None:
+    """The end-of-run capacity bound: under ``ANOVOS_TPU_CACHE_MAX_BYTES``
+    the store's LRU ``gc`` (the gc CLI's sweep); a failed sweep leaves the
+    store as it is."""
+    max_bytes = os.environ.get("ANOVOS_TPU_CACHE_MAX_BYTES", "")
+    if not max_bytes:
+        return
+    try:
+        stats = store.gc(parse_bytes(max_bytes))
+    except Exception:
+        logger.exception("cache gc failed; store left as-is")
+        return
+    if stats["evicted_nodes"] or stats["evicted_xla_files"]:
+        logger.info("cache gc: %d node entr(ies) + %d xla file(s) evicted (%d -> %d bytes)",
+                    len(stats["evicted_nodes"]), stats["evicted_xla_files"], stats["before_bytes"],
+                    stats["after_bytes"])
+
+
 def run(config_path: str, run_type: str = "local", auth_key_val: Optional[dict] = None,
         resume: bool = False) -> None:
     """Load the YAML config (pulled through the run_type store) → main.
-    ``resume=True`` (the CLI's ``--resume``) resumes the streaming passes
-    of a killed run from their chunk checkpoints."""
+    ``resume=True`` (the CLI's ``--resume``) re-runs a killed config in the
+    same output directory: with ``ANOVOS_TPU_CACHE`` (the CLI defaults it)
+    the nodes it committed restore instead of executing, and the streaming
+    passes resume from their chunk checkpoints."""
     import yaml
 
     telemetry.check_unported_knobs()

@@ -15,20 +15,22 @@ Phases, in order; any failure exits non-zero:
    seconds.  Every Avro read and write, every string column's dictionary
    encoding and DBSCAN's default components below go through the codec;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at unaligned row counts (≡ 1, 2, 3 mod 4,
+   the 4,000,000-row bench's shapes and at unaligned row counts (≡ 1, 2, 3 mod 4,
    1,333,333 among them; an all-masked column, a NaN cutoff row, a
    normal(1e5, 3) column whose first row is null), the moments kernel twice
    at every shape with bit-identical results; each kernel's time as 5
    repeats of 50 launches (min, median, max), warm and with L2 flushed
    before each launch, beside the plain version's time and the card's
    lower bound;
-3. path: the income schema at 4,000,000 rows written as parquet and read
+3. path: the income schema at 2,000,000 rows written as parquet and read
    back with ``read_dataset``, the eleven ``stats_generator`` measures,
    ``drift_stability.statistics`` (PSI/HD/JSD/KS, bin_size 10, no
    sampling) of the second half against the first, once to warm up and
    once timed, and ``stability_index_computation`` over three slices.
    Results are checked against float64 pandas/numpy references, and every
-   kernel of this path must have been launched by this phase;
+   kernel of this path must have been launched by this phase.  Phases
+   6-8, 10a/b and 13-14 go on with the first 1,000,000 of these rows,
+   written and read back the same way (``SUB_ROWS``);
 4. geo kernels: the DBSCAN neighbour-count kernel equal to its plain version
    at the shapes of the JAX package's Pallas test and at its edges (every
    width 1-8; n = 1, below one source split, a query tile and a split ± 1,
@@ -38,7 +40,7 @@ Phases, in order; any failure exits non-zero:
    literal form; calls at changing n), then at 100,000 points with its time
    (5 repeats of 50 launches), the plain version's and the card's lower
    bound;
-5. geo path: a 1,000,000-row table of six Gaussian cities (σ = 0.3°) and 2%
+5. geo path: a 500,000-row table of six Gaussian cities (σ = 0.3°) and 2%
    uniform noise, with a lat/lon pair (1% nulls), a precision-7 geohash of
    the same points and an id, written as parquet and read back with
    ``read_dataset``; ``geospatial_autodetection`` with the default knobs
@@ -51,12 +53,12 @@ Phases, in order; any failure exits non-zero:
    moments kernel on the lat/lon block, the neighbour-count kernel on the
    centred 16,384-point grid sample at every eps) against their plain
    versions, timed.  The neighbour counts at every eps and the DBSCAN
-   labels of a seeded sample of 10 of the 35 combos are checked against
+   labels of a seeded sample of 4 of the 35 combos are checked against
    float64 numpy/scipy (every combo's labels against the analyzer's
    frame), the k-means centers
    against a float64 Lloyd run from the same start, and every expected
    file must exist;
-6. quality: on phase 3's Table, each step timed on the host clock ending
+6. quality: on phase 3's 1,000,000-row Table, each step timed on the host clock ending
    in a device sync: ``concatenate_dataset`` of the Table and its first
    100,000 rows; the seven quality checks with ``config/configs_full.yaml``'s
    arguments in its order, each on the previous one's treated Table
@@ -74,7 +76,7 @@ Phases, in order; any failure exits non-zero:
    sampled sides within 5 binomial sigma of 100,000 and their PSI below
    0.1, distinct counts against pandas, the join against ``pandas.merge``
    and every file read back equal; both B1 and B2 must have been launched;
-7. association and the stats edges: on phase 3's Table, each step timed on
+7. association and the stats edges: on phase 3's 1,000,000-row Table, each step timed on
    the host clock ending in a device sync and its kernel launches counted:
    ``correlation_matrix`` with TF32 switched on globally around the call,
    ``IV_calculation`` and ``IG_calculation`` (label income, event '>50K',
@@ -85,7 +87,7 @@ Phases, in order; any failure exits non-zero:
    ``config/configs_full.yaml:105-138``), ``uniqueCount_computation`` exact
    and approximate (rsd 0.05); then the three moment measures on a numeric
    Table of 2^24 + 12,345 rows x 9 columns, which take the compensated
-   moments.  Then B1 at this path's two new shapes (one 4,000,000-row
+   moments.  Then B1 at this path's two new shapes (one 1,000,000-row
    column; the compensated moments' (2,313 x 65,536) chunk view).  Checked
    against float64 numpy/pandas: correlation within 1e-5; IV and IG equal
    to 4 decimals; clusters equal to the port's VarClus on a float64
@@ -94,7 +96,7 @@ Phases, in order; any failure exits non-zero:
    registers equal to the CPU's; the compensated moments within ten times
    PERF.md's compensated bands, the plain f32 error printed beside them;
    B1 must have been launched;
-8. time series: phase 3's Table with the same synthesized rows' ``ifa``,
+8. time series: phase 3's 1,000,000-row Table with the same synthesized rows' ``ifa``,
    ``dt_1`` and ``dt_2`` added (the ``configs_basic`` schema), each step
    timed on the host clock ending in a device sync: ``ts_preprocess`` with
    ``configs_basic.yaml``'s ``timeseries_analyzer`` arguments,
@@ -113,12 +115,12 @@ Phases, in order; any failure exits non-zero:
    equal to pandas' rolling/expanding/shift; calendar fields equal to
    pandas ``.dt``; every returned tensor on the card; no kernel launched;
 9. runner: ``anovos_tpu_torch.workflow.main`` on ``config/configs_basic.yaml``'s
-   blocks (a copy, ``BASIC_CONFIG``), its input 1,000,000 synthesized rows of
+   blocks (a copy, ``BASIC_CONFIG``), its input 250,000 synthesized rows of
    the full income schema as parquet and its join side every row's
    ifa/age/workclass as avro, in a working directory kept for phase 15,
    in the runner's default executor mode (``concurrent`` on a host with
    more than one CPU): read, join
-   (inner, so all 1,000,000 rows go on), timestamp detection, the basic
+   (inner, so all 250,000 rows go on), timestamp detection, the basic
    report (seven stats measures, seven quality checks, IV/IG, the charts
    and the HTML) and the final write, each block's wall from
    ``workflow.block_times()``, the schedule's summary and the peak device
@@ -135,7 +137,7 @@ Phases, in order; any failure exits non-zero:
    category; dt_1 and dt_2 converted; the HTML's six tabs; the final
    dataset equal to the pandas inner join; no block failed; both B1 and B2
    launched by the runner;
-10. transformers: (a) on phase 3's Table, each step timed on the host clock
+10. transformers: (a) on phase 3's 1,000,000-row Table, each step timed on the host clock
    ending in a device sync with its kernel launches counted:
    ``config/configs_full.yaml``'s six transformer steps chained
    (feature_transformation sqrt, attribute_binning, outlier_categories,
@@ -151,15 +153,15 @@ Phases, in order; any failure exits non-zero:
    boxcox λ equal to the float64 KS argmin where the margin exceeds f32
    noise, the expressions, every served apply equal to its batch apply;
    (b) autoencoder_latentFeatures at n = 9, k = 4 with
-   ``configs_segmentation_unsupervised``'s sample (500,000) and batch
-   (256), AE_EPOCHS epochs: the validation MSE below the first epoch's and
+   ``configs_segmentation_unsupervised``'s batch (256) on a 125,000-row
+   sample (the config's 500,000 cut), AE_EPOCHS epochs: the validation MSE below the first epoch's and
    the mean predictor's, the model.npz round trip bit-equal, the card's
    latents equal a CPU forward, 3 Adam steps equal to the CPU's; (c) KNN,
-   regression, MF and auto imputation on a 1,000,000-row table with 5%
+   regression, MF and auto imputation on a 250,000-row table with 5%
    nulls in three columns, checked against float64 (KNN on seeded query
    rows whose donors f32 distances decide, the ridge by least squares),
    MF's observed-cell error, auto's output equal to its choice's, and its
-   choice against the CPU port's on the same holdout of the first 250,000
+   choice against the CPU port's on the same holdout of the first 100,000
    rows; (d) ``workflow.main`` on all of ``configs_full.yaml``
    (a copy, ``FULL_CONFIG``) over 200,000 synthesized rows in the
    default executor mode, its input and run kept for phase 15: the six
@@ -168,12 +170,12 @@ Phases, in order; any failure exits non-zero:
    B1 and B2 equal their plain versions on every input the phase gave
    them on the card;
 11. the codec and the four configs no earlier phase runs: (a) an avro file
-   of 1,000,000 rows of the full income schema written and read through
+   of 250,000 rows of the full income schema written and read through
    the codec with deflate and with snappy, read back equal to the frame,
-   and on its first 100,000 rows the codec timed beside the pure-Python
+   and on its first 25,000 rows the codec timed beside the pure-Python
    record loops; (b) ``config/configs.yaml`` (a copy) through
-   ``workflow.main`` on 250,000 income rows as parquet, concatenated with a
-   second read (500,000 rows) and inner-joined with an avro side of one
+   ``workflow.main`` on 100,000 income rows as parquet, concatenated with a
+   second read (200,000 rows) and inner-joined with an avro side of one
    row per distinct ifa, each block's wall from ``workflow.block_times()``,
    then B1 and B2 against their plain versions on every input the runner
    gave them; checked: the joined dataset equal to the pandas concat and
@@ -181,8 +183,8 @@ Phases, in order; any failure exits non-zero:
    rows, the transformers' datasets, and drift_statistics degraded as the
    JAX runner degrades it (the source lacks the join's columns); (c)
    ``configs_time_series``, ``configs_geospatial`` (check-in schema as CSV,
-   200,000 rows, six cities) and ``configs_mlflow`` (200,000 income rows,
-   ``mlflow`` unimportable) and ``configs_feast`` (200,000 income rows)
+   50,000 rows, six cities) and ``configs_mlflow`` (50,000 income rows,
+   ``mlflow`` unimportable) and ``configs_feast`` (50,000 income rows)
    through ``workflow.main``, their files, the timestamp's conversion,
    the DBSCAN grid and their stats CSVs checked, configs_feast's final
    dataset one part with its two timestamp columns and its ``anovos.py``
@@ -190,7 +192,7 @@ Phases, in order; any failure exits non-zero:
    against their plain versions.  The walls of the steps the codec now
    runs in phases 3, 6, 8 and 9 are printed beside their walls before the
    codec;
-12. geospatial transformers: 4,000,000 rows of phase 5's six-city points
+12. geospatial transformers: 1,000,000 rows of phase 5's six-city points
    with a second location pair (half within 50 km, half uniform over the
    globe, 1% near-antipodal), an int id of 100,000 values, the same ids
    as strings and a weight, built in memory; each step timed on the host
@@ -213,10 +215,10 @@ Phases, in order; any failure exits non-zero:
    flags equal a float64 ray cast but within 1e-5° of an edge (counted),
    centroids and radii against a pandas groupby, reverse geocoding equal
    a float64 brute force but near ties (counted).  No kernel launches;
-13. streaming: phase 3's frame written (timed apart) as 16 target parquet
-   parts of 1,000,000 rows, each numeric column shifted by (0.25 + 0.01·⌊i/4⌋)
+13. streaming: phase 3's 1,000,000-row frame written (timed apart) as 16 target parquet
+   parts of 250,000 rows, each numeric column shifted by (0.25 + 0.01·⌊i/4⌋)
    σ, and 8 unshifted source parts; ``workflow.main`` on one
-   ``streaming_analysis`` block over them in 1,000,000-row chunks (no
+   ``streaming_analysis`` block over them in 250,000-row chunks (no
    ``input_dataset``): describe, quality_missing, quality_outlier (bounds
    fitted by ``outlier_detection`` on part 0) and drift (the source folder,
    ``configs_full.yaml``'s drift options), each pass's decode, fetch-wait
@@ -230,12 +232,12 @@ Phases, in order; any failure exits non-zero:
    chunk commits and resumed equal to the uninterrupted one with fewer
    part decodes; (f) a quality_missing run with
    ``ANOVOS_TPU_CHAOS=corrupt@io:*part-00003.parquet:n=99`` quarantining
-   that part (1,000,000 rows lost) and counting the other 15.  B1 and B2
+   that part (250,000 rows lost) and counting the other 15.  B1 and B2
    launch on the path and are held to their plain versions on part 0's
    chunk.
 14. continuum: phase 13's 8 source parts hard-linked as the baseline
    days ``base-0000i.parquet`` and its 16 target parts as
-   ``day-000ii.parquet`` (24 partitions of 1,000,000 rows, 19 columns, 9
+   ``day-000ii.parquet`` (24 partitions of 250,000 rows, 19 columns, 9
    numeric), through ``anovos_tpu_torch.continuum.step`` with every
    column, phase 13's outlier model and a drift model fitted from
    ``base-*`` (method all, 10 bins, threshold 0.1), each step's decode,
@@ -268,10 +270,10 @@ Phases, in order; any failure exits non-zero:
    same schedule and launch counts, each launch against its plain version
    on the inputs the runner gave it, both modes' schedule summaries (wall,
    serial, critical path, speedup), block walls and peak device memory
-   printed; (c) configs_full on 100,000 rows in the concurrent mode with
+   printed; (c) configs_full on 50,000 rows in the concurrent mode with
    ``ANOVOS_TPU_CHAOS=hang@node:association_evaluator/IV_calculation`` and
-   ``ANOVOS_TPU_NODE_TIMEOUT=5``: the node escalated, abandoned and
-   degraded within its 12.5 s bound, every other node done, the report's
+   ``ANOVOS_TPU_NODE_TIMEOUT=10``: the node escalated, abandoned and
+   degraded within its 25 s bound, every other node done, the report's
    first tab the Degraded Sections tab naming it.
 16. the run record: (a) phase 9's run left ``obs/run_manifest.json``,
    naming every node of its schedule with a devprof entry each, its
@@ -279,7 +281,7 @@ Phases, in order; any failure exits non-zero:
    scheduler wall printed beside its wall before the run record, and its
    per-node devprof
    split (device, dispatch, transfer, host seconds, h2d and d2h bytes) on
-   a line of its own; (b) configs_basic on the first 200,000 of phase 9's
+   a line of its own; (b) configs_basic on the first 100,000 of phase 9's
    rows twice under ``ANOVOS_TPU_EXECUTOR=sequential``, into two
    directories: the manifests' ``stable_view`` equal; (c) the same config
    through ``workflow.run`` on a written config file with
@@ -300,7 +302,27 @@ Phases, in order; any failure exits non-zero:
    the Run Timings tab.  Its split is printed like (a)'s.  Then a scheduler
    node that leaves a device sleep in flight, in each mode under
    ``ANOVOS_TPU_DEVPROF=full``: its drain books at least 0.8x the
-   sleep's CUDA-event time, and at most the node's wall.
+   sleep's CUDA-event time, and at most the node's wall.  (c)'s file tree
+   (``obs/`` left out) equals (b)'s, and phase 17 holds its runs to it.
+17. the node cache (``ANOVOS_TPU_CACHE``), configs_basic on phase 16's
+   100,000 rows in the default executor mode, each run in a directory of
+   its own: (a) a populate run into a fresh store: 3 misses, B1 2 and B2 1
+   launched, each held against its plain version on the inputs the runner
+   gave it, the tree equal to phase 16 (c)'s; (b) a full hit: 0 misses,
+   all 3 nodes restored, 0 launches of B1 and B2, the tree equal to (a)'s,
+   its restore seconds and walls printed beside (a)'s; (c) the basic
+   report's ``event_label`` edited: the join and ts detection hit, the
+   report re-executes on the df version restored from the payload
+   (uploaded at its first read), B1 2 and B2 1 launched and held against
+   their plain versions, the tree equal to an uncached run of the edited
+   config; (d) ``python -m anovos_tpu_torch`` with the cache at
+   ``.anovos_cache``, sequential (each journal line written before the
+   next node), killed by ``os._exit`` as the report node starts, then
+   ``python -m anovos_tpu_torch ... --resume`` in the same directory with
+   ``ANOVOS_TPU_CACHE`` unset, in the default mode: ``resumed_from`` 2,
+   2 hits, 1 miss, the tree equal to (a)'s; (e) a full hit under
+   ``ANOVOS_TPU_CACHE_MAX_BYTES`` at half the store's size: the store
+   swept below it and the sweep logged.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -311,6 +333,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import re
 import shutil
@@ -322,16 +345,25 @@ import warnings
 
 import numpy as np
 
-ROWS = 4_000_000
+# phase 2 times the kernels at the 4M-row bench's shapes (bench.py:39);
+# phase 3 runs the main path on ROWS rows, and phases 6-8, 10a/b and 13-14
+# go on with the first SUB_ROWS of them, read back with read_dataset.  Both
+# cut from 4M: the script took 1,012 s of its 1,200 s limit with every
+# phase at 4M rows on one host, and more than 1,200 s on a slower one,
+# whose host work runs up to 2x slower (PERF.md section 4)
+KERNEL_ROWS = 4_000_000
+ROWS = 2_000_000
+SUB_ROWS = 1_000_000
 BIN_SIZE = 10
 DROP = ["ifa", "dt_1", "dt_2", "empty", "logfnl"]
-GEO_ROWS = 1_000_000
+GEO_ROWS = 500_000  # cut from 1,000,000 (PERF.md section 4)
 GEO_RECORDS = 100_000  # geospatial_autodetection's max_analysis_records default
 GEO_B3_SAMPLE = 16_384
 GEO_EPS = "0.3,0.5,0.05"
 GEO_MIN_SAMPLES = "500,1100,100"
-# DBSCAN combos of the 35 whose labels are bracketed by float64 (seeded)
-GEO_BRACKETED = 10
+# DBSCAN combos of the 35 whose labels are bracketed by float64 (seeded;
+# cut from 10, about 4 s of host checks a combo; PERF.md section 4)
+GEO_BRACKETED = 4
 # the kernels each path must launch
 PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_default": ("masked_moments",),
@@ -355,15 +387,18 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "run_record": ("masked_moments", "binned_histograms")}
 # phase 15: the recommender's queries (an industry and a usecase of the
 # corpus, then two misspelt ones the embeddings resolve), the attributes it
-# maps and the descriptions it ranks them against; the chaos run
+# maps and the descriptions it ranks them against; the chaos run's rows,
+# hung node and node bound (every node runs under the bound: 10 s keeps
+# configs_full's slowest node, ts inspection, which took more than 5 s on
+# a busy host, well inside it)
 REC_QUERY = ("banking financial service and insurance", "fraud detection")
 REC_MISSPELT = ("bankng and finance", "churn of customers")
 REC_ATTRS = {"cust_age": "age of the customer", "txn_amt": "transaction amount in dollars",
              "loan_default": "whether the borrower defaulted", "CreditScoreBand": ""}
 REC_TARGETS = ["customer age in years", "number of logins", "amount of the transaction"]
-CHAOS_ROWS = 100_000
+CHAOS_ROWS = 50_000
 CHAOS_NODE = "association_evaluator/IV_calculation"
-CHAOS_TIMEOUT = 5
+CHAOS_TIMEOUT = 10
 # phase 6: the rows concatenated again (duplicates), the invalid-entry
 # table, the join's main and side tables
 DUP_ROWS = 100_000
@@ -459,7 +494,7 @@ BASIC_CONFIG = {
     },
     "write_main": {"file_path": "output", "file_type": "parquet", "file_configs": {"mode": "overwrite"}},
 }
-RUNNER_ROWS = 1_000_000
+RUNNER_ROWS = 250_000  # cut from 1,000,000 (PERF.md section 4)
 RUNNER_SIDE_ROWS = RUNNER_ROWS  # every row joins, so the report profiles them all
 # the basic report's tabs
 BASIC_TABS = ("Executive Summary", "Wiki", "Descriptive Statistics", "Quality Check",
@@ -530,21 +565,23 @@ FULL_CONFIG = {
     "write_stats": {"file_path": "stats", "file_type": "parquet", "file_configs": {"mode": "overwrite"}},
 }
 # 10b: configs_segmentation_unsupervised's autoencoder sample and batch;
-# the epochs cut from 100, then from 10 to make room for phase 14 (PERF.md
-# section 4)
-AE_SAMPLE = 500_000
+# the epochs cut from 100, then from 10 to make room for phase 14, then
+# from 3, and the sample from 500,000, to keep the script near half its
+# limit (PERF.md section 4)
+AE_SAMPLE = 125_000  # cut from the config's 500,000 (PERF.md section 4)
 AE_BATCH = 256
-AE_EPOCHS = 3
+AE_EPOCHS = 2
 # 10c: the imputers' table, its nulled columns, the KNN query rows checked
 # against float64, and the bound on MF's standardized observed-cell RMSE
 # (a rank-10 fit of 11 columns, 9 of them independent, leaves about a
 # third of a σ)
-IMPUTE_ROWS = 1_000_000
+IMPUTE_ROWS = 250_000  # cut from 1,000,000 (PERF.md section 4)
 IMPUTE_COLS = ["age", "fnlwgt", "hours-per-week"]
 # auto_imputation's choice on the card held against the CPU port's on the
 # table's first AUTO_REF_ROWS rows (cut from IMPUTE_ROWS: the CPU reference
-# took 95-142 s of the 1,200 s limit at 1M rows; PERF.md section 4)
-AUTO_REF_ROWS = 250_000
+# took 95-142 s of the 1,200 s limit at 1M rows, 23 s at 250,000; PERF.md
+# section 4)
+AUTO_REF_ROWS = 100_000
 KNN_QUERIES = 300
 MF_RMSE_BOUND = 0.5
 # 10d: the rows of configs_full's input (cut from 4M, PERF.md section 4)
@@ -558,10 +595,10 @@ FULL_ROWS = 200_000
 # concatenate), 11c the time-series, geospatial and mlflow configs on
 # CHECKIN_ROWS rows each.  The rows are a depth cut forced by the 1,200 s
 # limit (PERF.md section 4).
-CODEC_ROWS = 1_000_000
-CODEC_REF_ROWS = 100_000
-SCENARIO_ROWS = 250_000
-CHECKIN_ROWS = 200_000
+CODEC_ROWS = 250_000
+CODEC_REF_ROWS = 25_000
+SCENARIO_ROWS = 100_000
+CHECKIN_ROWS = 50_000
 _CSV_INPUT = {"read_dataset": {"file_path": None, **_CSV_READ}}
 _CHECKIN_STATS = {"metric": ["global_summary", "measures_of_counts", "measures_of_centralTendency"],
                   "metric_args": {"list_of_cols": "all", "drop_cols": ["userId"]}}
@@ -636,14 +673,14 @@ FEAST_CONFIG = {
 # configs_feast also runs on the CPU at FEAST_CPU_ROWS rows, whose anovos.py
 # the card's must equal
 FEAST_CPU_ROWS = 2_000
-# phase 12: the geospatial transformers on GEO_T_ROWS rows (the income
-# path's size) with GEO_T_IDS distinct ids; the dms steps, which make a
+# phase 12: the geospatial transformers on GEO_T_ROWS rows (the rows the
+# phases after phase 3 go on with) with GEO_T_IDS distinct ids; the dms steps, which make a
 # Python string a value, on the first GEO_T_DMS_ROWS (cut from 1,000,000
 # to make room for phase 14; PERF.md section 4);
 # geohash strings checked on GEO_T_SAMPLE rows; polygon flags checked
 # against float64 except within GEO_T_EDGE degrees of an edge (the f32
 # spacing at |lon| in [64, 128) is 7.6e-6 degrees)
-GEO_T_ROWS = ROWS
+GEO_T_ROWS = SUB_ROWS
 GEO_T_IDS = 100_000
 GEO_T_DMS_ROWS = 250_000
 GEO_T_SAMPLE = 100_000
@@ -653,8 +690,8 @@ GEO_T_EDGE = 1e-5
 # corrupts, and configs_full.yaml's drift_statistics options (a copy)
 STREAM_PARTS = 16
 STREAM_SRC_PARTS = 8
-STREAM_PART_ROWS = 1_000_000
-STREAM_CHUNK = 1_000_000
+STREAM_PART_ROWS = 250_000  # cut from 1,000,000 (PERF.md section 4)
+STREAM_CHUNK = 250_000
 STREAM_KILL_AFTER = 5
 STREAM_CHAOS_PART = 3
 STREAM_DRIFT = {"list_of_cols": "all", "drop_cols": ["ifa", "income"], "method_type": "all", "threshold": 0.1,
@@ -667,25 +704,36 @@ CONTINUUM_DRIFT = {"baseline": "base-*", "method_type": "all", "bin_size": 10, "
 CONTINUUM_SHIFT = 1.0
 CONTINUUM_CLI = (sys.executable, "-m", "anovos_tpu_torch.continuum")
 # phase 16: the rows of (b) and (c), phase 9's scheduler wall on the H100
-# before the run record was added (PERF.md §5), the kernels' names in
+# before the run record was added (PERF.md §5, at RUNNER_WALL_BEFORE_ROWS
+# input rows), the kernels' names in
 # the profiler trace and the slack between a kernel's device interval and
 # the node range it runs under (the two clocks are aligned by the profiler)
-RECORD_ROWS = 200_000
+RECORD_ROWS = 100_000
 RUNNER_WALL_BEFORE_S = 16.44
+RUNNER_WALL_BEFORE_ROWS = 1_000_000
+# phase 17: the option of the basic report the incremental run edits, the
+# exit code of the killed process, a CLI process's time limit (s)
+CACHE_EDIT = ("event_label", "<=50K")
+KILL_CODE = 9
+CLI_TIMEOUT = 300
+# what the phase's CLI processes run before the entry point (a CPU
+# rehearsal puts its runtime on the CPU here)
+CACHE_CLI_PRELUDE = ""
 PROFILE_KERNEL_NAMES = {"masked_moments": "moments_kernel", "binned_histograms": "hist_kernel"}
 PROFILE_KERNEL_CAT = "kernel"
 RANGE_SLACK_US = 500.0
 # the walls of the steps the host codec now runs, before the codec (PERF.md
-# section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
-# beside this run's
+# section 5: three runs on an NVIDIA H100 80GB HBM3 at 700.00 W, at the
+# rows named, which phases 8 and 9 have since cut), printed beside this
+# run's
 BEFORE_CODEC_WALLS = {
-    "phase 3 read_dataset, 4M-row parquet": "53.080; 50.119; 59.193",
-    "phase 6 join_read_main_parquet, 1M rows": "15.04; 14.83; 26.72",
-    "phase 6 write_avro, joined 100,000 rows": "4.34; 4.83; 6.43",
-    "phase 6 read_avro, joined 100,000 rows": "5.69; 6.15; 7.33",
-    "phase 8 set-up, ifa/dt_1/dt_2 encoded": "22.78; 30.65; 20.90",
-    "phase 9 input read and final write": "17.223; 17.309; 20.802",
-    "phase 9 join_dataset": "6.240 (with a 100,000-row side: 0.943; 1.097)",
+    "phase 3 read_dataset, 4M-row parquet": "53.080; 50.119; 59.193 s",
+    "phase 6 join_read_main_parquet, 1M rows": "15.04; 14.83; 26.72 s",
+    "phase 6 write_avro, joined 100,000 rows": "4.34; 4.83; 6.43 s",
+    "phase 6 read_avro, joined 100,000 rows": "5.69; 6.15; 7.33 s",
+    "phase 8 set-up, ifa/dt_1/dt_2 encoded": "22.78; 30.65; 20.90 s at 4,000,000 rows",
+    "phase 9 input read and final write": "17.223; 17.309; 20.802 s at 1,000,000 rows",
+    "phase 9 join_dataset": "6.240 s at 1,000,000 rows with a 100,000-row side (0.943; 1.097 s)",
 }
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1008,7 +1056,7 @@ def phase_kernels(torch, seed: int, k_num: int) -> dict:
 
     # binned histogram at the drift path's shape: one side of the 4M-row
     # bench split, every numeric column
-    rows_h = ROWS // 2
+    rows_h = KERNEL_ROWS // 2
     X, M, cuts = kernel_inputs(torch, k_num, rows_h, gen)
     got = binned_histograms_cols(X, M, cuts, BIN_SIZE)
     plain = binned_histograms_plain(X, M, cuts, BIN_SIZE)
@@ -1027,7 +1075,7 @@ def phase_kernels(torch, seed: int, k_num: int) -> dict:
 
     # masked moments at stats_generator's shape: every numeric column of the
     # 4M-row table
-    X, M, _ = kernel_inputs(torch, k_num, ROWS, gen)
+    X, M, _ = kernel_inputs(torch, k_num, KERNEL_ROWS, gen)
     acc = check_moments_twice(torch, X, M, "the path shape")
     ref = masked_moments_plain(X, M)
     share = moments_errors(acc.cpu().numpy(), ref.cpu().numpy())
@@ -1041,17 +1089,17 @@ def phase_kernels(torch, seed: int, k_num: int) -> dict:
     warm = kernel_times(torch, lambda: masked_moments_cols(X, M))
     cold = kernel_times(torch, lambda: masked_moments_cols(X, M), cold=True)
     plain_ms = cuda_ms(torch, lambda: masked_moments_plain(X, M), 2)
-    b_ms, b_by = b1_bound(k_num, ROWS)
+    b_ms, b_by = b1_bound(k_num, KERNEL_ROWS)
     out["masked_moments"] = {"max_abs_err": max_err, "ms": warm["median"], "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                             "warm": warm, "cold": cold, "shape": [k_num, ROWS],
+                             "warm": warm, "cold": cold, "shape": [k_num, KERNEL_ROWS],
                              "err_share_of_allowance": share}
-    print(f"kernel masked_moments ({k_num} x {ROWS}): warm {spread(warm)}, cold L2 {spread(cold)}, "
+    print(f"kernel masked_moments ({k_num} x {KERNEL_ROWS}): warm {spread(warm)}, cold L2 {spread(cold)}, "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), library none; max |Δ| of "
           f"mean/stddev/skew/kurt {max_err:.3g}, error as share of allowance {share}", flush=True)
 
     # masked moments at a stability slice's shape (3 of the path's 4 launches)
-    rows_s = ROWS // 3
+    rows_s = KERNEL_ROWS // 3
     X, M, _ = kernel_inputs(torch, k_num, rows_s, gen)
     warm = kernel_times(torch, lambda: masked_moments_cols(X, M))
     cold = kernel_times(torch, lambda: masked_moments_cols(X, M), cold=True)
@@ -1134,9 +1182,10 @@ def check_stats(df, frames: dict, num_cols, cat_cols) -> None:
 
 
 def phase_path(torch, seed: int):
-    """The main path; returns its figures, the 4M-row Table, the frame it
-    was read from (phases 6-8 go on with both) and the synthesized rows'
-    id and date columns (phase 8 adds them to the Table)."""
+    """The main path; returns its figures, a Table of its first SUB_ROWS
+    rows, the frame that Table was read from (phases 6-8, 10a/b and 13-14
+    go on with both) and those rows' id and date columns (phase 8 adds
+    them to the Table)."""
     import pandas as pd
 
     from examples._data import synthesize
@@ -1230,6 +1279,23 @@ def phase_path(torch, seed: int):
         out["psi_device_ms"] = cuda_ms(
             torch, lambda: (drift_side_full(*args_t), drift_side_full(*args_s)), 10)
         print(f"path: drift device pass (both sides) {out['psi_device_ms']:.3f} ms", flush=True)
+        del table, src, tgt, args_t, args_s
+
+        # the phases after this one go on with the first SUB_ROWS rows, read
+        # back as this phase read its own (set-up, outside the path's walls)
+        sub = min(SUB_ROWS, ROWS)
+        df = df.iloc[:sub].reset_index(drop=True)
+        extra = extra.iloc[:sub].reset_index(drop=True)
+        sub_dir = os.path.join(tmp, "sub")
+        os.makedirs(sub_dir)
+        df.to_parquet(os.path.join(sub_dir, "part-00000.parquet"), index=False)
+        t0 = time.perf_counter()
+        table = read_dataset(sub_dir, "parquet")
+        torch.cuda.synchronize()
+        out["sub_ingest_s"] = time.perf_counter() - t0
+        check(table.nrows == sub and table.col_names == list(df.columns), "read_dataset shape of the sub-table")
+        print(f"path: the later phases go on with its first {sub} rows, read back in "
+              f"{out['sub_ingest_s']:.2f} s", flush=True)
     return out, table, df, extra
 
 
@@ -1438,43 +1504,58 @@ def dbscan_float64_check(sub: np.ndarray, eps_values, ms_eff, db, bracketed) -> 
     within eps² − tol is labelled.  The labels of every combo are
     recomputed with the port (the analyzer's calls) and must give the
     analyzer's frame ``db``."""
+    import torch
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
 
     from anovos_tpu_torch.ops.cluster import dbscan_grid, neighbor_counts
+    from anovos_tpu_torch.shared.runtime import get_runtime
 
     Xc32 = np.asarray(sub, np.float32)
     Xc32 = Xc32 - Xc32.mean(axis=0, keepdims=True)
     X = Xc32.astype(np.float64)
     n, A = len(X), len(eps_values)
     eps2 = [float(np.float32(e * e)) for e in eps_values]
-    nrm = (X * X).sum(1)
-    counts64 = np.zeros((A, n), np.int64)
-    band = np.zeros((A, n), np.int64)
-    near_eps_ulps = np.zeros(A, np.int64)
+    # the pairs in float64 on the runtime's device (each step one correctly
+    # rounded IEEE operation, as numpy's): the n² pairs took most of this
+    # check's time on the host
+    dev = get_runtime().device
+    Xt = torch.from_numpy(X).to(dev)
+    nrm = Xt[:, 0] * Xt[:, 0] + Xt[:, 1] * Xt[:, 1]
+    counts64 = torch.zeros((A, n), dtype=torch.int64, device=dev)
+    band = torch.zeros((A, n), dtype=torch.int64, device=dev)
+    near_eps_ulps = torch.zeros(A, dtype=torch.int64, device=dev)
     ei, ej, ed, et = [], [], [], []
     for s in range(0, n, 2048):
-        q = X[s:s + 2048]
+        q = Xt[s:s + 2048]
         t = len(q)
-        d2 = (q[:, None, 0] - X[None, :, 0]) ** 2 + (q[:, None, 1] - X[None, :, 1]) ** 2
-        tol = 8 * np.spacing((nrm[s:s + t, None] + nrm[None, :]).astype(np.float32)).astype(np.float64)
-        diag = (np.arange(t), np.arange(s, s + t))
+        d0, d1 = q[:, None, 0] - Xt[None, :, 0], q[:, None, 1] - Xt[None, :, 1]
+        d2 = d0 * d0 + d1 * d1
+        del d0, d1
+        s32 = (nrm[s:s + t, None] + nrm[None, :]).to(torch.float32)
+        # np.spacing of a positive f32: the gap to the next f32 up
+        tol = (8 * (torch.nextafter(s32, torch.full_like(s32, float("inf"))) - s32)).to(torch.float64)
+        del s32
+        diag = (torch.arange(t, device=dev), torch.arange(s, s + t, device=dev))
         for a, e2 in enumerate(eps2):
             ulps = 8 * float(np.spacing(np.float32(e2)))
             counts64[a, s:s + t] = (d2 <= e2).sum(1)
-            dev = np.abs(d2 - e2)
-            inband = dev <= tol + ulps
+            gap = (d2 - e2).abs()
+            inband = gap <= tol + ulps
             inband[diag] = False
             band[a, s:s + t] = inband.sum(1)
-            near_eps_ulps[a] += int((dev <= ulps).sum())
-        r, c = np.nonzero(d2 <= max(eps2) + tol)
-        keep = r + s != c
-        r, c = r[keep], c[keep]
-        ei.append((r + s).astype(np.int32))
-        ej.append(c.astype(np.int32))
-        ed.append(d2[r, c])
-        et.append(tol[r, c])
+            near_eps_ulps[a] += (gap <= ulps).sum()
+            del gap, inband
+        edge = d2 <= max(eps2) + tol
+        edge[diag] = False
+        r, c = edge.nonzero(as_tuple=True)
+        ei.append((r + s).to(torch.int32).cpu().numpy())
+        ej.append(c.to(torch.int32).cpu().numpy())
+        ed.append(d2[r, c].cpu().numpy())
+        et.append(tol[r, c].cpu().numpy())
+        del d2, tol, edge
     ei, ej, ed, et = (np.concatenate(v) for v in (ei, ej, ed, et))
+    counts64, band, near_eps_ulps = (v.cpu().numpy() for v in (counts64, band, near_eps_ulps))
 
     out = {"n": n, "band_pairs": [int(b.sum()) // 2 for b in band],
            "pairs_within_8_ulps_of_eps2": [int(v) // 2 for v in near_eps_ulps],
@@ -1754,9 +1835,9 @@ def check_quality_chain(steps: dict, tmp: str) -> dict:
     from anovos_tpu_torch.data_transformer.model_io import load_model_df
 
     out = {}
-    _, dedup, st = steps["duplicate_detection"]
+    cat, dedup, st = steps["duplicate_detection"]
     dup = st.set_index("metric")["value"]
-    check(int(dup["duplicate_rows"]) == DUP_ROWS and dedup.nrows == ROWS,
+    check(int(dup["duplicate_rows"]) == DUP_ROWS and dedup.nrows == cat.nrows - DUP_ROWS,
           f"duplicates: {dict(dup)}, {dedup.nrows} rows left")
 
     inp, _, st = steps["nullRows_detection"]
@@ -1863,7 +1944,7 @@ def quality_path_kernels(torch, outlier_in, tgt, src) -> dict:
 
 
 def phase_quality(torch, seed: int, table, df) -> dict:
-    """Phase 6 on the 4M-row Table of phase 3 and its frame ``df``."""
+    """Phase 6 on phase 3's SUB_ROWS-row Table and its frame ``df``."""
     import pandas as pd
 
     from examples._data import synthesize
@@ -1876,7 +1957,8 @@ def phase_quality(torch, seed: int, table, df) -> dict:
     from anovos_tpu_torch.ops import kernels
     from anovos_tpu_torch.shared.table import Table
 
-    out = {"rows": ROWS + DUP_ROWS}
+    rows = table.nrows
+    out = {"rows": rows + DUP_ROWS}
     walls = out["walls_s"] = {}
     g = np.random.default_rng(seed + 6)
     # set-up, not timed: the invalid-entry table and the join's main frame
@@ -1907,8 +1989,8 @@ def phase_quality(torch, seed: int, table, df) -> dict:
             steps[name] = (inp, t, st)
         _, inv_stats = timed(torch, walls, "invalidEntries_1M_strings",
                              lambda: qc.invalidEntries_detection(inv_table))
-        half = ROWS // 2
-        src, tgt = table.slice_rows(0, half), table.slice_rows(half, ROWS)
+        half = rows // 2
+        src, tgt = table.slice_rows(0, half), table.slice_rows(half, rows)
         drift = timed(torch, walls, "sampled_drift_statistics",
                       lambda: statistics(tgt, src, method_type="all", bin_size=BIN_SIZE,
                                          sample_size=SAMPLE_SIZE,
@@ -1939,7 +2021,7 @@ def phase_quality(torch, seed: int, table, df) -> dict:
         # at this path's shapes and data, then the checks
         out["kernels"] = quality_path_kernels(torch, steps["outlier_detection"][0], tgt, src)
         t0 = time.perf_counter()
-        check(cat.nrows == ROWS + DUP_ROWS, f"concatenate: {cat.nrows} rows")
+        check(cat.nrows == rows + DUP_ROWS, f"concatenate: {cat.nrows} rows")
         out.update(check_quality_chain(steps, tmp))
         del steps
 
@@ -1985,7 +2067,7 @@ def phase_quality(torch, seed: int, table, df) -> dict:
             fail(f"join/write: {e}")
         out["joined_rows"] = joined.nrows
         out["checks_s"] = time.perf_counter() - t0
-    print(f"quality: {len(QUALITY_CONFIG)} checks chained on {ROWS + DUP_ROWS} rows, invalid entries "
+    print(f"quality: {len(QUALITY_CONFIG)} checks chained on {rows + DUP_ROWS} rows, invalid entries "
           f"{out['invalid_1M']} on {INVALID_ROWS} rows, sampled drift sides {out['sampled_rows']} "
           f"(PSI max {out['sampled_psi_max']:.4f}), join {out['joined_rows']} rows, written and "
           f"read back as parquet, csv and avro: checked ({out['checks_s']:.1f} s of checks)",
@@ -2133,7 +2215,7 @@ def check_compensated(comp: dict, plain: dict, data: dict, cols) -> dict:
 
 
 def phase_assoc(torch, seed: int, table, df) -> dict:
-    """Phase 7 on the 4M-row Table of phase 3 and its frame ``df``, then on
+    """Phase 7 on the SUB_ROWS-row Table of phase 3 and its frame ``df``, then on
     a numeric Table of 2^24 + 12,345 rows."""
     import pandas as pd
 
@@ -2537,12 +2619,12 @@ def phase_timeseries(torch, seed: int, table, df, extra) -> dict:
     from anovos_tpu_torch.ops import kernels
     from anovos_tpu_torch.shared.table import host_to_column
 
-    out = {"rows": ROWS}
+    out = {"rows": table.nrows}
     walls = out["walls_s"] = {}
     t0 = time.perf_counter()
     t = table
     for c in TS_EXTRA:  # set-up: the codec dictionary-encodes the string arrays
-        t = t.with_column(c, host_to_column(extra[c].array, ROWS, table.device))
+        t = t.with_column(c, host_to_column(extra[c].array, table.nrows, table.device))
     torch.cuda.synchronize()
     out["setup_s"] = time.perf_counter() - t0
     num_cols, _, _ = table.attribute_type_segregation()
@@ -2656,7 +2738,7 @@ def phase_timeseries(torch, seed: int, table, df, extra) -> dict:
         out["checks_s"] = time.perf_counter() - t0
     print(f"timeseries: dt_1 and dt_2 detected and analyzed, every ts file, the aggregator at "
           f"{', '.join(TS_FORMATS)}, 4 window runs, lags, calendar fields, 16 boundaries and "
-          f"predicates and the offset table checked against float64 pandas/numpy on {ROWS} rows "
+          f"predicates and the offset table checked against float64 pandas/numpy on {out['rows']} rows "
           f"({out['checks_s']:.1f} s of checks)", flush=True)
     return out
 
@@ -2939,14 +3021,15 @@ def check_runner_event_charts(ref, rdir: str, label: str, event: str) -> int:
     return n
 
 
-def tree_digest(root: str) -> dict:
+def tree_digest(root: str, skip=("obs",)) -> dict:
     """{relative path: sha1} of every file a run wrote under ``root``
-    (``obs/`` left out: it records the run, not the pipeline)."""
+    (``skip``'s directories left out; ``obs/`` records the run, not the
+    pipeline)."""
     import hashlib
 
     out = {}
     for d, dirs, files in os.walk(root):
-        dirs[:] = sorted(x for x in dirs if x != "obs")
+        dirs[:] = sorted(x for x in dirs if x not in skip)
         for f in sorted(files):
             p = os.path.join(d, f)
             with open(p, "rb") as fh:
@@ -3252,8 +3335,11 @@ def check_pca(pca_in, pca_out, tmp: str, cutoff: float) -> dict:
     """PCA against float64 numpy on all rows: the nulls filled with the
     column median (0 for an all-null column), centred, the covariance's eigenvectors; k equal where no
     cumulative share lies within 1e-4 of the cutoff; each kept component
-    |cos| ≥ 1 − 1e-4; the projections onto the port's components within
-    1e-5 of the column's largest |z| of their float64 product."""
+    within 1 − 1e-4 of the span of the float64 eigenvectors whose
+    eigenvalues lie within 1% of its own (its own eigenvector alone where
+    no other does: then the bound is |cos| ≥ 1 − 1e-4); the projections
+    onto the port's components within 1e-5 of the column's largest |z| of
+    their float64 product."""
     import pandas as pd
 
     cols = pca_in.attribute_type_segregation()[0]
@@ -3273,7 +3359,16 @@ def check_pca(pca_in, pca_out, tmp: str, cutoff: float) -> dict:
     if np.abs(ratio - cutoff).min() > 1e-4:
         check(k == k_ref, f"PCA k {k} vs float64 {k_ref}")
     cos = np.abs((V * vec[:, :k]).sum(0)) / np.linalg.norm(V, axis=0)
-    check(bool((cos >= 1 - 1e-4).all()), f"PCA components off float64: |cos| {cos}")
+    # f32's rounding of the covariance (|E| ~ 1e-6 relative) turns an
+    # eigenvector by up to |E| / gap (Davis-Kahan), so among eigenvalues a
+    # few 1e-4 apart (the i.i.d. standardized decile columns' variances)
+    # only the cluster's span is determined: each component is held to the
+    # float64 eigenvectors within 1% of its eigenvalue, whose span the
+    # perturbation turns by |E| / (the gap outside them, >= 1%)
+    near = np.abs(ev[None, :] - ev[:k, None]) <= 1e-2 * np.abs(ev[:k, None])
+    span = np.array([np.linalg.norm(vec[:, near[i]].T @ V[:, i]) for i in range(k)]) / np.linalg.norm(V, axis=0)
+    check(bool((span >= 1 - 1e-4).all()),
+          f"PCA components off the span of float64's within 1% of their eigenvalues: {span} (|cos| {cos})")
     # the projections onto the port's own components, in float64: what is
     # left is the f32 centring and product (a component's turn away from
     # float64's, bounded by the |cos| check, moves a projection by up to
@@ -3287,7 +3382,8 @@ def check_pca(pca_in, pca_out, tmp: str, cutoff: float) -> dict:
         ref = X @ vec[:, i]
         turned = max(turned, float(np.abs(np.sign((got * ref).sum()) * got - ref).max() / np.abs(ref).max()))
     check(worst <= 1e-5, f"PCA projections off float64 by {worst} of the column's largest |z|")
-    return {"pca_k": k, "pca_cols": len(cols), "pca_min_cos": float(cos.min()), "pca_proj_rel_err": worst,
+    return {"pca_k": k, "pca_cols": len(cols), "pca_min_cos": float(cos.min()), "pca_min_span_cos": float(span.min()),
+            "pca_cluster_sizes": [int(r.sum()) for r in near], "pca_proj_rel_err": worst,
             "pca_proj_vs_float64_components": turned}
 
 
@@ -3436,7 +3532,9 @@ def phase_transformers_direct(torch, table, df, tmp: str) -> dict:
           f"families checked ({out['checks_s']:.1f} s): sqrt within {out['sqrt_max_ulps']:.0f} ulp; keep sets "
           f"{out['keep_sets_checked']} equal to pandas; {out['rates_checked']} rates equal to a pandas groupby "
           f"mean ({out['rates_near_tie']} near a tie); IQR exact, zero-IQR {out['iqr_zero_skipped']}; PCA k "
-          f"{out['pca_k']} of {out['pca_cols']}, |cos| ≥ {out['pca_min_cos']:.7f}, projections within "
+          f"{out['pca_k']} of {out['pca_cols']}, |cos| ≥ {out['pca_min_cos']:.7f}, within "
+          f"{out['pca_min_span_cos']:.7f} of the float64 span within 1% of each eigenvalue (clusters "
+          f"{out['pca_cluster_sizes']}), projections within "
           f"{out['pca_proj_rel_err']:.2e} ({out['pca_proj_vs_float64_components']:.2e} on float64's "
           f"components); boxcox λ {out['boxcox_lambdas']} ({out['boxcox_decided']} decided "
           f"by more than 1e-5); every from_state apply equal to its batch apply", flush=True)
@@ -3825,7 +3923,7 @@ def phase_transformers(torch, seed: int, table, df, root: str) -> dict:
     # after the path (not counted): B1 and B2 on every input the phase gave
     # them on the card, against their plain versions; timed at each new
     # shape (the CPU port's calls in 10c's check ran the plain versions)
-    out["kernels"], out["kernel_calls_checked"] = given_kernel_rows(torch, given, "transformers", {(9, ROWS)})
+    out["kernels"], out["kernel_calls_checked"] = given_kernel_rows(torch, given, "transformers", {(9, table.nrows)})
     out["phase_s"] = time.perf_counter() - t0
     print(f"transformers: phase 10 in {out['phase_s']:.1f} s, B1 checked on "
           f"{out['kernel_calls_checked']['masked_moments']} calls and B2 on "
@@ -4751,8 +4849,8 @@ def check_stream_counts(rdir: str, folders: dict, model: str) -> None:
 
 def phase_streaming(torch, seed: int, df, tmp: str) -> dict:
     """Phase 13: ``workflow.main`` on a ``streaming_analysis`` config over
-    the folders of ``stream_folders`` (16M target and 8M source rows from
-    phase 3's frame ``df``, written under ``tmp``) in 1M-row chunks, then
+    the folders of ``stream_folders`` (STREAM_PARTS target and STREAM_SRC_PARTS source parts from
+    phase 3's frame ``df``, written under ``tmp``) in STREAM_CHUNK-row chunks, then
     checks (a)-(f) and B1 and B2 at the streaming shape.  The folders'
     writing is timed apart.  The folders, the outlier model and the drift
     model stay for phase 14 (``out["feed"]``); the caller removes ``tmp``."""
@@ -5084,7 +5182,7 @@ def check_continuum_model(cm: str, sm: str) -> dict:
 
 
 def phase_continuum(torch, seed: int, df, feed_in: dict, tmp: str) -> dict:
-    """Phase 14: the continuum over phase 13's 24 parts of 1,000,000 rows
+    """Phase 14: the continuum over phase 13's 24 parts of STREAM_PART_ROWS rows
     hard-linked as daily partitions (8 baseline days, 16 target days),
     through ``anovos_tpu_torch.continuum.step``: (a) the catch-up step,
     (b) one new day shifted a further CONTINUUM_SHIFT σ, (c) a step with
@@ -5666,9 +5764,11 @@ def phase_record(torch, runner: dict, seq_launches: dict, root: str) -> dict:
           f"phase 9's manifest: {man['backend']}, {man['executor']}")
     out["runner"] = {"wall_s": runner["wall_s"], "scheduler_wall_s": man["scheduler"]["wall_s"],
                      "scheduler_wall_before_s": RUNNER_WALL_BEFORE_S,
+                     "scheduler_wall_before_rows": RUNNER_WALL_BEFORE_ROWS,
                      "mode": man["executor"]["mode"], "devprof": devprof_split(man)}
     print(f"record: phase 9 scheduler wall {man['scheduler']['wall_s']:.3f} s in the {man['executor']['mode']} "
-          f"mode (before the run record: {RUNNER_WALL_BEFORE_S} s), workflow.main {runner['wall_s']:.3f} s; "
+          f"mode at {RUNNER_ROWS} rows (before the run record: {RUNNER_WALL_BEFORE_S} s at "
+          f"{RUNNER_WALL_BEFORE_ROWS} rows), workflow.main {runner['wall_s']:.3f} s; "
           f"its manifest names all "
           f"{len(man['scheduler']['nodes'])} nodes; block_seconds equal block_times()", flush=True)
     print("record_phase9_devprof " + json.dumps(out["runner"]["devprof"]), flush=True)
@@ -5688,6 +5788,7 @@ def phase_record(torch, runner: dict, seq_launches: dict, root: str) -> dict:
         check_devprof(m, f"sequential run {i}")
         views.append(obs.stable_view(m))
         seq.append({"wall_s": run["wall_s"], "devprof": devprof_split(m)})
+        views_tree = run["tree"]
     check(views[0] == views[1], "the two sequential runs' stable_view differ: "
           + str(sorted(k for k in views[0] if views[0][k] != views[1].get(k))))
     out["sequential"] = seq
@@ -5717,6 +5818,7 @@ def phase_record(torch, runner: dict, seq_launches: dict, root: str) -> dict:
             workflow.run(cfg_path, "local")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        out["tree"] = tree_digest(run_dir)
     finally:
         os.chdir(cwd)
         for k, v in saved.items():
@@ -5726,6 +5828,8 @@ def phase_record(torch, runner: dict, seq_launches: dict, root: str) -> dict:
     out["launches"] = dict(kernels.LAUNCHES)
     check(runtime.peek_runtime() is not None and runtime.peek_runtime().device == device,
           f"the traced run's runtime {runtime.peek_runtime()}, {device} before it")
+    check(out["tree"] == views_tree, "the traced run's files differ from the sequential runs': "
+          + str(sorted(k for k in set(out["tree"]) | set(views_tree) if out["tree"].get(k) != views_tree.get(k))))
     man = obs.load_manifest(workflow.LAST_MANIFEST_PATH)
     nodes = set(man["scheduler"]["nodes"])
     check_devprof(man, "the traced run")
@@ -5789,6 +5893,204 @@ def phase_record(torch, runner: dict, seq_launches: dict, root: str) -> dict:
     return out
 
 
+class env_knobs:
+    """Environment variables set inside the block (a value of ``None``
+    unsets one), restored after it."""
+
+    def __init__(self, **knobs):
+        self.knobs = knobs
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.knobs}
+        for k, v in self.knobs.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+class LogLines(logging.Handler):
+    """The messages a logger emits while in the ``with`` block."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger, self.lines = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def held_to_plain(torch, given, launches: dict, what: str) -> dict:
+    """Each B1 and B2 launch of a run, on the inputs the runner gave it,
+    against its plain version: B1 twice with the same bits and within its
+    allowance (the largest error as a share of it), B2 equal."""
+    from anovos_tpu_torch.ops.kernels.histogram import binned_histograms_cols, binned_histograms_plain
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_plain
+
+    for name, calls in given.seen.items():
+        check(len(calls) == launches[name], f"{what}: {len(calls)} {name} calls recorded, {launches[name]} launches")
+    share, err, shapes = 0.0, 0.0, []
+    for Xc, Mc in given.seen["masked_moments"]:
+        acc = check_moments_twice(torch, Xc, Mc, what).cpu().numpy()
+        share = max([share, *moments_errors(acc, masked_moments_plain(Xc, Mc).cpu().numpy()).values()])
+        shapes.append(list(Xc.shape))
+    for Xc, Mc, cuts, nbins in given.seen["binned_histograms"]:
+        got, plain = binned_histograms_cols(Xc, Mc, cuts, nbins), binned_histograms_plain(Xc, Mc, cuts, nbins)
+        check(torch.equal(got, plain), f"{what}: binned_histograms differs from plain")
+        err = max(err, float((got - plain).abs().max().item()))
+        shapes.append(list(Xc.shape) + [nbins])
+    return {"b1_share_of_allowance": share, "b2_max_abs_err": err, "shapes": shapes}
+
+
+def phase_node_cache(torch, record: dict, runner: dict, root: str) -> dict:
+    """Phase 17: (a)-(e) of the module docstring."""
+    import copy
+
+    import pandas as pd
+
+    from anovos_tpu_torch import obs
+    from anovos_tpu_torch.cache import CacheStore
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    t_phase = time.perf_counter()
+    base = os.path.join(root, "node_cache")
+    sub_dir, store = os.path.join(base, "income"), os.path.join(base, "store")
+    os.makedirs(sub_dir)
+    pd.read_parquet(runner["main_dir"]).iloc[:RECORD_ROWS].to_parquet(
+        os.path.join(sub_dir, "part-00000.parquet"), index=False)
+    cfg = basic_config(sub_dir, runner["join_dir"])
+    edited = copy.deepcopy(cfg)
+    edited["anovos_basic_report"]["report_args"][CACHE_EDIT[0]] = CACHE_EDIT[1]
+    out, path = {"rows": RECORD_ROWS}, {}
+
+    def run(name, cfg, cache=store, given=None):
+        """run_measured in the default mode with the cache at ``cache``:
+        its wall, launches, schedule, tree, and the manifest's cache
+        section and cached nodes."""
+        with executor(None), env_knobs(ANOVOS_TPU_CACHE=cache):
+            r = run_measured(torch, cfg, os.path.join(base, name))
+        m = obs.load_manifest(r["manifest_path"])
+        r["cache"], r["cached"] = m["cache"], {n: v["cached"] for n, v in m["scheduler"]["nodes"].items()}
+        if cache is not None:
+            for k, v in r["launches"].items():
+                path[k] = path.get(k, 0) + v
+        return r
+
+    def launched(r, b1, b2, what):
+        check(r["launches"]["masked_moments"] == b1 and r["launches"]["binned_histograms"] == b2,
+              f"{what}: launches {r['launches']}, expected B1 {b1} and B2 {b2}")
+
+    def same_tree(got, exp, what):
+        check(got == exp, f"{what}: files differ: "
+              + str(sorted(k for k in set(got) | set(exp) if got.get(k) != exp.get(k))[:10]))
+
+    # (a) populate
+    with KernelInputs(torch) as given:
+        a = run("populate", cfg)
+    launched(a, 2, 1, "(a) populate")
+    out["populate_kernels"] = held_to_plain(torch, given, a["launches"], "(a) populate")
+    del given
+    check(a["cache"]["misses"] == 3 and a["cache"]["hits"] == 0, f"(a) populate: {a['cache']}")
+    same_tree(a["tree"], record["tree"], "(a) populate against phase 16 (c)")
+    # (b) full hit
+    b = run("hit", cfg)
+    check(b["cache"]["misses"] == 0 and b["cache"]["hits"] == 3 and all(b["cached"].values()),
+          f"(b) full hit: {b['cache']}, cached {b['cached']}")
+    launched(b, 0, 0, "(b) full hit")
+    same_tree(b["tree"], a["tree"], "(b) full hit against (a)")
+    # (c) incremental: the report alone re-executes, on the restored df
+    with KernelInputs(torch) as given:
+        c = run("incremental", edited)
+    check(c["cached"] == {"join_dataset": True, "timeseries_analyzer/auto_detection": True,
+                          "anovos_basic_report": False}, f"(c) incremental: cached {c['cached']}")
+    launched(c, 2, 1, "(c) incremental")
+    out["incremental_kernels"] = held_to_plain(torch, given, c["launches"], "(c) incremental")
+    del given
+    u = run("edited_uncached", edited, cache=None)
+    check(u["cache"] is None, f"the uncached run's cache section {u['cache']}")
+    same_tree(c["tree"], u["tree"], "(c) incremental against the uncached edited run")
+    for name, r in (("populate", a), ("hit", b), ("incremental", c), ("edited_uncached", u)):
+        out[name] = {"wall_s": r["wall_s"], "scheduler_wall_s": r["schedule"]["wall_s"],
+                     "restore_s": (r["cache"] or {}).get("restore_s"), "launches": r["launches"],
+                     "block_times_s": r["block_times_s"], "peak_mib": r["peak_mib"]}
+    print(f"node_cache: (a) populate {a['wall_s']:.3f} s (scheduler {a['schedule']['wall_s']:.3f} s), "
+          f"3 misses, B1 {a['launches']['masked_moments']} and B2 {a['launches']['binned_histograms']} "
+          f"held to plain ({out['populate_kernels']}); its tree equals phase 16 (c)'s ({len(a['tree'])} files)",
+          flush=True)
+    print(f"node_cache: (b) full hit {b['wall_s']:.3f} s (scheduler {b['schedule']['wall_s']:.3f} s, restore "
+          f"{b['cache']['restore_s']:.4f} s) beside (a)'s {a['wall_s']:.3f} s (scheduler "
+          f"{a['schedule']['wall_s']:.3f} s); 3 hits, 0 launches, the tree equal", flush=True)
+    print(f"node_cache: (c) incremental ({CACHE_EDIT[0]} = {CACHE_EDIT[1]!r}) {c['wall_s']:.3f} s (restore "
+          f"{c['cache']['restore_s']:.4f} s), the report re-executed on the restored df, B1 and B2 held to "
+          f"plain ({out['incremental_kernels']}); the tree equals the uncached edited run's "
+          f"({u['wall_s']:.3f} s)", flush=True)
+
+    # (d) a hard kill inside the report node, then --resume, in one directory
+    kill_dir, cfg_path = os.path.join(base, "killed"), os.path.join(base, "configs_basic.json")
+    os.makedirs(kill_dir)
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    kill = (f"import os; import anovos_tpu_torch.workflow as w; "
+            f"w.anovos_basic_report = lambda *a, **k: os._exit({KILL_CODE}); ")
+    run_cli = (CACHE_CLI_PRELUDE + f"import runpy, sys; sys.argv = ['anovos_tpu_torch', {cfg_path!r}, 'local', *sys.argv[1:]]; "
+               "runpy.run_module('anovos_tpu_torch', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k not in ("ANOVOS_TPU_CACHE", "ANOVOS_TPU_EXECUTOR")}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for code, argv, extra in ((kill + run_cli, [], {"ANOVOS_TPU_CACHE": ".anovos_cache",
+                                                     "ANOVOS_TPU_EXECUTOR": "sequential"}),
+                              (run_cli, ["--resume"], {})):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code, *argv], cwd=kill_dir, env={**env, **extra},
+                             capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        procs.append((res, time.perf_counter() - t0))
+    (killed, kill_s), (resumed, resume_s) = procs
+    check(killed.returncode == KILL_CODE, f"(d) the killed process exited {killed.returncode}: "
+          f"{killed.stderr[-2000:]}")
+    check(resumed.returncode == 0, f"(d) the --resume process exited {resumed.returncode}: {resumed.stderr[-3000:]}")
+    m = obs.load_manifest(os.path.join(kill_dir, "output", "obs", "run_manifest.json"))
+    check(m["backend"] == get_runtime().device.type and m["cache"]["root"] == os.path.join(kill_dir, ".anovos_cache")
+          and m["cache"]["resumed_from"] == 2 and (m["cache"]["hits"], m["cache"]["misses"]) == (2, 1)
+          and "records 2 previously committed" in resumed.stderr, f"(d) --resume: {m['backend']}, {m['cache']}")
+    same_tree(tree_digest(kill_dir, skip=("obs", ".anovos_cache")), a["tree"], "(d) resumed against (a)")
+    out["kill_resume"] = {"killed_s": kill_s, "resume_s": resume_s, "cache": m["cache"],
+                          "scheduler_wall_s": m["scheduler"]["wall_s"]}
+    print(f"node_cache: (d) killed at the report node ({kill_s:.1f} s, exit {killed.returncode}), "
+          f"--resume ({resume_s:.1f} s, {m['executor']['mode']}): resumed_from {m['cache']['resumed_from']}, "
+          f"{m['cache']['hits']} hits, {m['cache']['misses']} miss, the tree equal to (a)'s", flush=True)
+
+    # (e) the end-of-run sweep under a cap below the store's size
+    before = CacheStore(store).total_bytes()
+    with env_knobs(ANOVOS_TPU_CACHE_MAX_BYTES=str(before // 2)), LogLines("anovos_tpu_torch.workflow") as log:
+        e = run("swept", cfg)
+    after = CacheStore(store).total_bytes()
+    swept = [line for line in log.lines if line.startswith("cache gc:")]
+    check(e["cache"]["hits"] == 3 and after <= before // 2 and swept, f"(e) sweep: {before} -> {after} B, {swept}")
+    out["sweep"] = {"before_bytes": before, "after_bytes": after, "log": swept}
+    print(f"node_cache: (e) sweep to half the store: {before} -> {after} B; logged '{swept[0]}'", flush=True)
+    out["launches"] = path
+    shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"node_cache: phase 17 in {out['phase_s']:.1f} s; launches on the node_cache path {path}", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -5845,7 +6147,7 @@ def print_codec_walls(path: dict, quality: dict, ts: dict, runner: dict) -> None
                                 quality["walls_s"]["write_avro"], quality["walls_s"]["read_avro"], ts["setup_s"],
                                 runner["wall_s"] - sum(blocks.values()), blocks["join_dataset"])))
     for step, wall in now.items():
-        print(f"codec walls: {step}: {wall:.3f} s (before the codec, three runs: {BEFORE_CODEC_WALLS[step]} s)",
+        print(f"codec walls: {step}: {wall:.3f} s (before the codec, three runs: {BEFORE_CODEC_WALLS[step]})",
               flush=True)
     print("codec_walls " + json.dumps(now), flush=True)
 
@@ -5864,6 +6166,15 @@ def main() -> None:
     from anovos_tpu_torch.shared.runtime import init_runtime
 
     init_runtime("cuda")
+    # each phase's wall, printed at the end: the script must stay well
+    # inside its 1,200 s limit on a host slower than the one it was tuned on
+    walls, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name], mark[0] = round(now - mark[0], 3), now
+        print(f"phase {name}: {walls[name]:.1f} s, {now - t_start:.1f} s in all", flush=True)
+
     device_name = torch.cuda.get_device_name(0)
     print(f"device: {device_name}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -5905,58 +6216,78 @@ def main() -> None:
     check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32")
     k_num = 9  # numeric columns of the income schema after the bench's drops
+    lap("1 build")
     kres = phase_kernels(torch, args.seed, k_num)
+    lap("2 kernels")
     path, table, df, extra = phase_path(torch, args.seed)
     print("path " + json.dumps({k: v for k, v in path.items() if k != "launches"}), flush=True)
+    lap("3 path")
     b3_blobs = phase_geo_kernels(torch, args.seed)
+    lap("4 geo kernels")
     geo = phase_geo(torch, args.seed)
     geo_kernels = geo.pop("kernels")
     print("geo " + json.dumps({k: v for k, v in geo.items() if k != "launches"}), flush=True)
+    lap("5 geo")
     quality = phase_quality(torch, args.seed, table, df)
     quality_kernels = quality.pop("kernels")
     print("quality " + json.dumps({k: v for k, v in quality.items() if k != "launches"}), flush=True)
+    lap("6 quality")
     assoc = phase_assoc(torch, args.seed, table, df)
     assoc_kernels = assoc.pop("kernels")
     print("association " + json.dumps({k: v for k, v in assoc.items() if k != "launches"}), flush=True)
+    lap("7 association")
     ts = phase_timeseries(torch, args.seed, table, df, extra)
     del extra
     print("timeseries " + json.dumps(ts), flush=True)
+    lap("8 timeseries")
     # phases 9 and 10d keep their inputs and runs here for phase 15
     runs_root = tempfile.mkdtemp(prefix="anovos_runs_")
     runner = phase_runner(torch, args.seed, runs_root)
     runner_kernels = runner.pop("kernels")
     print("runner " + json.dumps({k: v for k, v in runner.items() if k not in ("launches", "tree")}), flush=True)
+    lap("9 runner")
     transform = phase_transformers(torch, args.seed, table, df, runs_root)
     del table
     transform_kernels = transform.pop("kernels")
     print("transformers " + json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "tree"} if k == "runner" else v)
                                         for k, v in transform.items() if k != "launches"}), flush=True)
+    lap("10 transformers")
     scen = phase_scenarios(torch, args.seed)
     scen_paths = [p for p in PATH_KERNELS if p.startswith("configs_")]
     scen_kernels = {p: scen[p].pop("kernels") for p in scen_paths}
     print("scenarios " + json.dumps(scen), flush=True)
+    lap("11 scenarios")
     geo_t = phase_geo_transformers(torch, args.seed)
     print("geo_transformers " + json.dumps(geo_t), flush=True)
+    lap("12 geo transformers")
     stream_tmp = tempfile.mkdtemp(prefix="anovos_stream_")
     try:
         stream = phase_streaming(torch, args.seed, df, stream_tmp)
         feed = stream.pop("feed")
         stream_kernels = stream.pop("kernels")
         print("streaming " + json.dumps({k: v for k, v in stream.items() if k != "launches"}), flush=True)
+        lap("13 streaming")
         cont = phase_continuum(torch, args.seed, df, feed, stream_tmp)
         del df, feed
     finally:
         shutil.rmtree(stream_tmp, ignore_errors=True)
     cont_kernels = cont.pop("kernels")
     print("continuum " + json.dumps({k: v for k, v in cont.items() if k != "launches"}), flush=True)
+    lap("14 continuum")
     try:
         execu = phase_executor(torch, args.seed, runner, transform["runner"], runs_root)
         print("executor " + json.dumps(execu), flush=True)
+        lap("15 executor")
         record = phase_record(torch, runner, execu["sequential"]["configs_basic"]["sequential"]["launches"],
                               runs_root)
+        print("record " + json.dumps({k: v for k, v in record.items() if k not in ("launches", "tree")}),
+              flush=True)
+        lap("16 record")
+        node_cache = phase_node_cache(torch, record, runner, runs_root)
+        lap("17 node cache")
     finally:
         shutil.rmtree(runs_root, ignore_errors=True)
-    print("record " + json.dumps({k: v for k, v in record.items() if k != "launches"}), flush=True)
+    print("node_cache " + json.dumps({k: v for k, v in node_cache.items() if k != "launches"}), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -5984,8 +6315,10 @@ def main() -> None:
                                                      **{f"sequential_{w[len('configs_'):]}": r["sequential"]["launches"]
                                                         for w, r in execu["sequential"].items()},
                                                      "chaos": execu["chaos"]["launches"],
-                                                     "run_record": record["launches"]}, sass)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s", flush=True)
+                                                     "run_record": record["launches"],
+                                                     "node_cache": node_cache["launches"]}, sass)
+    print("phase walls " + json.dumps(walls), flush=True)
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

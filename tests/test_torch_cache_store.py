@@ -1,8 +1,9 @@
 """The port's node store (``anovos_tpu_torch/cache/store.py``) against the
-JAX package's ``CacheStore`` on a payload commit, the only kind the port
-makes (the continuum's snapshot): the same manifest and on-disk layout, so
-each package looks up the other's commit; a lost payload is a miss; a
-failed payload write commits nothing; the manifest listing.
+JAX package's ``CacheStore`` on a payload commit (the continuum's
+snapshot, and a spine node's df checkpoint): the same manifest and
+on-disk layout, so each package looks up the other's commit; a lost
+payload is a miss; a failed payload write commits nothing; the manifest
+listing.  File commits, restore and gc: ``tests/test_torch_cache.py``.
 """
 
 import json
@@ -25,7 +26,7 @@ def test_commit_layout_equals_jax(tmp_path):
     from anovos_tpu.cache.store import CacheStore as JStore
     from anovos_tpu_torch.cache.store import CacheStore
 
-    got = CacheStore(str(tmp_path / "p")).commit("fp1", "node:x", _payload)
+    got = CacheStore(str(tmp_path / "p")).commit("fp1", "node:x", (), payload_write=_payload)
     exp = JStore(str(tmp_path / "j")).commit("fp1", "node:x", paths=(), payload_write=_payload)
     got.pop("created_unix")
     exp.pop("created_unix")
@@ -40,7 +41,7 @@ def test_each_package_looks_up_the_others_commit(tmp_path):
     from anovos_tpu_torch.cache.store import CacheStore
 
     root = str(tmp_path / "store")
-    CacheStore(root).commit("fp-p", "n", _payload)
+    CacheStore(root).commit("fp-p", "n", (), payload_write=_payload)
     JStore(root).commit("fp-j", "n", paths=(), payload_write=lambda d: _payload(d, b"jax"))
     for reader, fp, body in ((JStore(root), "fp-p", b"payload"), (CacheStore(root), "fp-j", b"jax")):
         m = reader.lookup(fp)
@@ -56,7 +57,7 @@ def test_lookup_misses_a_lost_payload_and_touches_the_manifest(tmp_path):
     from anovos_tpu_torch.cache.store import CacheStore
 
     store = CacheStore(str(tmp_path / "s"))
-    store.commit("fp", "n", _payload)
+    store.commit("fp", "n", (), payload_write=_payload)
     mpath = tmp_path / "s" / "nodes" / "fp.json"
     os.utime(mpath, (1, 1))
     assert store.lookup("fp") is not None
@@ -78,10 +79,10 @@ def test_failed_payload_write_commits_nothing(tmp_path):
         raise RuntimeError("disk full")
 
     with pytest.raises(RuntimeError):
-        store.commit("fp", "n", broken)
+        store.commit("fp", "n", (), payload_write=broken)
     assert store.lookup("fp") is None and _tree(tmp_path / "s") == []
-    store.commit("fp", "n", _payload)
-    store.commit("fp", "n", lambda d: _payload(d, b"second"))  # a re-commit replaces the payload
+    store.commit("fp", "n", (), payload_write=_payload)
+    store.commit("fp", "n", (), payload_write=lambda d: _payload(d, b"second"))  # a re-commit replaces the payload
     with open(os.path.join(store.payload_dir("fp"), "parts", "p.npz"), "rb") as f:
         assert f.read() == b"second"
     assert _tree(tmp_path / "s") == ["nodes/fp.json", "payloads/fp/parts/p.npz"]
@@ -94,7 +95,7 @@ def test_manifests_lists_committed_nodes_like_jax(tmp_path):
     root = str(tmp_path / "s")
     store = CacheStore(root)
     for fp in ("b", "a", "c"):
-        store.commit(fp, f"node:{fp}", _payload)
+        store.commit(fp, f"node:{fp}", (), payload_write=_payload)
     (tmp_path / "s" / "nodes" / "junk.json").write_text("not json")
     (tmp_path / "s" / "nodes" / "notes.txt").write_text("x")
     got = store.manifests()

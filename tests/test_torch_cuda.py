@@ -874,3 +874,115 @@ def test_cuda_drain_books_the_work_in_flight(mode, monkeypatch):
     r = devprof.results()["in_flight"]
     assert summary["nodes"]["in_flight"]["stream"] == (mode == "concurrent")
     assert 0.8 * slept <= r["device_time_s"] <= r["wall_s"], (slept, r)
+
+
+def _cached_demo_run(cfg, d, monkeypatch, store=None, mode="concurrent"):
+    """The demo config through the port's runner on the card in ``mode``,
+    with the node cache at ``store`` (None: off): (its tree, B1/B2
+    launches, the schedule's node entries)."""
+    from anovos_tpu_torch import obs, workflow
+    from anovos_tpu_torch.ops import kernels
+    from test_torch_scheduler import tree_hashes
+
+    d.mkdir()
+    if store is None:
+        monkeypatch.delenv("ANOVOS_TPU_CACHE", raising=False)
+    else:
+        monkeypatch.setenv("ANOVOS_TPU_CACHE", str(store))
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR", mode)
+    monkeypatch.setenv("ANOVOS_TPU_EXECUTOR_WORKERS", "4")
+    monkeypatch.chdir(d)
+    kernels.reset_launches()
+    workflow.main(cfg, "local")
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in ("masked_moments", "binned_histograms")}
+    man = obs.load_manifest(workflow.LAST_MANIFEST_PATH)
+    # every node's devprof bracket closed, restored nodes too
+    assert set(man["devprof"]) == set(man["scheduler"]["nodes"])
+    for e in man["devprof"].values():
+        assert e["device_time_s"] + e["dispatch_s"] + e["transfer_s"] + e["host_s"] <= e["wall_s"] + 1e-6
+    return tree_hashes(str(d)), launches, workflow.LAST_RUN_SUMMARY["nodes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sequential", "concurrent"])
+def test_cuda_full_hit_launches_no_kernel(mode, tmp_path, monkeypatch):
+    """The demo config through the node cache on the card: the populate
+    run's files equal an uncached run's, and a full hit in ``mode``
+    restores every cacheable node, launches neither B1 nor B2, closes
+    every node's devprof bracket, and writes the same files byte for
+    byte."""
+    from examples._data import synthesize
+
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+    from test_torch_scheduler import _demo_cfg
+
+    _require_cuda()
+    pq = tmp_path / "parquet"
+    pq.mkdir()
+    synthesize(50_000).to_parquet(pq / "part-0.parquet")
+    prev = get_runtime().device
+    try:
+        init_runtime("cuda")
+        cold, cold_launches, _ = _cached_demo_run(_demo_cfg(str(pq)), tmp_path / "uncached", monkeypatch)
+        pop, pop_launches, _ = _cached_demo_run(_demo_cfg(str(pq)), tmp_path / "populate", monkeypatch,
+                                                tmp_path / "store")
+        hit, hit_launches, nodes = _cached_demo_run(_demo_cfg(str(pq)), tmp_path / "hit", monkeypatch,
+                                                    tmp_path / "store", mode=mode)
+    finally:
+        init_runtime(prev)
+    assert "report_stats/ml_anovos_report.html" in cold
+    assert pop == cold and hit == cold
+    assert pop_launches == cold_launches and cold_launches["masked_moments"] > 0
+    assert hit_launches == {"masked_moments": 0, "binned_histograms": 0}
+    assert all(v["cached"] for k, v in nodes.items() if k != "report_generation")
+
+
+@pytest.mark.cuda
+def test_cuda_restored_df_read_by_concurrent_fanouts(tmp_path, monkeypatch):
+    """An edit of the IV and drift blocks after a populate run: the quality
+    spine hits, and the fan-out nodes reading its df version (IV, drift
+    and the charts that read the drift model) re-execute on worker streams
+    over the version restored from the cache.  The first reader loads it
+    (slowed here, so that the others queue on the lock) and its upload is
+    complete before another stream reads it: one load, and every file
+    equal to an uncached run of the edited config."""
+    import time
+
+    from examples._data import synthesize
+
+    from anovos_tpu_torch import workflow
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+    from test_torch_scheduler import _demo_cfg
+
+    _require_cuda()
+    pq = tmp_path / "parquet"
+    pq.mkdir()
+    synthesize(50_000).to_parquet(pq / "part-0.parquet")
+    edited = _demo_cfg(str(pq))
+    edited["association_evaluator"]["IV_calculation"]["event_label"] = "<=50K"
+    edited["drift_detector"]["drift_statistics"]["configs"]["threshold"] = 0.2
+    loads, real = [], workflow.load_table
+
+    def slow_load(path):
+        loads.append(path)
+        time.sleep(0.5)
+        return real(path)
+
+    prev = get_runtime().device
+    try:
+        init_runtime("cuda")
+        _cached_demo_run(_demo_cfg(str(pq)), tmp_path / "populate", monkeypatch, tmp_path / "store")
+        monkeypatch.setattr(workflow, "load_table", slow_load)
+        inc, _, nodes = _cached_demo_run(edited, tmp_path / "incremental", monkeypatch, tmp_path / "store")
+        monkeypatch.setattr(workflow, "load_table", real)
+        ref, _, _ = _cached_demo_run(edited, tmp_path / "uncached", monkeypatch)
+    finally:
+        init_runtime(prev)
+    ran = {k for k, v in nodes.items() if not v["cached"]}
+    assert ran == {"association_evaluator/IV_calculation", "drift_detector/drift_statistics",
+                   "report_preprocessing/charts_to_objects", "report_generation"}
+    assert nodes["association_evaluator/IV_calculation"]["stream"]
+    assert nodes["drift_detector/drift_statistics"]["stream"]
+    assert len(loads) == 1
+    assert inc == ref

@@ -15,7 +15,7 @@
   Timings tab renders from a manifest and is absent without one.
 
 The Prometheus text exposition has no counterpart yet (ROADMAP.md Queue A
-item 3).  Everything runs on the CPU runtime.
+item 2).  Everything runs on the CPU runtime.
 """
 
 import importlib.util

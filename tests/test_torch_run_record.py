@@ -4,8 +4,9 @@ income rows), each with ``ANOVOS_TPU_TRACE=1``, in a working directory of
 its own.
 
 * ``write_manifest`` of one dict and ``config_hash`` of one config: the
-  same bytes and digest; ``KNOWN_ENV_KNOBS`` the same list and
-  ``env_fingerprint`` the JAX digest of the port's backend and count;
+  same bytes and digest; ``KNOWN_ENV_KNOBS`` the JAX list and the port's
+  ``ANOVOS_GEOCODE_TABLE``, and ``env_fingerprint`` the JAX digest of the
+  port's knobs, backend and count;
 * the two manifests: the same keys, and ``stable_view`` equal but for
   the entries of :data:`MANIFEST_DIFFERENCES`, each with its reason; the
   port's summary keys are JAX's plus the two it strips by name;
@@ -37,7 +38,7 @@ MANIFEST_DIFFERENCES = {
         "value: the JAX package runs on the tests' 8 virtual CPU devices (tests/conftest.py), "
         "the port on one device; each summary states its own runtime's count",
     ("resilience", "failover_retries"):
-        "JAX only: the port has no backend failover (ROADMAP.md Queue A item 4), so no "
+        "JAX only: the port has no backend failover (ROADMAP.md Queue A item 3), so no "
         "failover re-execution to count (the section is stripped by stable_view)",
     ("resilience", "failovers"):
         "JAX only: as failover_retries",
@@ -96,9 +97,10 @@ def test_env_fingerprint_is_the_jax_digest_of_the_runtime(monkeypatch):
 
     from anovos_tpu_torch.cache import fingerprint as pf
 
-    assert pf.KNOWN_ENV_KNOBS == jf.KNOWN_ENV_KNOBS
+    # the JAX list and the port's own knob (tests/test_torch_cache.py)
+    assert pf.KNOWN_ENV_KNOBS == jf.KNOWN_ENV_KNOBS + ("ANOVOS_GEOCODE_TABLE",)
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:x")
-    knobs = {k: os.environ.get(k, "") for k in jf.KNOWN_ENV_KNOBS}
+    knobs = {k: os.environ.get(k, "") for k in pf.KNOWN_ENV_KNOBS}
     assert pf.env_fingerprint() == jf.digest(jf.canonical(knobs), "cpu", "1")
 
 

@@ -44,16 +44,18 @@ def test_no_argument_prints_the_usage_line():
     assert run_cli("--resume").returncode == 1  # --resume alone is no config
 
 
-def test_resume_is_refused():
-    """``--resume`` is no longer refused (the streaming passes resume from
-    their chunk checkpoints): the run starts, logs the JAX runner's
-    warning that no node cache backs the other blocks, and stops where any
-    run of this config does here, at its absent input."""
-    res = run_cli("config/configs_basic.yaml", "local", "--resume")
+def test_resume_is_refused(tmp_path):
+    """``--resume`` is not refused: it defaults ``ANOVOS_TPU_CACHE`` to
+    ``.anovos_cache`` in the working directory (a temporary one here), so
+    the run starts without the warning that no node cache backs the other
+    blocks, and stops where any run of this config does here, at its
+    absent input, before the store is made."""
+    res = run_cli(os.path.join(REPO, "config", "configs_basic.yaml"), "local", "--resume", cwd=str(tmp_path))
     assert res.returncode != 0
     assert "Queue A item" not in res.stderr
-    assert "--resume requested but ANOVOS_TPU_CACHE is unset" in res.stderr
+    assert "ANOVOS_TPU_CACHE is unset" not in res.stderr
     assert "FileNotFoundError: no parquet files" in res.stderr
+    assert not (tmp_path / ".anovos_cache").exists()
 
 
 @pytest.mark.parametrize("argv,expected", [
@@ -156,7 +158,7 @@ def test_chaos_wedge_raises_naming_the_failover_item(tmp_path, monkeypatch):
     cfg = load_config("configs_basic.yaml")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "seed=3;exc@node:join_dataset;wedge@node:stats_generator/*")
-    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A item 4$"):
+    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A item 3$"):
         workflow.main(cfg, "local")
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:join_dataset;hang@node:x:secs=1")
     with pytest.raises(FileNotFoundError):

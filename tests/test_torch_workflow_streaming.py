@@ -15,8 +15,9 @@ same cutoffs (a source value between the two packages' cutoffs moves one
 count to the next bin) and its categorical frequencies within 1e-6.
 Then the port's runner (200-row chunks, so whole parts end on chunk
 boundaries) is killed after 200 chunk commits and run again through
-``python -m anovos_tpu_torch ... --resume``: it writes the uninterrupted
-run's files byte for byte and decodes fewer parts.
+``python -m anovos_tpu_torch ... --resume`` (which defaults the node
+cache's root to ``.anovos_cache`` there): it writes the uninterrupted run's
+files byte for byte and decodes fewer parts.
 """
 
 import os
@@ -226,11 +227,16 @@ def test_killed_run_resumes_through_the_cli(data, tmp_path, monkeypatch):
     res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path / "run"), env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "--resume requested but ANOVOS_TPU_CACHE is unset" in res.stderr
+    # --resume defaults the node cache's root to .anovos_cache in the working
+    # directory; the killed run had no cache, so no node restores and the
+    # passes resume from their chunk checkpoints
+    assert "--resume requested but ANOVOS_TPU_CACHE is unset" not in res.stderr
+    assert "records 0 previously committed node result(s)" in res.stderr
+    assert len(os.listdir(tmp_path / "run" / ".anovos_cache" / "nodes")) == 4
     reads = int(res.stdout.strip().splitlines()[-1].split()[1])
     assert 0 < reads < 36, reads
     ref = _tree(str(tmp_path / "ref"))
-    assert ref == _tree(str(tmp_path / "run")) and len(ref) > 4
+    assert ref == _tree(str(tmp_path / "run"), skip=("obs", ".anovos_cache")) and len(ref) > 4
     for rel in ref:
         a = open(tmp_path / "ref" / rel, "rb").read()
         assert open(tmp_path / "run" / rel, "rb").read() == a, rel
