@@ -19,8 +19,9 @@ level by design, so a root the two share must never hand one package's
 results to the other.
 
 ``KNOWN_ENV_KNOBS`` lists the environment variables that can change a
-node's artifacts: the JAX package's list and the port's one own knob,
-``ANOVOS_GEOCODE_TABLE``.  ``EXEMPT_ENV_KNOBS`` lists those a node body
+node's artifacts: the JAX package's list and the port's two own knobs,
+``ANOVOS_GEOCODE_TABLE`` and ``ANOVOS_AE_COMPUTE`` (which the JAX list
+leaves out although it moves the autoencoder's latents).  ``EXEMPT_ENV_KNOBS`` lists those a node body
 reads that cannot, each with its reason.  ``tests/test_torch_cache.py``
 parses the port's sources and holds every node-reachable read to the two
 lists (the JAX package's graftcheck rule GC008 does it there)."""
@@ -154,6 +155,10 @@ KNOWN_ENV_KNOBS = (
     # the port's own: the offline city table reverse_geocoding reads
     # (data_transformer/geospatial.py); another table names other cities
     "ANOVOS_GEOCODE_TABLE",
+    # the port's own: the autoencoder's matmul precision (bf16 inputs with
+    # f32 sums, or f32) moves its latents; the JAX list leaves it out, so a
+    # bf16 run there restores an f32 run's latents
+    "ANOVOS_AE_COMPUTE",
 )
 
 # Environment variables that node-reachable code READS but that cannot
@@ -185,6 +190,13 @@ EXEMPT_ENV_KNOBS = {
     "ANOVOS_TPU_FLIGHTREC":
         "flight-recorder telemetry toggle; outputs live under the "
         "parity-excluded obs/ subtree",
+    "ANOVOS_PERF_LEDGER":
+        "gates the report's Perf Ledger obs tab; obs-tab bytes are "
+        "parity-excluded by policy (ledger lives in the repo, not under "
+        "master_path)",
+    "ANOVOS_RUN_DIFF_BASELINE":
+        "gates the report's Run Diff obs tab against a prior manifest; "
+        "obs-tab bytes are parity-excluded by policy",
 }
 
 

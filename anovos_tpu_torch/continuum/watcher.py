@@ -73,6 +73,7 @@ from anovos_tpu_torch.continuum.sufficient import (
 from anovos_tpu_torch.obs import flight, telemetry
 from anovos_tpu_torch.obs.metrics import get_metrics
 from anovos_tpu_torch.obs.timed import timed
+from anovos_tpu_torch.obs.tracing import maybe_rotator
 
 logger = logging.getLogger(__name__)
 
@@ -619,11 +620,13 @@ def run(cfg: ContinuumConfig, max_iterations: Optional[int] = None,
         stop_file: Optional[str] = None) -> List[dict]:
     """The long-running service loop: a :func:`step` every poll interval
     (``ANOVOS_CONTINUUM_POLL_S`` overrides the config) until
-    ``max_iterations`` or the ``stop_file`` appears.  A set
-    ``ANOVOS_TPU_TELEMETRY`` or ``ANOVOS_TPU_TRACE_ROTATE`` raises: the
-    telemetry plane and trace rotation are not ported."""
-    telemetry.check_unported_knobs(telemetry.SERVICE_KNOBS)
+    ``max_iterations`` or the ``stop_file`` appears.  The loop holds the
+    live plane (``ANOVOS_TPU_TELEMETRY``) and the trace rotator
+    (``ANOVOS_TPU_TRACE_ROTATE``, segments under ``<output_path>/obs``)
+    for its lifetime; both are off by default."""
     interval = poll_seconds(cfg.poll_s)
+    tele = telemetry.acquire(context="continuum")
+    rotator = maybe_rotator(cfg.output_path)
     out = []
     i = 0
     clean_exit = False
@@ -645,9 +648,12 @@ def run(cfg: ContinuumConfig, max_iterations: Optional[int] = None,
                 break
             time.sleep(interval)
     finally:
+        if rotator is not None:
+            rotator.close()
         if clean_exit:
             # a loop stopped on purpose leaves no beat to go stale
             telemetry.clear_heartbeat(HEARTBEAT)
+        telemetry.release(tele)
     return out
 
 

@@ -120,6 +120,41 @@ def _eligibility(col: str, cal: Optional[_Calendar], nrows: int, max_days: int) 
     }
 
 
+def _ts_series(idf: Table, col: str) -> pd.Series:
+    """The ts column on the host as datetime64[s], NaT where null."""
+    c = idf.columns[col]
+    secs = c.data[: idf.nrows].cpu().numpy().astype("int64")
+    ts = pd.Series(secs.astype("datetime64[s]"))
+    ts[~c.mask[: idf.nrows].cpu().numpy()] = pd.NaT
+    return ts
+
+
+def daypart_cat(hour: pd.Series) -> pd.Series:
+    """The daypart label of each hour (late_hours 0-5, early_hours 6-9,
+    work_hours 10-16, evening_hours 17-20, night_hours 21-23); a null hour
+    stays null."""
+    bins = pd.cut(hour, bins=[-1, 5, 9, 16, 20, 23], labels=_DAYPART_NAMES)
+    return bins.astype(str)
+
+
+def ts_processed_feats(idf: Table, col: str) -> pd.DataFrame:
+    """Per-row calendar features of one ts column on the host: the ts,
+    date, hour, dayofweek, is_weekend, daypart, month and ``yyyymmdd_col``
+    ("%Y-%m-%d", NaN where the ts is null)."""
+    ts = _ts_series(idf, col)
+    out = pd.DataFrame({col: ts})
+    out["date"] = ts.dt.date
+    out["hour"] = ts.dt.hour
+    out["dayofweek"] = ts.dt.dayofweek
+    out["is_weekend"] = ts.dt.dayofweek >= 5
+    out["daypart"] = daypart_cat(ts.dt.hour)
+    out["month"] = ts.dt.month
+    ymd = ts.to_numpy().astype("datetime64[D]").astype(str).astype(object)
+    ymd[pd.isna(ts).to_numpy()] = np.nan
+    out["yyyymmdd_col"] = ymd
+    return out
+
+
 def ts_eligiblity_check(idf: Table, col: str, id_col: Optional[str] = None, max_days: int = 3600) -> dict:
     """Eligibility stats: span, distinct days, null share."""
     return _eligibility(col, _calendar(idf, col), idf.nrows, max_days)

@@ -24,11 +24,10 @@ Degraded Sections tab leads the report whenever the degradation registry
 holds an entry, with the JAX markup and text.  The Run Timings tab
 renders from ``<master_path>/obs/run_manifest.json`` when a completed run
 left one there (``run_timings_gen``), after Geospatial, as in the JAX
-renderer.  Two parts of the JAX renderer read layers the port does not
-have yet and are left out: the Perf Ledger tab and the Run Diff tab
-(ROADMAP.md Queue A item 2).  In a fresh run directory the JAX renderer
-shows neither (``workflow.run`` refuses ``ANOVOS_PERF_LEDGER`` and
-``ANOVOS_RUN_DIFF_BASELINE``).
+renderer.  After it come the Perf Ledger tab (``perf_ledger_gen``, under
+``ANOVOS_PERF_LEDGER``) and the Run Diff tab (``run_diff_gen``, under
+``ANOVOS_RUN_DIFF_BASELINE``: the perf doctor's ranked attributions of
+the most recent completed run here against that baseline).
 """
 
 from __future__ import annotations
@@ -1354,6 +1353,131 @@ def _devprof_split_html(dev: dict) -> str:
     return "".join(html)
 
 
+def perf_ledger_gen() -> str:
+    """"Perf Ledger" tab: the bench trajectory and the gate's verdicts from
+    the append-only ledger (read by ``obs/ledger.py``).  Rendered only when
+    ``ANOVOS_PERF_LEDGER`` names a ledger file: the ledger lives outside a
+    run's master_path, so an ungated lookup would make the report's bytes
+    depend on what else is on disk."""
+    path = os.environ.get("ANOVOS_PERF_LEDGER", "")
+    if not path or not os.path.exists(path):
+        return ""
+    try:
+        from anovos_tpu_torch.obs.ledger import field_trends, load
+
+        entries = load(path)
+        rows = field_trends(entries)
+    except Exception as e:
+        logger.warning("perf ledger at %s unreadable (%s); omitting tab", path, e)
+        return ""
+    if not rows:
+        return ""
+    html = ["<h3>Perf Ledger</h3>",
+            f"<p>Bench trajectory from <code>{escape(path)}</code> "
+            f"({len(entries)} entries; see <code>tools/perf_ledger.py "
+            "--check</code> for the regression gate).</p>"]
+    html.append(_table_html(pd.DataFrame(rows), "tracked fields"))
+    regress = [e for e in entries if e.get("regressions")]
+    if regress:
+        items = "".join(
+            f"<li><code>{escape(str(e.get('source')))}</code>: "
+            f"{escape(', '.join(e['regressions']))}</li>" for e in regress)
+        html.append(f"<p><b>Entries flagged by the gate:</b></p><ul>{items}</ul>")
+    return "".join(html)
+
+
+def run_diff_gen(master_path: str = ".") -> str:
+    """"Run Diff" tab: the perf doctor's ranked attribution table.
+
+    Env-gated like the Perf Ledger tab: rendered only when
+    ``ANOVOS_RUN_DIFF_BASELINE`` names a baseline run (a manifest file, a
+    run dir, or its obs dir) — an un-gated lookup would make report bytes
+    depend on external state and break golden parity.  The candidate is
+    this master path's own ``obs/run_manifest.json`` — which, like the
+    Run Timings tab, means the MOST RECENT COMPLETED run at this path:
+    the manifest is written after the whole run (the in-pipeline report
+    node renders before it exists, so a fresh output dir omits the tab;
+    a re-run into the same dir diffs the previous completed run, and the
+    split-job flow — a standalone report over an earlier job's
+    master_path — diffs exactly that job).  The tab labels the candidate
+    accordingly.  A refused pair (cross-backend-class) renders the
+    refusal LOUDLY instead of a thinner tab."""
+    base_spec = os.environ.get("ANOVOS_RUN_DIFF_BASELINE", "")
+    if not base_spec:
+        return ""
+    cand_path = os.path.join(master_path, "obs", "run_manifest.json")
+    if not os.path.exists(cand_path):
+        return ""
+    try:
+        from anovos_tpu_torch.obs.diffing import DiffRefused, diff_manifests, find_manifest
+
+        with open(find_manifest(base_spec)) as f:
+            baseline = json.load(f)
+        with open(cand_path) as f:
+            candidate = json.load(f)
+    except (OSError, json.JSONDecodeError, FileNotFoundError) as e:
+        logger.warning("run-diff inputs unreadable (%s); omitting tab", e)
+        return ""
+    html = ["<h3>Run Diff (perf doctor)</h3>"]
+    try:
+        diag = diff_manifests(baseline, candidate,
+                              baseline_label=base_spec,
+                              candidate_label="latest completed run here")
+    except DiffRefused as e:
+        return "".join(html + [
+            f"<p><b>Diff REFUSED:</b> {escape(str(e))}</p>"])
+    wall = diag.get("wall_delta_s")
+    import time as _time
+
+    gen = candidate.get("generated_unix")
+    gen_iso = (_time.strftime("%Y-%m-%dT%H:%M:%SZ", _time.gmtime(gen))
+               if isinstance(gen, (int, float)) else "unknown")
+    html.append(
+        "<p>Baseline <code>" + escape(str(base_spec)) + "</code> "
+        f"(config <code>{escape(str(diag['baseline'].get('config_hash', ''))[:12])}</code>) "
+        "vs the most recent <b>completed</b> run at this master path, "
+        f"generated <b>{escape(gen_iso)}</b> "
+        f"(config <code>{escape(str(diag['candidate'].get('config_hash', ''))[:12])}</code>"
+        " — like the Run Timings tab, an in-pipeline report describes the "
+        "previous completed run, not the run rendering it)"
+        + (f" — scheduler wall moved <b>{wall:+.3f}s</b>" if wall is not None else "")
+        + ".</p>")
+    attrs = diag.get("attributions") or []
+    if attrs:
+        html.append(_table_html(pd.DataFrame([
+            {"rank": a["rank"], "severity": a["severity"], "kind": a["kind"],
+             "subject": a["subject"], "delta_s": a.get("delta_s"),
+             "score": a.get("score"), "detail": a["detail"]}
+            for a in attrs
+        ]), "ranked attributions"))
+    else:
+        html.append("<p>No attributable movement — the runs are "
+                    "equivalent within noise.</p>")
+    nodes = diag.get("nodes") or {}
+    node_rows = [
+        {"node": name, "status": nd.get("status"),
+         "baseline_wall_s": (nd.get("wall_s") or [None, None])[0],
+         "candidate_wall_s": (nd.get("wall_s") or [None, None])[1],
+         "wall_delta_s": nd.get("wall_delta_s"),
+         "dominant_phase": nd.get("dominant_phase"),
+         "queue_wait_delta_s": nd.get("queue_wait_delta_s")}
+        for name, nd in nodes.items()
+    ]
+    if node_rows:
+        # None-safe |delta| sort: an all-added/removed node set leaves
+        # every wall_delta_s None, and Series.abs() on object-dtype None
+        # raises — rank unknowns last instead
+        node_df = pd.DataFrame(node_rows).sort_values(
+            "wall_delta_s",
+            key=lambda s: s.map(lambda v: abs(v)
+                                if isinstance(v, (int, float)) else -1.0),
+            ascending=False, na_position="last")
+        html.append(_table_html(node_df, "per-node movement (queue wait "
+                                         "reported, never booked as "
+                                         "regression)"))
+    return "".join(html)
+
+
 def degraded_tab() -> Optional[tuple]:
     """("Degraded Sections", html) when this run degraded a section or
     quarantined an input part, else None (a clean run's HTML is unchanged).
@@ -1492,6 +1616,12 @@ def anovos_report(
     timings_html = run_timings_gen(master_path)
     if timings_html:
         tabs.append(("Run Timings", timings_html))
+    ledger_html = perf_ledger_gen()
+    if ledger_html:
+        tabs.append(("Perf Ledger", ledger_html))
+    run_diff_html = run_diff_gen(master_path)
+    if run_diff_html:
+        tabs.append(("Run Diff", run_diff_html))
 
     nav = "".join(
         f"<button class=\"{'active' if i == 0 else ''}\" onclick='showTab({i})'>{escape(t)}</button>"

@@ -3,7 +3,13 @@
 
 n → 2n → n → k → n → 2n → n: Dense + BatchNorm + LeakyReLU(0.3) on every
 hidden layer, a linear bottleneck and output, Adam on the MSE, all in
-true f32 (TF32 off).  The BatchNorm is written out, not ``nn.BatchNorm1d``,
+true f32 (TF32 off) unless the compute dtype is bf16: then each dense
+layer's matmul takes bf16 inputs and accumulates in f32, and the bias add
+and everything after it stay f32.  The dtype resolves as the JAX model's
+does: the constructor's ``compute_dtype`` ("bf16" | "f32" | "auto"), else
+``ANOVOS_AE_COMPUTE``, else f32 (the JAX package's ``auto`` picks bf16 on
+a TPU only).  The knob changes the latents, so it is on the node cache's
+``KNOWN_ENV_KNOBS``.  The BatchNorm is written out, not ``nn.BatchNorm1d``,
 to keep the JAX model's numbers: ε = 1e-3, the *biased* batch variance
 both to normalize and in the running value, running update 0.99·old +
 0.01·batch.
@@ -28,7 +34,7 @@ import torch
 from torch import nn
 
 from anovos_tpu_torch.cache import capture
-from anovos_tpu_torch.ops.mxu import true_f32
+from anovos_tpu_torch.ops.mxu import mm, true_f32
 
 logger = logging.getLogger(__name__)
 
@@ -61,26 +67,52 @@ class _BatchNorm(nn.Module):
         return (h - mu) / torch.sqrt(var + BN_EPS) * self.scale + self.bias
 
 
+def resolve_compute_dtype(requested: str = "auto") -> Optional[torch.dtype]:
+    """``torch.bfloat16`` or None (f32).  The constructor's ``requested``
+    wins over ``ANOVOS_AE_COMPUTE``; ``auto`` in both is f32."""
+    req = (requested or "auto").lower()
+    if req == "auto":
+        req = os.environ.get("ANOVOS_AE_COMPUTE", "auto").lower()
+    return torch.bfloat16 if req in ("bf16", "bfloat16") else None
+
+
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T of the bf16 path: both inputs rounded to bf16, the products
+    (exact in f32) summed in IEEE f32 and the result f32, as the JAX
+    model's ``preferred_element_type=float32`` dot gives it.  The GEMM runs
+    on f32 tensors that hold the bf16 values, so autograd rounds each
+    input's gradient to bf16 as the JAX cast's transpose does."""
+    return mm(x, w.t(), bf16=True)
+
+
 class AENet(nn.Module):
     """The network; ``encode`` gives the bottleneck, ``forward`` the
-    reconstruction."""
+    reconstruction.  ``compute_dtype`` bf16 runs each dense layer through
+    :func:`bf16_matmul`."""
 
-    def __init__(self, n_inputs: int, n_bottleneck: int):
+    def __init__(self, n_inputs: int, n_bottleneck: int, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         n, k = n_inputs, n_bottleneck
         dims = {"enc1": (n, 2 * n), "enc2": (2 * n, n), "bottleneck": (n, k),
                 "dec1": (k, n), "dec2": (n, 2 * n), "out": (2 * n, n)}
         self.dense = nn.ModuleDict({name: nn.Linear(i, o) for name, (i, o) in dims.items()})
         self.bn = nn.ModuleDict({name: _BatchNorm(dims[name][1]) for name in _BN_LAYERS})
+        self.compute_dtype = compute_dtype
+
+    def _dense(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        lin = self.dense[name]
+        if self.compute_dtype is None:
+            return lin(x)
+        return bf16_matmul(x, lin.weight) + lin.bias
 
     def _block(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        return nn.functional.leaky_relu(self.bn[name](self.dense[name](x)), LEAKY_SLOPE)
+        return nn.functional.leaky_relu(self.bn[name](self._dense(x, name)), LEAKY_SLOPE)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dense["bottleneck"](self._block(self._block(x, "enc1"), "enc2"))
+        return self._dense(self._block(self._block(x, "enc1"), "enc2"), "bottleneck")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dense["out"](self._block(self._block(self.encode(x), "dec1"), "dec2"))
+        return self._dense(self._block(self._block(self.encode(x), "dec1"), "dec2"), "out")
 
 
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
@@ -120,10 +152,13 @@ class AutoEncoder:
     """n → 2n → n → k → n → 2n → n symmetric autoencoder; the fitted
     parameters are an :class:`AENet` on the data's device."""
 
-    def __init__(self, n_inputs: int, n_bottleneck: int, seed: int = 0):
+    def __init__(self, n_inputs: int, n_bottleneck: int, seed: int = 0, compute_dtype: str = "auto"):
         self.n_inputs = int(n_inputs)
         self.n_bottleneck = int(n_bottleneck)
         self.seed = seed
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        logger.info("autoencoder compute dtype resolved to %s (requested=%r)",
+                    "bfloat16+f32-accum" if self.compute_dtype is not None else "float32", compute_dtype)
         # per epoch of the last fit: training MSE of its last step and,
         # with validation data, the validation MSE after it
         self.history: List[dict] = []
@@ -133,7 +168,7 @@ class AutoEncoder:
         """He-normal weights (σ = √(2 / n_in)) from ``torch.Generator``
         seeded with ``seed``, zero biases, BatchNorm scale 1, bias 0, mean
         0, var 1."""
-        net = AENet(self.n_inputs, self.n_bottleneck)
+        net = AENet(self.n_inputs, self.n_bottleneck, self.compute_dtype)
         gen = torch.Generator().manual_seed(self.seed)
         with torch.no_grad():
             for name in _LAYERS:
@@ -144,7 +179,7 @@ class AutoEncoder:
         return net.to(device) if device is not None else net
 
     def net_from_state(self, state_dict: Dict[str, torch.Tensor], device=None) -> AENet:
-        net = AENet(self.n_inputs, self.n_bottleneck)
+        net = AENet(self.n_inputs, self.n_bottleneck, self.compute_dtype)
         net.load_state_dict(state_dict)
         return net.to(device) if device is not None else net
 

@@ -15,16 +15,28 @@
 * **Device-time attribution** (``obs.devprof``): each scheduler node's
   wall split into device, dispatch, transfer and host time, with exact
   h2d/d2h bytes.
-* **Flight ring** (``obs.flight``) and **heartbeats** (``obs.telemetry``).
+* **Flight recorder** (``obs.flight``): a ring of lifecycle events, and
+  a synchronous postmortem ``obs/flightrec_<node>.json`` at a fatal
+  error, a watchdog escalation, an abandonment or a fatal timeout.
+* **The live plane** (``obs.telemetry``): ``/metrics`` (the registry's
+  Prometheus text, ``MetricsRegistry.expose_text``), ``/healthz`` and
+  ``/statusz`` on 127.0.0.1 under ``ANOVOS_TPU_TELEMETRY=<port>``, with
+  service heartbeats and rolling SLO windows.
+* **Perf doctor** (``obs.diffing``, also ``python -m
+  anovos_tpu_torch.obs.diffing``): two manifests or two perf-ledger
+  entries (``obs.ledger``) in, one ranked diagnosis out; ``/statusz`` and
+  every dump carry its live comparison with the previous run.
 
 Recording is always on; trace-file export is gated by
-``ANOVOS_TPU_TRACE=<path|1>``, attribution by ``ANOVOS_TPU_DEVPROF``, a
-``torch.profiler`` trace of ``workflow.run`` by ``ANOVOS_PROFILE=<dir>``.
-Not ported: the compile census (an XLA compile counter), the Prometheus
-exposition, trace rotation, flight dumps, the telemetry HTTP plane and
-the perf doctor (ROADMAP.md Queue A item 2).
+``ANOVOS_TPU_TRACE=<path|1>``, its rotation into segments by
+``ANOVOS_TPU_TRACE_ROTATE``, attribution by ``ANOVOS_TPU_DEVPROF``, the
+flight recorder by ``ANOVOS_TPU_FLIGHTREC``, a ``torch.profiler`` trace
+of ``workflow.run`` by ``ANOVOS_PROFILE=<dir>``.  Not ported: the compile
+census (an XLA compile counter).
 """
 
+# obs.diffing and obs.ledger are imported where they are used: the package
+# must not hold diffing already when ``python -m`` runs it as __main__
 from anovos_tpu_torch.obs import devprof, flight, telemetry
 from anovos_tpu_torch.obs.manifest import (
     MANIFEST_VERSION,
@@ -48,8 +60,11 @@ from anovos_tpu_torch.obs.metrics import (
 from anovos_tpu_torch.obs.timed import timed
 from anovos_tpu_torch.obs.tracing import (
     Span,
+    TraceRotator,
     Tracer,
     get_tracer,
+    maybe_rotator,
+    rotation_spec,
     span,
     trace_destination,
     write_chrome_trace,
@@ -76,8 +91,11 @@ __all__ = [
     "record_device_memory",
     "timed",
     "Span",
+    "TraceRotator",
     "Tracer",
     "get_tracer",
+    "maybe_rotator",
+    "rotation_spec",
     "span",
     "trace_destination",
     "write_chrome_trace",

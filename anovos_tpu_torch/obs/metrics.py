@@ -13,9 +13,10 @@ Labels are kwargs at observation time (``counter.inc(1, block="ETL")``);
 each distinct label combination is an independent series.  The node
 cache books ``cache_hits_total``, ``cache_misses_total`` and
 ``cache_restore_seconds`` in the scheduler and the store's footprint
-through :func:`record_cache_stats`.  The JAX package's Prometheus text
-exposition waits for its first reader, the live plane (ROADMAP.md Queue A
-item 2).
+through :func:`record_cache_stats`.  ``expose_text()`` renders the
+registry in the Prometheus text format, byte for byte as the JAX
+package's does for the same instrument calls; the live plane's
+``/metrics`` serves it (``obs/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import os
 import sys
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_metrics",
            "memory_by_device", "record_cache_stats", "record_device_memory"]
@@ -46,6 +47,11 @@ def _escape_label_value(v: str) -> str:
     return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
 
+def _escape_help(h: str) -> str:
+    """HELP text escaping per the exposition format (backslash, newline)."""
+    return h.replace("\\", "\\\\").replace("\n", "\\n")
+
+
 def _label_str(key: Tuple[Tuple[str, str], ...]) -> str:
     return ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in key)
 
@@ -64,6 +70,14 @@ class _Instrument:
         for histograms, dicts)."""
         with self._lock:
             return {_label_str(k): self._export(v) for k, v in sorted(self._series.items())}
+
+    def remove(self, **labels) -> bool:
+        """Drop one label series (True if it existed): for live-state
+        gauges whose subject can go away (a cleared heartbeat, a finished
+        run's executor depth), which would otherwise scrape as fresh
+        forever.  Counters never use it: they are monotonic."""
+        with self._lock:
+            return self._series.pop(_label_key(labels), None) is not None
 
     def _export(self, v):
         return round(float(v), 6)
@@ -159,6 +173,12 @@ class MetricsRegistry:
                                 f"requested {cls.kind}")
             return inst
 
+    def peek(self, name: str) -> Optional[_Instrument]:
+        """The registered instrument, or None; never creates one (a cleanup
+        path must not add an empty family to the snapshot)."""
+        with self._lock:
+            return self._metrics.get(name)
+
     def counter(self, name: str, help: str = "") -> Counter:
         return self._get(name, Counter, help)
 
@@ -175,6 +195,29 @@ class MetricsRegistry:
             metrics = list(self._metrics.items())
         return {name: {"type": inst.kind, "help": inst.help, "series": inst.series()}
                 for name, inst in sorted(metrics)}
+
+    def expose_text(self) -> str:
+        """The Prometheus text exposition: families sorted by name, series
+        sorted by labels, histograms as cumulative ``_bucket`` lines with
+        ``_count`` and ``_sum``."""
+        lines: List[str] = []
+        for name, m in sorted(self.snapshot().items()):
+            if m["help"]:
+                lines.append(f"# HELP {name} {_escape_help(m['help'])}")
+            lines.append(f"# TYPE {name} {m['type']}")
+            for labels, v in m["series"].items():
+                lbl = "{" + labels + "}" if labels else ""
+                if m["type"] == "histogram":
+                    cum = 0
+                    for bound, c in v["buckets"]:
+                        cum += c
+                        le = (labels + "," if labels else "") + f'le="{bound}"'
+                        lines.append(f"{name}_bucket{{{le}}} {cum}")
+                    lines.append(f"{name}_count{lbl} {v['count']}")
+                    lines.append(f"{name}_sum{lbl} {v['sum']}")
+                else:
+                    lines.append(f"{name}{lbl} {v}")
+        return "\n".join(lines) + "\n"
 
     def reset(self) -> None:
         """Drop every instrument (``workflow.main``: per-run accounting)."""

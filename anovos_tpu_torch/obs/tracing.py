@@ -21,8 +21,12 @@ checked against the scheduler's reported wall time.  These are host
 walls: kernels that a span's body enqueues on a CUDA stream may still run
 after the span closes (``ANOVOS_PROFILE`` gives the device's own trace).
 
-Trace rotation (``TraceRotator``, ``ANOVOS_TPU_TRACE_ROTATE``) waits for
-the live plane (ROADMAP.md Queue A item 2).
+Trace rotation (``ANOVOS_TPU_TRACE_ROTATE``): a :class:`TraceRotator`
+exports and clears the ring into numbered segments (``trace_0001.json``,
+...) on wall time or span count, from a thread named
+``anovos-torch-trace-rotator``.  ``Tracer.drain`` keeps the epoch, so the
+segments share one timeline and their union equals one uninterrupted
+export; a failed segment export puts its spans back (``requeue``).
 """
 
 from __future__ import annotations
@@ -34,11 +38,18 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 logger = logging.getLogger("anovos_tpu_torch.obs.tracing")
 
-__all__ = ["Span", "Tracer", "buffer_size", "get_tracer", "span", "trace_destination", "write_chrome_trace"]
+__all__ = ["Span", "TraceRotator", "Tracer", "buffer_size", "get_tracer", "maybe_rotator", "rotation_spec", "span",
+           "trace_destination", "write_chrome_trace"]
+
+# the rotator's thread; never the JAX package's name (anovos-trace-rotator),
+# so a process running both packages can tell them apart
+ROTATOR_THREAD = "anovos-torch-trace-rotator"
+_DROPPED_HELP = ("spans evicted from the tracer ring at maxlen (raise "
+                 "ANOVOS_TPU_TRACE_BUFFER or enable ANOVOS_TPU_TRACE_ROTATE)")
 
 # ring bound: ~200k spans is tens of MB of export, far beyond a
 # configs_full run (hundreds of spans) but a hard cap for a long-lived
@@ -148,14 +159,11 @@ class Tracer:
             # missing its start
             from anovos_tpu_torch.obs.metrics import get_metrics
 
-            get_metrics().counter(
-                "trace_spans_dropped_total",
-                "spans evicted from the tracer ring at maxlen (raise "
-                "ANOVOS_TPU_TRACE_BUFFER)",
-            ).inc()
+            get_metrics().counter("trace_spans_dropped_total", _DROPPED_HELP).inc()
             if warn:
                 logger.warning("tracer ring wrapped at maxlen=%d — older spans are being "
-                               "dropped; raise ANOVOS_TPU_TRACE_BUFFER", self._spans.maxlen)
+                               "dropped; raise ANOVOS_TPU_TRACE_BUFFER or set "
+                               "ANOVOS_TPU_TRACE_ROTATE to export-and-clear segments", self._spans.maxlen)
 
     # -- reading / lifecycle --------------------------------------------
     def snapshot(self) -> List[Span]:
@@ -185,6 +193,31 @@ class Tracer:
             self._dropped = 0
             self._warned_wrap = False
             self._epoch_ns = time.perf_counter_ns()
+
+    def drain(self) -> List[Span]:
+        """Copy and clear the ring in one step WITHOUT re-basing the epoch:
+        rotation's primitive, so successive drains partition one timeline."""
+        with self._lock:
+            out = list(self._spans)
+            self._spans.clear()
+        return out
+
+    def requeue(self, spans: List[Span]) -> None:
+        """Put drained spans back at the FRONT of the ring (a failed segment
+        export must not lose them).  What passes the bound falls off the
+        old end and is booked as dropped, as the ring itself would."""
+        with self._lock:
+            merged = list(spans) + list(self._spans)
+            self._spans.clear()
+            bound = self._spans.maxlen or len(merged)
+            overflow = len(merged) - bound
+            if overflow > 0:
+                self._dropped += overflow
+            self._spans.extend(merged[-bound:])
+        if overflow > 0:
+            from anovos_tpu_torch.obs.metrics import get_metrics
+
+            get_metrics().counter("trace_spans_dropped_total", _DROPPED_HELP).inc(overflow)
 
     # -- export ----------------------------------------------------------
     def to_chrome(self, spans: Optional[Iterable[Span]] = None) -> dict:
@@ -267,3 +300,138 @@ def trace_destination(default_dir: str = ".") -> Optional[str]:
 def write_chrome_trace(path: str) -> str:
     """Export the process-wide tracer's ring to ``path``."""
     return _TRACER.export(path)
+
+
+# ---------------------------------------------------------------------------
+# trace segment rotation (ANOVOS_TPU_TRACE_ROTATE)
+# ---------------------------------------------------------------------------
+
+def rotation_spec() -> Optional[Tuple[str, float]]:
+    """``ANOVOS_TPU_TRACE_ROTATE`` parsed to ``("secs", s)`` or
+    ``("spans", n)``, or None when off.  A value with an ``s`` suffix
+    rotates on wall time (``"30s"``, ``"1.5s"``), a bare integer when the
+    ring holds that many spans; ``0``, unset or garbage is off (garbage
+    warns)."""
+    raw = os.environ.get("ANOVOS_TPU_TRACE_ROTATE", "").strip().lower()
+    if not raw or raw in ("0", "false", "off"):
+        return None
+    try:
+        if raw.endswith("s") and raw[:-1]:
+            secs = float(raw[:-1])
+            return ("secs", secs) if secs > 0 else None
+        n = int(raw)
+        return ("spans", float(n)) if n > 0 else None
+    except ValueError:
+        logger.warning("ANOVOS_TPU_TRACE_ROTATE=%r is neither '<secs>s' nor "
+                       "a span count; rotation off", raw)
+        return None
+
+
+class TraceRotator:
+    """Periodic export-and-clear of the tracer ring into numbered
+    Chrome-trace segments next to ``dest`` (``trace.json`` →
+    ``trace_0001.json``, ...), so a long service run keeps a complete trace
+    bounded on disk.  With ``submit`` (the run's ``AsyncArtifactWriter``)
+    the segment writes ride the async queue under one key; otherwise they
+    are written on the rotator's own thread.  :meth:`close` stops and
+    joins the thread and flushes the last segment."""
+
+    def __init__(self, dest: str, tracer: Optional[Tracer] = None,
+                 spec: Optional[Tuple[str, float]] = None, submit=None):
+        self.dest = dest
+        self.tracer = tracer or get_tracer()
+        self.spec = spec if spec is not None else rotation_spec()
+        self.submit = submit
+        self.segments: List[str] = []
+        self._n = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    @property
+    def active(self) -> bool:
+        return self.spec is not None
+
+    def segment_path(self, n: int) -> str:
+        base = self.dest[:-5] if self.dest.endswith(".json") else self.dest
+        return f"{base}_{n:04d}.json"
+
+    def start(self) -> "TraceRotator":
+        if not self.active or self._thread is not None:
+            return self
+        kind, val = self.spec
+        poll = min(1.0, val / 4.0) if kind == "secs" else 0.25
+        self._thread = threading.Thread(target=self._loop, args=(max(poll, 0.05),),
+                                        name=ROTATOR_THREAD, daemon=True)
+        self._thread.start()
+        return self
+
+    def _loop(self, poll: float) -> None:
+        while not self._stop.wait(poll):
+            try:
+                self.maybe_rotate()
+            except Exception:
+                logger.exception("trace segment export failed; spans requeued into the ring, "
+                                 "retrying next period")
+
+    def _due(self) -> bool:
+        kind, val = self.spec
+        if kind == "secs":
+            return time.monotonic() - self._last >= val
+        return self.tracer.span_count() >= val
+
+    def maybe_rotate(self, force: bool = False) -> Optional[str]:
+        """Export and clear one segment when due (or ``force``); returns its
+        path, or None when nothing rotated.  A failed direct export
+        requeues the drained spans and records no segment."""
+        if not self.active:
+            return None
+        with self._lock:
+            if not force and not self._due():
+                return None
+            self._last = time.monotonic()
+            spans = self.tracer.drain()
+            if not spans:
+                return None
+            self._n += 1
+            path = self.segment_path(self._n)
+        if self.submit is not None:
+            # one writer key for every segment: a key per segment would add
+            # an artifact_writes_total series per rotation
+            self.submit("obs:trace_seg", self.tracer.export, path, spans)
+        else:
+            try:
+                self.tracer.export(path, spans)
+            except Exception:
+                with self._lock:
+                    self._n -= 1
+                self.tracer.requeue(spans)
+                raise
+        with self._lock:
+            self.segments.append(path)
+        return path
+
+    def close(self) -> List[str]:
+        """Stop and join the thread, flush the final segment; returns every
+        segment path written.  Idempotent."""
+        if not self.active:
+            return []
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=10)
+        self.maybe_rotate(force=True)
+        return list(self.segments)
+
+
+def maybe_rotator(default_dir: str, submit=None, tracer: Optional[Tracer] = None) -> Optional[TraceRotator]:
+    """A started :class:`TraceRotator` when ``ANOVOS_TPU_TRACE_ROTATE`` is
+    set, else None (no thread).  Rotation implies export: the segments
+    take their names from ``ANOVOS_TPU_TRACE``'s path when it is set, else
+    from ``<default_dir>/obs/trace.json``."""
+    spec = rotation_spec()
+    if spec is None:
+        return None
+    dest = trace_destination(default_dir) or os.path.join(default_dir, "obs", "trace.json")
+    return TraceRotator(dest, tracer=tracer, spec=spec, submit=submit).start()

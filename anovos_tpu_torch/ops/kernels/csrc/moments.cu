@@ -77,7 +77,8 @@ __device__ __forceinline__ Mom empty_mom() {
 
 // One step of 16 values into the thread's running moments.  When the
 // running moments are empty, the step's first valid value becomes the
-// reference.  No branch: an empty step leaves the moments as they were.
+// reference.  No branch: an empty step leaves n, the mean and M2 as they
+// were.
 __device__ __forceinline__ void push_step(Mom& a, const Step& s) {
   float cnt = 0.f, first = 0.f;
 #pragma unroll
@@ -118,7 +119,12 @@ __device__ __forceinline__ void push_step(Mom& a, const Step& s) {
   const float a2 = a.m2, a3 = a.m3;
   a.n = n;
   a.mean += dl * fb;
-  a.m2 = a2 + m2 + dl2 * w;
+  // w = 0 when either side is empty: no cross term then, also where dl²
+  // passes the f32 maximum (inf · 0 would turn an overflowed M2 into NaN,
+  // where the plain version and the JAX package keep inf).  The merge's
+  // own expression is kept whole (the compiler fuses it into an FMA), so a
+  // finite dl² gives the same bits as before
+  a.m2 = w > 0.f ? a2 + m2 + dl2 * w : a2 + m2;
   a.m3 = a3 + m3 + dl2 * dl * w * (fa - fb) + 3.f * dl * (fa * m2 - fb * a2);
   a.m4 = a.m4 + m4 + dl2 * dl2 * w * (fa * fa - fa * fb + fb * fb) +
          6.f * dl2 * (fa * fa * m2 + fb * fb * a2) + 4.f * dl * (fa * m3 - fb * a3);

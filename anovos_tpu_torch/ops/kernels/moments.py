@@ -18,7 +18,11 @@ BIG = 3.4e38
 
 def _chan_merge(acc, tile):
     """The Pallas kernel's merge of one tile into the running accumulator,
-    operation for operation."""
+    operation for operation, except that an empty tile (nb = 0) leaves the
+    accumulator as it is.  Merging it would give the same bits, but for an
+    overflowed M2: there δ²·na passes the f32 maximum and inf · nb = NaN,
+    where the XLA path (``ops/reductions``, the JAX package's default)
+    keeps inf."""
     na, nb = acc[0], tile[0]
     n = na + nb
     s = torch.clamp_min(n, 1.0)
@@ -32,8 +36,9 @@ def _chan_merge(acc, tile):
           + (delta * delta) * (delta * delta) * na * nb * (na * na - na * nb + nb * nb) / (s * s * s)
           + 6 * (delta * delta) * (na * na * tile[2] + nb * nb * acc[2]) / (s * s)
           + 4 * delta * (na * tile[3] - nb * acc[3]) / s)
-    return torch.stack([n, mean, M2, M3, M4, torch.minimum(acc[5], tile[5]),
-                        torch.maximum(acc[6], tile[6]), acc[7] + tile[7]])
+    merged = torch.stack([n, mean, M2, M3, M4, torch.minimum(acc[5], tile[5]),
+                          torch.maximum(acc[6], tile[6]), acc[7] + tile[7]])
+    return torch.where(nb > 0, merged, acc)
 
 
 def masked_moments_plain(Xc: torch.Tensor, Mc: torch.Tensor) -> torch.Tensor:

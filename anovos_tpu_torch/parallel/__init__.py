@@ -2,8 +2,8 @@
 placement declarations (``placement``) and the dependency-aware DAG
 scheduler with its worker pool, watchdog and CUDA streams
 (``scheduler``).  The JAX package's mesh and collective helpers serve
-multi-device runs, which the port does not have yet (ROADMAP.md Queue A
-item 4)."""
+multi-device runs, which the port does not have yet (ROADMAP.md Queue A,
+multi-device)."""
 
 from anovos_tpu_torch.parallel.placement import Placement, parse_placement
 from anovos_tpu_torch.parallel.scheduler import (

@@ -14,7 +14,7 @@ The port runs on one card, so ``mesh``, ``submesh:N`` and ``device`` all
 mean that card, and the scheduler holds no device leases: it only tells
 a device node (which runs on a CUDA stream of its own) from a host node
 (which takes no stream).  The multi-device lanes that read the rest of
-the declaration are ROADMAP.md Queue A item 4.
+the declaration are ROADMAP.md Queue A, multi-device.
 """
 
 from __future__ import annotations

@@ -74,10 +74,21 @@ time, so one block's device compute overlaps another's host work.
   measured critical path (longest dependency chain by wall time), the
   serial seconds, the parallel speedup and the ``cache`` counts
   (``enabled``, ``hits``, ``misses``, ``restore_s``, ``uncacheable``).
+* **Live view and postmortems.**  :meth:`DagScheduler.live_state` gives
+  the in-flight nodes (state, attempts, elapsed wall, lane, deps) and the
+  ready-queue depth, read without the scheduler's lock.  For the run's
+  length it is the ``scheduler`` provider of the telemetry plane
+  (``/statusz``, and the ``scheduler_inflight_nodes`` and
+  ``scheduler_ready_queue_depth`` gauges of ``/metrics``), and the flight
+  recorder (``obs/flight.py``, armed by ``workflow.main``) dumps it at a
+  raise-mode node's fatal error, a watchdog escalation, an abandonment and
+  a fatal timeout, each dump outside the scheduler's lock.
 
-The JAX executor's flight dumps and telemetry gauges (ROADMAP.md Queue A
-item 2), backend failover (item 3) and multi-device lanes (item 4) are
-not ported: nothing here stands in for them.
+The JAX executor's two ``backend_failover`` dumps wait for the backend
+failover (ROADMAP.md Queue A, backend failover), and its lanes, with the
+rendezvous holders a dump names, for multi-device (Queue A,
+multi-device): nothing here stands in for them, so ``rendezvous_holders``
+is always empty.
 """
 
 from __future__ import annotations
@@ -91,7 +102,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 
 from anovos_tpu_torch.cache import capture
 from anovos_tpu_torch.cache.fingerprint import digest
-from anovos_tpu_torch.obs import devprof, get_metrics, get_tracer
+from anovos_tpu_torch.obs import devprof, flight, get_metrics, get_tracer, telemetry
 from anovos_tpu_torch.parallel.placement import Placement, parse_placement
 from anovos_tpu_torch.resilience.policy import ErrorPolicy, parse_policy
 
@@ -231,6 +242,8 @@ class DagScheduler:
         self._drain_device = None    # the card, when sequential nodes drain
         self._devprof_drain = True   # book drains as device time
         self._worker = threading.local()  # each worker thread's slot
+        self._running: Dict[str, Node] = {}  # the live view's in-flight nodes
+        self._ready_view: Optional[List[Node]] = None
 
     # -- registration ----------------------------------------------------
     def add(
@@ -322,23 +335,73 @@ class DagScheduler:
 
         rt = peek_runtime()  # never pick a device just to run a graph
         card = rt.device if rt is not None and rt.device.type == "cuda" else None
-        if mode == "sequential":
-            workers = 1
-            self._device = None
-            self._drain_device = card if devprof.enabled() else None
-            self._run_sequential()
-        else:
-            workers = min(max_workers or default_workers(), max(len(self._nodes), 1))
-            self._device = card
-            self._drain_device = None
-            if self._device is not None:
-                import torch
+        # the live plane reads this run's view (one dict insert; nothing
+        # runs unless a scrape comes)
+        telemetry.register_provider("scheduler", statusz=self.live_state, metrics=self._telemetry_gauges)
+        try:
+            if mode == "sequential":
+                workers = 1
+                self._device = None
+                self._drain_device = card if devprof.enabled() else None
+                self._run_sequential()
+            else:
+                workers = min(max_workers or default_workers(), max(len(self._nodes), 1))
+                self._device = card
+                self._drain_device = None
+                if self._device is not None:
+                    import torch
 
-                # what the caller queued (the ingested table) lands before
-                # a worker's stream reads it
-                torch.cuda.synchronize(self._device)
-            self._run_concurrent(workers, node_timeout)
+                    # what the caller queued (the ingested table) lands
+                    # before a worker's stream reads it
+                    torch.cuda.synchronize(self._device)
+                self._run_concurrent(workers, node_timeout)
+        finally:
+            telemetry.unregister_provider("scheduler")
+            # a finished run's depth gauges must not scrape as live
+            for fam in ("scheduler_inflight_nodes", "scheduler_ready_queue_depth"):
+                inst = get_metrics().peek(fam)
+                if inst is not None:
+                    inst.remove()
         return self._summary(time.monotonic() - t0, mode, workers)
+
+    def live_state(self) -> dict:
+        """The executor's live view: in-flight nodes (state, attempts,
+        escalated, elapsed wall, thread, lane, devices, deps), the
+        ready-queue depth and the rendezvous holders (none: one card).  It
+        reads the running and ready views without the scheduler's lock, so
+        a scrape or a dump never stalls the pool."""
+        now = time.monotonic()
+        inflight = [{"node": n.name, "state": n.state, "attempts": n.attempts, "escalated": n.escalated,
+                     "elapsed_s": round(now - n.attempt_start, 3) if n.attempt_start else None,
+                     "thread": n.thread, "lane": n.placement.describe(), "devices": [],
+                     "deps": [d.name for d in n.deps]}
+                    for n in list(self._running.values())]
+        try:
+            queue_depth = len(self._ready_view) if self._ready_view is not None else 0
+        except Exception:
+            queue_depth = None
+        return {"inflight": inflight, "queue_depth": queue_depth, "rendezvous_holders": []}
+
+    def _telemetry_gauges(self, reg) -> None:
+        """The scrape-time executor gauges of ``/metrics``."""
+        state = self.live_state()
+        reg.gauge("scheduler_inflight_nodes", "nodes currently executing in the DAG scheduler"
+                  ).set(float(len(state["inflight"])))
+        reg.gauge("scheduler_ready_queue_depth", "nodes ready to run but not yet claimed by a worker"
+                  ).set(float(state["queue_depth"] or 0))
+
+    def _flight_dump(self, trigger: str, node: Optional[Node] = None, extra: Optional[dict] = None) -> None:
+        """The postmortem hook: a no-op unless ``workflow.main`` armed the
+        flight recorder; reads the live view without the scheduler's lock."""
+        try:
+            if not flight.enabled():
+                return
+            state = self.live_state()
+            flight.dump(trigger, node=node.name if node is not None else "", inflight=state["inflight"],
+                        queue_depth=state["queue_depth"], rendezvous_holders=state["rendezvous_holders"],
+                        extra=extra)
+        except Exception:
+            logger.exception("flight-recorder dump (%s) failed", trigger)
 
     def _node_scope(self, node: Node):
         """The worker's CUDA stream for a device node in a concurrent run
@@ -392,6 +455,9 @@ class DagScheduler:
                                  node.name, node.on_error)
             else:
                 node.state = "failed"
+                # the run is about to abort: the postmortem now, while the
+                # in-flight state still exists
+                self._flight_dump("fatal_error", node, extra={"error": repr(e)[:300]})
                 raise
         finally:
             node.end = time.monotonic()
@@ -470,6 +536,11 @@ class DagScheduler:
         if self.journal is not None:
             self.journal.append("node_retry", node=node.name, kind=kind, attempt=node.attempts,
                                 error=repr(exc)[:300])
+        else:
+            # without a journal the retry still reaches the flight recorder's
+            # ring, in the shape a journal append records it
+            flight.record("journal", event="node_retry", node=node.name, kind=kind, attempt=node.attempts,
+                          error=repr(exc)[:300])
         logger.warning("node %r attempt %d failed (%r); re-executing (%s)",
                        node.name, node.attempts, exc, kind)
 
@@ -575,14 +646,22 @@ class DagScheduler:
             logger.exception("cache commit for node %r failed; run continues uncached", node.name)
 
     def _run_sequential(self) -> None:
+        self._running.clear()
+        self._ready_view = None
         for node in self._nodes:
             node.ready = time.monotonic()  # no pool: ready == start
-            self._execute(node)
+            self._running[node.name] = node
+            try:
+                self._execute(node)
+            finally:
+                self._running.pop(node.name, None)
 
     def _run_concurrent(self, max_workers: int, node_timeout: float) -> None:
         cv = threading.Condition()
         ready: List[Node] = []
-        running: Dict[str, Node] = {}
+        self._running.clear()
+        running: Dict[str, Node] = self._running  # the live view reads it
+        self._ready_view = ready
         state = {"stop": False, "fatal": None, "done": 0, "spawned": 0}
         total = len(self._nodes)
         t_ready0 = time.monotonic()
@@ -685,6 +764,7 @@ class DagScheduler:
                     continue
                 now = time.monotonic()
                 expired: Optional[Node] = None
+                pending_dumps = []
                 for node in list(running.values()):
                     factor = node.policy.timeout_factor if node.escalated else 1.0
                     if now - node.attempt_start <= node_timeout * factor:
@@ -707,9 +787,22 @@ class DagScheduler:
                             "attempt and escalating once to %.1fs before the "
                             "error policy applies", node.name, node_timeout,
                             node_timeout * node.policy.timeout_factor)
+                        # the first sign of a hang: if the escalated bound
+                        # blows too, this evidence is already on disk
+                        pending_dumps.append(("timeout_escalation", node,
+                                              {"bound_s": round(node_timeout, 3),
+                                               "factor": node.policy.timeout_factor}))
                         continue
                     expired = node
                     break
+                if pending_dumps:
+                    cv.release()  # a dump writes a file: never under the lock
+                    try:
+                        for trig, dnode, extra in pending_dumps:
+                            self._flight_dump(trig, dnode, extra=extra)
+                    finally:
+                        cv.acquire()
+                    continue  # re-scan: the state may have moved meanwhile
                 if expired is None:
                     continue
                 reason = (
@@ -721,10 +814,22 @@ class DagScheduler:
                 if expired.policy.mode == "retry" and expired.policy.on_exhausted == "degrade":
                     abandon(expired, reason)
                     cv.notify_all()
+                    cv.release()  # the run goes on: dump without stalling it
+                    try:
+                        self._flight_dump("node_abandoned", expired, extra={"reason": reason})
+                    finally:
+                        cv.acquire()
                     continue
                 state["stop"] = True
                 state["fatal"] = NodeTimeout(reason)
                 cv.notify_all()
+                # outside the lock on the fatal path too: a stalled disk must
+                # not turn the abort into a hang (stop is already signalled)
+                cv.release()
+                try:
+                    self._flight_dump("fatal_timeout", expired, extra={"reason": reason})
+                finally:
+                    cv.acquire()
                 break
         for n in self._nodes:
             if n.state in ("pending", "claimed"):

@@ -1,7 +1,8 @@
 """Fault injection and error policy of the port (counterpart of
 ``anovos_tpu/resilience``): the seeded chaos harness (``chaos``) and the
 retry/backoff policy with the degradation registry (``policy``).  The
-JAX package's mid-run failover is not ported (ROADMAP.md Queue A item 3).
+JAX package's mid-run failover is not ported (ROADMAP.md Queue A, backend
+failover).
 """
 
 from anovos_tpu_torch.resilience import chaos, policy

@@ -60,7 +60,7 @@ a step right after a partition's fold committed, the window a resume
 must cover) and the scheduler's ``node:<name>``, visited before each
 attempt of a node (``exc`` and ``hang`` fire there; a hang waits on the
 attempt's interrupt, which the watchdog sets).  The port has no backend
-failover yet (ROADMAP.md Queue A item 3), which is what gives ``wedge``
+failover yet (ROADMAP.md Queue A, backend failover), which gives ``wedge``
 its outcome (a flip to the CPU and a clean re-run), so :func:`install`
 refuses a plan with a ``wedge`` directive instead of ignoring it.  Every
 injection also lands in the flight recorder's ring (``obs/flight.py``).
@@ -248,7 +248,7 @@ def install(spec: Optional[str]) -> Optional[ChaosPlan]:
         raise NotImplementedError(
             f"{ENV_KNOB}={spec!r} asks for a backend wedge, whose outcome is the "
             "backend failover, which is not ported to anovos_tpu_torch yet; "
-            "see ROADMAP.md Queue A item 3")
+            "see ROADMAP.md Queue A, backend failover")
     _PLAN = plan
     logger.warning(
         "CHAOS plan active (%s): %d directive(s), seed=%d — injected faults "

@@ -22,7 +22,7 @@ class Runtime:
     @property
     def n_devices(self) -> int:
         """Devices the runtime computes on: always one (the JAX runtime's
-        mesh size; multi-device is ROADMAP.md Queue A item 4)."""
+        mesh size; multi-device is ROADMAP.md Queue A, multi-device)."""
         return 1
 
 

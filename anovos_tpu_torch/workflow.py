@@ -37,8 +37,7 @@ each node), resets the degradation registry and the ingest guard, and
 points the guard's quarantine manifest at ``<master_path or write_main
 path>/obs``.  :func:`main` and :func:`run` raise ``NotImplementedError``
 on a knob of a layer the port does not have yet
-(``obs/telemetry.UNPORTED_KNOBS``: the telemetry plane, failover and
-multi-device knobs).
+(``obs/telemetry.UNPORTED_KNOBS``: the failover and multi-device knobs).
 
 The run record, as in the JAX runner: every run resets the metrics
 registry, the tracer (whose ring ``ANOVOS_TPU_TRACE_BUFFER`` bounds) and
@@ -49,7 +48,12 @@ record) through the async writer after the last node;
 tracer's Chrome trace (``1``: ``obs/trace.json``), also when the run
 fails.  :func:`run` under ``ANOVOS_PROFILE=<dir>`` records a
 ``torch.profiler`` trace of the whole run (CPU and CUDA activity on the
-card) into ``<dir>``, with each node's kernels under its name.
+card) into ``<dir>``, with each node's kernels under its name.  Around
+the scheduled run :func:`main` holds the live plane
+(``ANOVOS_TPU_TELEMETRY=<port>``: ``/metrics``, ``/healthz``,
+``/statusz``) and the trace rotator (``ANOVOS_TPU_TRACE_ROTATE``, whose
+segments ride the async writer), and arms the flight recorder, whose
+dumps the manifest names under ``resilience.flight_dumps``.
 
 ``resume=True`` resumes the ``streaming_analysis`` passes from their
 chunk checkpoints (``obs/stream_ckpt/<sub-analysis>``); without
@@ -126,7 +130,7 @@ from anovos_tpu_torch.feature_store import feast_exporter
 from anovos_tpu_torch.obs import devprof, flight, get_metrics, get_tracer, telemetry
 from anovos_tpu_torch.obs.manifest import build_manifest, config_hash, write_manifest
 from anovos_tpu_torch.obs.metrics import record_cache_stats, record_device_memory
-from anovos_tpu_torch.obs.tracing import buffer_size, trace_destination, write_chrome_trace
+from anovos_tpu_torch.obs.tracing import buffer_size, maybe_rotator, trace_destination, write_chrome_trace
 from anovos_tpu_torch.parallel.scheduler import DagScheduler, available_cpus
 from anovos_tpu_torch.resilience import chaos
 from anovos_tpu_torch.resilience import policy as res_policy
@@ -682,8 +686,9 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     trace_dest = trace_destination(obs_root)
     manifest_path = os.path.abspath(os.path.join(obs_dir, "run_manifest.json"))
     ingest_guard.configure(obs_dir)
-    # a fresh flight-recorder ring per run (the continuum's alerts carry
-    # its tail)
+    # arm the flight recorder: a fresh ring (the continuum's alerts carry
+    # its tail), dumps into obs/, and the previous run's manifest there as
+    # the perf doctor's baseline, read before this run overwrites it
     flight.configure(obs_dir)
 
     # executor: ANOVOS_TPU_EXECUTOR wins; else concurrent wherever a second
@@ -1022,6 +1027,10 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
             # parts quarantined from here on also land in the journal
             ingest_guard.set_journal(journal)
             cache_capture.install_open_hook()
+        # the live plane and trace rotation, both off by default (no
+        # thread); acquired right before the try whose finally releases them
+        telemetry_handle = telemetry.acquire(context="workflow")
+        trace_rotator = maybe_rotator(obs_root, submit=writer.submit)
         run_err = None
         try:
             summary = sched.run(mode=mode)
@@ -1043,8 +1052,8 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     "degraded_sections": res_policy.degraded_sections(),
                     "quarantine": ingest_guard.summary(),
                     "chaos": chaos_plan.summary() if chaos_plan else None,
-                    # the flight recorder's dumps are not ported
-                    "flight_dumps": [],
+                    # the postmortems written this run (none on a clean run)
+                    "flight_dumps": [os.path.basename(p) for p in flight.dump_paths()],
                 },
                 devprof=devprof.results() or None,
             )
@@ -1054,6 +1063,12 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
             run_err = e
             raise
         finally:
+            if trace_rotator is not None:
+                # the final segment rides the writer: rotate before close()
+                try:
+                    trace_rotator.close()
+                except Exception:
+                    logger.exception("trace rotator close failed")
             try:
                 writer.close()  # drain: surface any queued-write failure
             except Exception as close_err:
@@ -1073,15 +1088,20 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                     # its payload: the final write below reads it
                     pipe.current_df()
                 _sweep(cache_store)
-            if trace_dest:
+            if trace_dest and trace_rotator is None:
                 # exported on failure too: an aborted run's trace is what
                 # its post-mortem needs; a failed export must not mask the
-                # run's own outcome
+                # run's own outcome (with rotation the rotator's final
+                # flush already drained the ring into its last segment)
                 try:
                     logger.info("chrome trace written to %s (open it in Perfetto or "
                                 "chrome://tracing)", write_chrome_trace(os.path.abspath(trace_dest)))
                 except Exception:
                     logger.exception("chrome trace export to %s failed", trace_dest)
+            elif trace_rotator is not None and trace_rotator.segments:
+                logger.info("chrome trace rotated into %d segment(s) next to %s",
+                            len(trace_rotator.segments), trace_rotator.dest)
+            telemetry.release(telemetry_handle)
         LAST_MANIFEST_PATH = manifest_path
         try:  # remote run_types publish the manifest next to the staged stats
             obs_store.push(manifest_path, os.path.join(obs_base, "obs"))

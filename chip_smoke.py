@@ -323,6 +323,34 @@ Phases, in order; any failure exits non-zero:
    2 hits, 1 miss, the tree equal to (a)'s; (e) a full hit under
    ``ANOVOS_TPU_CACHE_MAX_BYTES`` at half the store's size: the store
    swept below it and the sweep logged.
+18. the live plane.  First B1 on Queue C3's (1, 6,000) block (N(0, 1)·1e20,
+   rows 2,000 onward null) against its plain version: the same n, min,
+   max and nonzero, M2 +inf and M3 NaN in both, and the finalized variance,
+   stddev, skewness and kurtosis inf, inf, NaN, NaN in both.  Then
+   configs_basic on phase 16's 100,000 rows in the default mode, each run
+   with ``ANOVOS_TPU_TELEMETRY`` on a free port, ``ANOVOS_TPU_TRACE_ROTATE``
+   at 4 spans, ``ANOVOS_TPU_FLIGHTREC``, ``ANOVOS_TPU_TRACE=1`` and
+   ``ANOVOS_TPU_DEVPROF=full``, and a thread scraping ``/metrics``,
+   ``/healthz`` and ``/statusz`` every 50 ms over one keep-alive
+   connection: (a) a scraped run: at least 5 answers from each endpoint;
+   /metrics parses as Prometheus text, no counter goes down from scrape to
+   scrape, and cuda:0's memory gauges are there; /statusz shows a node on
+   the card in flight on the cuda backend, with no ``doctor`` (no earlier
+   manifest); B1 2 and B2 1 launched between the first and the last
+   scrape, each held against its plain version on its inputs; the trace
+   segments (at least 3) hold, event for event, an uninterrupted export of
+   every span recorded before the final flush; the tree equals phase 16
+   (c)'s, and no dump is written; (b) a chaos ``hang`` on the basic report
+   under a 6 s ``node_timeout``: the escalation dumps
+   ``flightrec_anovos_basic_report.json`` with the node in flight, the
+   abandonment ``..._2.json``, the manifest names both and the section is
+   degraded; (c) a second run in (a)'s directory with 3 s of device
+   sleeps queued in the basic report: scraped as (a), /statusz carries the
+   doctor's comparison with (a), and ``python -m
+   anovos_tpu_torch.obs.diffing`` on (a)'s manifest and this run ranks
+   first the phase whose top mover is the basic report, with a
+   schema-valid diagnosis.  Each step's wall is printed on a line of its
+   own.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -719,6 +747,17 @@ CLI_TIMEOUT = 300
 # what the phase's CLI processes run before the entry point (a CPU
 # rehearsal puts its runtime on the CPU here)
 CACHE_CLI_PRELUDE = ""
+# phase 18: the scrape period (s) and the scrapes each endpoint must answer
+# in a run, the span count the trace rotates at and the segments a run must
+# leave, the node that hangs in (b) and its node_timeout (s), and the device
+# sleeps (QUEUE_CYCLES each, about 10 ms) that slow it in (c)
+LIVE_SCRAPE_PERIOD_S = 0.05
+LIVE_MIN_SCRAPES = 5
+LIVE_ROTATE = "4"
+LIVE_MIN_SEGMENTS = 3
+LIVE_HANG_NODE = "anovos_basic_report"
+LIVE_HANG_TIMEOUT = 6
+LIVE_SLEEP_CHUNKS = 300
 PROFILE_KERNEL_NAMES = {"masked_moments": "moments_kernel", "binned_histograms": "hist_kernel"}
 PROFILE_KERNEL_CAT = "kernel"
 RANGE_SLACK_US = 500.0
@@ -985,7 +1024,8 @@ def check_moments_twice(torch, X, M, what: str):
     a = masked_moments_cols(X, M)
     b = masked_moments_cols(X, M)
     torch.cuda.synchronize()
-    check(torch.equal(a, b), f"masked_moments differs between two runs at {what}")
+    # bit for bit: a NaN (an overflowed M3) equals itself here
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)), f"masked_moments differs between two runs at {what}")
     return a
 
 
@@ -2780,8 +2820,9 @@ class KernelInputs:
     """While in its ``with`` block, records a copy of every argument list
     the kernel wrappers are given through the modules that call them
     (``ops/reductions`` and ``ops/streaming`` for B1, ``ops/drift_kernels``
-    for B2), then calls the wrapper itself: the inputs a path gave each
-    kernel, to hold it against its plain version after the path ran."""
+    for B2), and the host time of the call, then calls the wrapper
+    itself: the inputs a path gave each kernel, to hold it against its
+    plain version after the path ran, and when it ran."""
 
     SITES = (("reductions", "masked_moments_cols", "masked_moments"),
              ("streaming", "masked_moments_cols", "masked_moments"),
@@ -2792,6 +2833,7 @@ class KernelInputs:
 
         self.torch = torch
         self.seen = {"masked_moments": [], "binned_histograms": []}
+        self.times = {"masked_moments": [], "binned_histograms": []}
         self.sites = [(importlib.import_module(f"anovos_tpu_torch.ops.{m}"), attr, name)
                       for m, attr, name in self.SITES]
         self.saved = []
@@ -2800,6 +2842,7 @@ class KernelInputs:
         def recorder(fn, name):
             def call(*args):
                 self.seen[name].append(tuple(a.clone() if self.torch.is_tensor(a) else a for a in args))
+                self.times[name].append(time.perf_counter())
                 return fn(*args)
             return call
 
@@ -6091,6 +6134,348 @@ def phase_node_cache(torch, record: dict, runner: dict, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the live plane
+# ---------------------------------------------------------------------------
+class Scraper:
+    """A thread that scrapes ``/metrics``, ``/healthz`` and ``/statusz`` of
+    127.0.0.1:``port`` over one keep-alive connection every
+    LIVE_SCRAPE_PERIOD_S seconds while its ``with`` block runs (a refused connection, before the
+    listener is up or after it stopped, is retried): ``scrapes`` holds
+    ``(t, path, status, body)``."""
+
+    PATHS = ("/metrics", "/healthz", "/statusz")
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port, self.period, self.scrapes = port, LIVE_SCRAPE_PERIOD_S, []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.loop, name="chip-smoke-scraper")
+
+    def loop(self):
+        import http.client
+
+        conn = None
+        while not self.stop.is_set():
+            for path in self.PATHS:
+                try:
+                    if conn is None:
+                        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=10)
+                    conn.request("GET", path)
+                    r = conn.getresponse()
+                    self.scrapes.append((time.perf_counter(), path, r.status, r.read().decode()))
+                except (OSError, http.client.HTTPException):
+                    if conn is not None:
+                        conn.close()
+                    conn = None
+                    break
+            self.stop.wait(self.period)
+        if conn is not None:
+            conn.close()
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=30)
+
+    def bodies(self, path: str) -> list:
+        return [(t, body) for t, p, code, body in self.scrapes if p == path and code in (200, 503)]
+
+
+def prometheus_samples(body: str) -> tuple:
+    """A /metrics body parsed as the Prometheus text format: ({series:
+    value}, {family: type}); fails on a line that is neither a comment nor
+    ``name[{labels}] value``."""
+    samples, types = {}, {}
+    for line in body.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            types[name] = kind
+            continue
+        if not line or line.startswith("# HELP "):
+            continue
+        m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)', line)
+        check(m is not None, f"live plane: /metrics line not in the Prometheus text format: {line!r}")
+        samples[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return samples, types
+
+
+def check_scrapes(sc: Scraper, what: str, given: KernelInputs, want_doctor: bool) -> dict:
+    """(a)/(c): at least LIVE_MIN_SCRAPES of each endpoint; /metrics parses,
+    its counters never go down from scrape to scrape, and it carries the
+    card's memory gauges; /statusz shows a node on the card in flight in
+    some scrape, on the cuda backend, with a ``doctor`` field when a
+    previous manifest exists; B1 and B2 ran between the first and the last
+    scrape."""
+    counts = {p: len(sc.bodies(p)) for p in Scraper.PATHS}
+    check(all(n >= LIVE_MIN_SCRAPES for n in counts.values()), f"{what}: scrapes {counts}")
+    prev, mem = {}, False
+    for _, body in sc.bodies("/metrics"):
+        samples, types = prometheus_samples(body)
+        for series, v in samples.items():
+            if types.get(series.split("{")[0]) == "counter":
+                check(v >= prev.get(series, v), f"{what}: counter {series} went down: {prev.get(series)} -> {v}")
+                prev[series] = v
+        mem = mem or any(k.startswith('device_bytes_in_use{device="cuda:0"}') for k in samples)
+    check(mem, f"{what}: no /metrics scrape carried device_bytes_in_use of cuda:0")
+    docs = [json.loads(b) for _, b in sc.bodies("/statusz")]
+    on_card = [e["node"] for d in docs for e in d["inflight"] if e.get("lane") != "host"]
+    check(bool(on_card), f"{what}: no /statusz scrape had a node on the card in flight")
+    check(all(d["backend"] == "cuda" and d["rendezvous_holders"] == [] for d in docs),
+          f"{what}: /statusz backend {sorted({d['backend'] for d in docs})}")
+    doctors = [d["doctor"] for d in docs if d.get("doctor")]
+    check(bool(doctors) == want_doctor, f"{what}: /statusz doctor fields {len(doctors)}, expected "
+          f"{'some' if want_doctor else 'none'}")
+    health = {json.loads(b)["status"] for _, b in sc.bodies("/healthz")}
+    t0, t1 = sc.scrapes[0][0], sc.scrapes[-1][0]
+    inside = {k: all(t0 <= t <= t1 for t in v) and len(v) for k, v in given.times.items()}
+    check(all(inside.values()), f"{what}: kernel calls outside the scraped window {inside}")
+    return {"scrapes": counts, "health": sorted(health), "inflight_on_card": sorted(set(on_card)),
+            "doctor_slow": sorted({n for d in doctors for n in d.get("slow", [])})}
+
+
+def segments_partition(obs_dir: str, tapped: list, left: list) -> dict:
+    """The rotated segments against an uninterrupted export of the same
+    spans: every span the tracer recorded (``tapped``, in record order)
+    exported once, in one segment or still in the ring (``left``, spans
+    after the final flush); the segments' union equal to the export of
+    ``tapped`` less ``left``, event for event."""
+    from anovos_tpu_torch.obs import get_tracer
+
+    segs = sorted(f for f in os.listdir(obs_dir) if re.fullmatch(r"trace_\d{4}\.json", f))
+    check(len(segs) >= LIVE_MIN_SEGMENTS, f"live plane: {len(segs)} trace segments, expected at least "
+          f"{LIVE_MIN_SEGMENTS}")
+    check(not os.path.exists(os.path.join(obs_dir, "trace.json")), "live plane: trace.json written beside "
+          "the segments")
+    key = lambda e: (e["ts"], e["tid"], e["name"], e.get("dur"))  # noqa: E731
+    union = []
+    for f in segs:
+        with open(os.path.join(obs_dir, f)) as fh:
+            union += [e for e in json.load(fh)["traceEvents"] if e["ph"] != "M"]
+    left_ids = {id(sp) for sp in left}
+    whole = [e for e in get_tracer().to_chrome([sp for sp in tapped if id(sp) not in left_ids])["traceEvents"]
+             if e["ph"] != "M"]
+    check(sorted(union, key=key) == sorted(whole, key=key),
+          f"live plane: the {len(segs)} segments hold {len(union)} events, the uninterrupted export "
+          f"{len(whole)}")
+    node_left = [sp.name for sp in left if sp.cat == "node"]
+    check(not node_left, f"live plane: node spans after the final flush {node_left}")
+    return {"segments": len(segs), "events": len(union), "after_flush": len(left)}
+
+
+def check_overflowed_block(torch) -> dict:
+    """Queue C3 on the card: B1 against its plain version on the (1, 6,000)
+    block of N(0, 1)·1e20 with rows 2,000 onward null: n, min, max and
+    nonzero equal, the mean within 1e-5, M2 +inf and M3 NaN in both, M4
+    non-finite in both (the kernel's step merges carry M3's NaN into it),
+    and the finalized variance, stddev, skewness and kurtosis of the same
+    class: inf, inf, NaN, NaN."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+    from anovos_tpu_torch.ops.reductions import finalize_moments
+
+    g = np.random.default_rng(0)
+    v = (g.standard_normal(6000) * 1e20).astype(np.float32)
+    m = np.arange(6000) < 2000
+    v[~m] = 0.0
+    Xc, Mc = torch.from_numpy(v[None].copy()).cuda(), torch.from_numpy(m[None].copy()).cuda()
+    got = check_moments_twice(torch, Xc, Mc, "the overflowed block").cpu().numpy()
+    exp = masked_moments_plain(Xc, Mc).cpu().numpy()
+    for row, name in ((0, "n"), (5, "min"), (6, "max"), (7, "nonzero")):
+        check(np.array_equal(got[row], exp[row]), f"C3 block: {name} {got[row]} != plain {exp[row]}")
+    check(np.allclose(got[1], exp[1], rtol=1e-5, atol=0.0), f"C3 block: mean {got[1]} != plain {exp[1]}")
+    check(np.isposinf(got[2]).all() and np.isposinf(exp[2]).all(), f"C3 block: M2 {got[2]}, plain {exp[2]}")
+    check(np.isnan(got[3]).all() and np.isnan(exp[3]).all(), f"C3 block: M3 {got[3]}, plain {exp[3]}")
+    check(not np.isfinite(got[4]).any() and not np.isfinite(exp[4]).any(), f"C3 block: M4 {got[4]}, plain {exp[4]}")
+    fin = [finalize_moments(*torch.from_numpy(a)) for a in (got, exp)]
+    classes = {}
+    for k in ("variance", "stddev", "skewness", "kurtosis"):
+        a, b = fin[0][k].numpy(), fin[1][k].numpy()
+        check(np.array_equal(a, b, equal_nan=True), f"C3 block: {k} {a} != plain {b}")
+        classes[k] = str(a[0])
+    check(classes == {"variance": "inf", "stddev": "inf", "skewness": "nan", "kurtosis": "nan"},
+          f"C3 block: finalized {classes}")
+    print(f"live_plane: the C3 block (1 x 6,000, rows 2,000 on null, N(0, 1)·1e20): B1 "
+          f"[n, M2, M3, M4] {got[[0, 2, 3, 4], 0].tolist()}, plain {exp[[0, 2, 3, 4], 0].tolist()}; "
+          f"finalized {classes} on both", flush=True)
+    return {"kernel": {"n": float(got[0, 0]), "M2": str(got[2, 0]), "M3": str(got[3, 0]), "M4": str(got[4, 0])},
+            "plain": {"n": float(exp[0, 0]), "M2": str(exp[2, 0]), "M3": str(exp[3, 0]), "M4": str(exp[4, 0])},
+            "finalized": classes}
+
+
+def phase_live_plane(torch, record: dict, runner: dict, root: str) -> dict:
+    """Phase 18: (a)-(c) of the module docstring."""
+    import copy
+    import socket
+
+    import pandas as pd
+
+    from anovos_tpu_torch import obs, workflow
+    from anovos_tpu_torch.obs import get_tracer, telemetry
+    from anovos_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    out = {"rows": RECORD_ROWS, "c3_block": check_overflowed_block(torch)}
+    base = os.path.join(root, "live_plane")
+    sub_dir = os.path.join(base, "income")
+    os.makedirs(sub_dir)
+    pd.read_parquet(runner["main_dir"]).iloc[:RECORD_ROWS].to_parquet(
+        os.path.join(sub_dir, "part-00000.parquet"), index=False)
+    cfg = basic_config(sub_dir, runner["join_dir"])
+    path = {}
+
+    def free_port() -> int:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    def live_run(run_dir: str, what: str, want_doctor: bool, **extra) -> dict:
+        """configs_basic through workflow.main in ``run_dir`` (kept if it
+        exists) in the default mode, with the plane on a free port, trace
+        rotation, the flight recorder and ANOVOS_TPU_DEVPROF=full, scraped
+        the whole time, every span the tracer records tapped."""
+        port = free_port()
+        os.makedirs(run_dir, exist_ok=True)
+        tracer, tapped = get_tracer(), []
+        record_span = tracer._record
+
+        def tap(sp):
+            tapped.append(sp)
+            record_span(sp)
+
+        before = dict(kernels.LAUNCHES)
+        cwd = os.getcwd()
+        knobs = dict(ANOVOS_TPU_TELEMETRY=str(port), ANOVOS_TPU_TRACE_ROTATE=LIVE_ROTATE,
+                     ANOVOS_TPU_FLIGHTREC="256", ANOVOS_TPU_TRACE="1", ANOVOS_TPU_DEVPROF="full", **extra)
+        tracer._record = tap
+        try:
+            with executor(None), env_knobs(**knobs), KernelInputs(torch) as given, Scraper(port) as sc:
+                os.chdir(run_dir)
+                t0 = time.perf_counter()
+                err = None
+                try:
+                    workflow.main(copy.deepcopy(cfg), "local")
+                except Exception as e:  # (b)'s run ends in its NodeTimeout
+                    err = e
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            del tracer._record
+        check(telemetry.current() is None, f"{what}: the listener outlived the run")
+        launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+        left = tracer.snapshot()
+        return {"wall_s": wall, "sc": sc, "given": given, "launches": launches, "err": err,
+                "tapped": tapped, "left": left, "tree": tree_digest(run_dir),
+                "obs_dir": os.path.join(run_dir, "output", "obs"), "what": what, "want_doctor": want_doctor}
+
+    def launched(r, b1, b2):
+        check((r["launches"]["masked_moments"], r["launches"]["binned_histograms"]) == (b1, b2),
+              f"{r['what']}: launches {r['launches']}, expected B1 {b1} and B2 {b2}")
+
+    # (a) a scraped run
+    run_dir = os.path.join(base, "scraped")
+    a = live_run(run_dir, "(a) scraped run", want_doctor=False)
+    check(a["err"] is None, f"(a) scraped run failed: {a['err']!r}")
+    launched(a, 2, 1)
+    out["a"] = {"wall_s": a["wall_s"], "launches": a["launches"],
+                "scraped": check_scrapes(a["sc"], "(a) scraped run", a["given"], False),
+                "kernels": held_to_plain(torch, a["given"], a["launches"], "(a) scraped run"),
+                "trace": segments_partition(a["obs_dir"], a["tapped"], a["left"])}
+    check(a["tree"] == record["tree"], "(a) scraped run: files differ from phase 16 (c)'s: " + str(
+        sorted(k for k in set(a["tree"]) | set(record["tree"]) if a["tree"].get(k) != record["tree"].get(k))[:10]))
+    man_a = obs.load_manifest(os.path.join(a["obs_dir"], "run_manifest.json"))
+    check(man_a["resilience"]["flight_dumps"] == [], f"(a): flight dumps {man_a['resilience']['flight_dumps']}")
+    print(f"live_plane: (a) scraped run {a['wall_s']:.3f} s: {out['a']['scraped']['scrapes']} scrapes, "
+          f"health {out['a']['scraped']['health']}, in flight on the card {out['a']['scraped']['inflight_on_card']}; "
+          f"B1 {a['launches']['masked_moments']} and B2 {a['launches']['binned_histograms']} inside the scraped "
+          f"window, held to plain ({out['a']['kernels']}); {out['a']['trace']['segments']} trace segments = the "
+          f"uninterrupted export ({out['a']['trace']['events']} events); the tree equals phase 16 (c)'s",
+          flush=True)
+    baseline = os.path.join(base, "baseline_manifest.json")
+    shutil.copy(os.path.join(a["obs_dir"], "run_manifest.json"), baseline)
+
+    # (b) a chaos hang on the basic report under a node_timeout
+    b = live_run(os.path.join(base, "hang"), "(b) hang", want_doctor=False,
+                 ANOVOS_TPU_CHAOS=f"hang@node:{LIVE_HANG_NODE}:secs=600:n=99",
+                 ANOVOS_TPU_NODE_TIMEOUT=str(LIVE_HANG_TIMEOUT))
+    check(b["err"] is None, f"(b) hang: the run failed: {b['err']!r}")
+    dumps = sorted(f for f in os.listdir(b["obs_dir"]) if f.startswith("flightrec_"))
+    stem = "flightrec_" + re.sub(r"[^A-Za-z0-9._-]", "_", LIVE_HANG_NODE)
+    check(dumps == [stem + ".json", stem + "_2.json"], f"(b) hang: dumps {dumps}")
+    docs = []
+    for f in dumps:
+        with open(os.path.join(b["obs_dir"], f)) as fh:
+            docs.append(json.load(fh))
+    check([d["trigger"] for d in docs] == ["timeout_escalation", "node_abandoned"],
+          f"(b) hang: triggers {[d['trigger'] for d in docs]}")
+    check(LIVE_HANG_NODE in [e["node"] for e in docs[0]["inflight"]] and docs[0]["backend"] == "cuda"
+          and "cuda:0" in docs[0]["hbm"], f"(b) hang: the escalation dump's in-flight set {docs[0]['inflight']}")
+    man_b = obs.load_manifest(os.path.join(b["obs_dir"], "run_manifest.json"))
+    check(man_b["resilience"]["flight_dumps"] == dumps and LIVE_HANG_NODE in man_b["resilience"]["degraded_sections"],
+          f"(b) hang: manifest {man_b['resilience']['flight_dumps']}, {man_b['resilience']['degraded_sections']}")
+    out["b"] = {"wall_s": b["wall_s"], "dumps": dumps, "launches": b["launches"],
+                "escalated_after_s": [e.get("devprof", {}).get("elapsed_s") for e in docs[0]["inflight"]
+                                      if e["node"] == LIVE_HANG_NODE][0]}
+    print(f"live_plane: (b) hang on {LIVE_HANG_NODE} under a {LIVE_HANG_TIMEOUT} s node_timeout: "
+          f"{b['wall_s']:.3f} s, dumps {dumps} (triggers timeout_escalation, the node in flight for "
+          f"{out['b']['escalated_after_s']} s, then node_abandoned), the section degraded", flush=True)
+
+    # (c) a second run in (a)'s directory, the report slowed by a device
+    # sleep, then the perf doctor's diagnosis of the pair
+    slowed, real = workflow.anovos_basic_report, workflow.anovos_basic_report
+
+    def sleepy(*args, **kwargs):
+        for _ in range(LIVE_SLEEP_CHUNKS):
+            torch.cuda._sleep(QUEUE_CYCLES)
+        return real(*args, **kwargs)
+
+    workflow.anovos_basic_report = sleepy
+    try:
+        c = live_run(run_dir, "(c) slowed run", want_doctor=True)
+    finally:
+        workflow.anovos_basic_report = slowed
+    check(c["err"] is None, f"(c) slowed run failed: {c['err']!r}")
+    launched(c, 2, 1)
+    out["c"] = {"wall_s": c["wall_s"], "launches": c["launches"],
+                "scraped": check_scrapes(c["sc"], "(c) slowed run", c["given"], True),
+                "kernels": held_to_plain(torch, c["given"], c["launches"], "(c) slowed run")}
+    check(c["tree"] == record["tree"], "(c) slowed run: files differ from phase 16 (c)'s")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "anovos_tpu_torch.obs.diffing", "--json", "--baseline", baseline,
+                          "--candidate", c["obs_dir"]], capture_output=True, text=True, timeout=CLI_TIMEOUT,
+                         env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+    doctor_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"(c) perf doctor exited {res.returncode}: {res.stderr[-2000:]}")
+    from anovos_tpu_torch.obs.diffing import validate_diagnosis
+
+    diag = json.loads(res.stdout.strip().splitlines()[-1])
+    errs = validate_diagnosis(diag)
+    check(errs == [], f"(c) diagnosis schema: {errs}")
+    top = diag["attributions"][0]
+    deltas = {n: v["wall_delta_s"] for n, v in diag["nodes"].items() if v["wall_delta_s"] is not None}
+    check(top["kind"] == "phase" and top["detail"].split("top movers: ")[1].startswith(LIVE_HANG_NODE + " ")
+          and max(deltas, key=deltas.get) == LIVE_HANG_NODE, f"(c) diagnosis: top {top}, node deltas {deltas}")
+    out["c"]["diagnosis"] = {"top": top, "node_wall_delta_s": deltas, "doctor_s": doctor_s,
+                             "attributions": len(diag["attributions"])}
+    print(f"live_plane: (c) slowed run in (a)'s directory {c['wall_s']:.3f} s ({LIVE_SLEEP_CHUNKS} device sleeps "
+          f"of {QUEUE_CYCLES} cycles in {LIVE_HANG_NODE}); /statusz doctor slow {out['c']['scraped']['doctor_slow']}; "
+          f"python -m anovos_tpu_torch.obs.diffing in {doctor_s:.2f} s ranks first: #{top['rank']} "
+          f"[{top['kind']}:{top['subject']}] {top['detail']}", flush=True)
+    out["launches"] = path
+    shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"live_plane: phase 18 in {out['phase_s']:.1f} s; launches on the live-plane path {path}", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -6285,9 +6670,12 @@ def main() -> None:
         lap("16 record")
         node_cache = phase_node_cache(torch, record, runner, runs_root)
         lap("17 node cache")
+        live = phase_live_plane(torch, record, runner, runs_root)
+        lap("18 live plane")
     finally:
         shutil.rmtree(runs_root, ignore_errors=True)
     print("node_cache " + json.dumps({k: v for k, v in node_cache.items() if k != "launches"}), flush=True)
+    print("live_plane " + json.dumps({k: v for k, v in live.items() if k != "launches"}), flush=True)
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -6316,9 +6704,10 @@ def main() -> None:
                                                         for w, r in execu["sequential"].items()},
                                                      "chaos": execu["chaos"]["launches"],
                                                      "run_record": record["launches"],
-                                                     "node_cache": node_cache["launches"]}, sass)
+                                                     "node_cache": node_cache["launches"],
+                                                     "live_plane": live["launches"]}, sass)
     print("phase walls " + json.dumps(walls), flush=True)
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

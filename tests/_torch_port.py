@@ -349,3 +349,36 @@ def jax_and_port(df):
     from anovos_tpu_torch.shared.table import Table
 
     return JTable.from_pandas(df), Table.from_pandas(df, device="cpu")
+
+
+def thread_names():
+    import threading
+
+    return {t.name for t in threading.enumerate()}
+
+
+def assert_no_thread_left(before, settle_s=10.0):
+    """No thread name that was not there before the test is left after it:
+    a thread that is ending (a scheduler worker polls its queue every
+    50 ms) gets ``settle_s`` to go."""
+    import time
+
+    deadline = time.monotonic() + settle_s
+    while True:
+        left = thread_names() - before
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
+    assert not left, f"threads left behind: {sorted(left)}"
+
+
+def free_port() -> int:
+    """A port the OS hands out for port 0, closed again: for the knobs that
+    take a port number."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port

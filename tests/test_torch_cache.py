@@ -212,6 +212,10 @@ OUTSIDE_NODE_BODIES = {
     ("obs/manifest.py", "_env_section", "<dynamic>"): "reads KNOWN_ENV_KNOBS for the manifest",
     ("obs/telemetry.py", "check_unported_knobs", "<dynamic>"): "main's and run's knob check",
     ("obs/tracing.py", "buffer_size", "ANOVOS_TPU_TRACE_BUFFER"): "main's trace ring",
+    ("obs/tracing.py", "rotation_spec", "ANOVOS_TPU_TRACE_ROTATE"): "the rotator main and run start",
+    ("obs/telemetry.py", "telemetry_port", "ANOVOS_TPU_TELEMETRY"): "the listener main and run acquire",
+    ("obs/telemetry.py", "error_budget", "ANOVOS_TPU_SLO_ERROR_BUDGET"):
+        "the rolling windows' burn rate, read at a scrape",
     ("obs/tracing.py", "trace_destination", "ANOVOS_TPU_TRACE"): "main's trace export",
     ("obs/devprof.py", "node_bracket", "ANOVOS_PROFILE"): "the scheduler's bracket around a node",
     ("parallel/scheduler.py", "default_workers", "ANOVOS_TPU_EXECUTOR_WORKERS"): "the pool's width",

@@ -1,7 +1,7 @@
 """The port's continuum as a service on the CPU: the CLI
 (``python -m anovos_tpu_torch.continuum run|step|status``), a mid-fold
 kill and resume in fresh processes, heartbeats, the alert and poll
-knobs, the knobs of unported layers, the flight recorder's call sites,
+knobs, the service knobs of the live plane, the flight recorder's call sites,
 and the runner's ``continuous_analysis`` block (with and without
 ``input_dataset``, and its failure policy against the JAX runner's).
 
@@ -20,7 +20,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from _torch_port import torch_cpu_runtime  # noqa: F401  (autouse fixture)
+from _torch_port import free_port, torch_cpu_runtime  # noqa: F401  (autouse fixture)
 from test_torch_continuum import _cfg, _fresh_registries, _journal, _tree_hash, _write_feed  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,19 +100,46 @@ def test_cli_step_without_a_card_exits_at_init_runtime(tmp_path):
 
 @pytest.mark.parametrize("knob,value", [("ANOVOS_TPU_TELEMETRY", "9464"), ("ANOVOS_TPU_TRACE_ROTATE", "30s")])
 def test_run_refuses_the_unported_service_knobs(tmp_path, monkeypatch, knob, value):
-    """The telemetry plane and trace rotation are not ported: a set knob
-    makes ``run`` raise before any step, naming the ROADMAP item."""
-    from anovos_tpu_torch.continuum.watcher import run
+    """The two service knobs are ported and ``run`` no longer refuses them:
+    for the loop's lifetime it holds the live plane on the knob's port
+    (its ``/healthz`` answers during the step) or the trace rotator (its
+    thread runs during the step, and its final flush leaves a segment under
+    ``<output>/obs``); after the loop neither a listener nor a thread of
+    either is left."""
+    import threading
+    import urllib.request
+
+    from anovos_tpu_torch.continuum import watcher
+    from anovos_tpu_torch.obs import telemetry
 
     feed = os.path.join(str(tmp_path), "feed")
     _write_feed(feed, {1: {}})
     cfg = _cfg(str(tmp_path), "t", feed_dir=feed, drift=False)
+    if knob == "ANOVOS_TPU_TELEMETRY":
+        value = str(free_port())  # a port the OS picks, not the case's label
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match=f"{knob}.*Queue A item 2"):
-        run(cfg, max_iterations=1)
-    assert not os.path.exists(cfg.state_dir)
-    monkeypatch.setenv(knob, "0")
-    assert len(run(cfg, max_iterations=1)) == 1
+    seen = {}
+    step = watcher.step
+
+    def observed(c):
+        srv = telemetry.current()
+        if srv is not None:
+            with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/healthz", timeout=10) as r:
+                seen["healthz"] = (srv.port, r.status)
+        seen["threads"] = {t.name for t in threading.enumerate()}
+        return step(c)
+
+    monkeypatch.setattr(watcher, "step", observed)
+    before = {t.name for t in threading.enumerate()}
+    assert len(watcher.run(cfg, max_iterations=1)) == 1
+    if knob == "ANOVOS_TPU_TELEMETRY":
+        assert seen["healthz"] == (int(value), 200)
+        assert "anovos-torch-telemetry" in seen["threads"]
+    else:
+        assert "anovos-torch-trace-rotator" in seen["threads"]
+        assert sorted(os.listdir(os.path.join(cfg.output_path, "obs"))) == ["trace_0001.json"]
+    assert telemetry.current() is None
+    assert {t.name for t in threading.enumerate()} == before
 
 
 def test_one_shot_steps_register_no_heartbeat(tmp_path, monkeypatch):

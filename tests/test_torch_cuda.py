@@ -986,3 +986,89 @@ def test_cuda_restored_df_read_by_concurrent_fanouts(tmp_path, monkeypatch):
     assert nodes["drift_detector/drift_statistics"]["stream"]
     assert len(loads) == 1
     assert inc == ref
+
+
+def overflowed_block():
+    """Queue C3's (1, 6,000) block: N(0, 1)·1e20 in f32, rows 2,000 onward
+    null (stored as 0)."""
+    g = np.random.default_rng(0)
+    v = (g.standard_normal(6000) * 1e20).astype(np.float32)
+    m = np.arange(6000) < 2000
+    v[~m] = 0.0
+    return torch.from_numpy(v[None].copy()), torch.from_numpy(m[None].copy())
+
+
+def overflowed_agree(got: np.ndarray, exp: np.ndarray) -> list:
+    """Where B1 and its plain version must agree on the overflowed block:
+    n, min, max and nonzero equal; the mean within 1e-5; M2 +inf and M3
+    NaN in both; M4 non-finite in both (the plain version's one non-empty
+    tile gives inf, the kernel's Chan merges of its 16-row steps carry
+    M3's NaN into M4 through the 4·δ·M3 term); and the finalized variance,
+    stddev, skewness and kurtosis the same class (inf, inf, NaN, NaN).
+    Returns the disagreements."""
+    from anovos_tpu_torch.ops.reductions import finalize_moments
+
+    bad = [name for row, name in ((0, "n"), (5, "min"), (6, "max"), (7, "nonzero"))
+           if not np.array_equal(got[row], exp[row])]
+    if not np.allclose(got[1], exp[1], rtol=1e-5, atol=0.0):
+        bad.append("mean")
+    if not (np.isposinf(got[2]).all() and np.isposinf(exp[2]).all()):
+        bad.append("M2")
+    if not (np.isnan(got[3]).all() and np.isnan(exp[3]).all()):
+        bad.append("M3")
+    if np.isfinite(got[4]).any() or np.isfinite(exp[4]).any():
+        bad.append("M4")
+    fin = [finalize_moments(*torch.from_numpy(a.astype(np.float32))) for a in (got, exp)]
+    for k in ("variance", "stddev", "skewness", "kurtosis"):
+        g, e = fin[0][k].numpy(), fin[1][k].numpy()
+        if not (np.array_equal(np.isnan(g), np.isnan(e)) and np.array_equal(g[~np.isnan(g)], e[~np.isnan(e)])):
+            bad.append(k)
+    return bad
+
+
+@pytest.mark.cuda
+def test_cuda_moments_keep_an_overflowed_spread():
+    """Queue C3 on the card: B1 against its plain version on the (1, 6,000)
+    block whose M2 passes the f32 maximum and whose last two tiles are
+    empty; stddev comes out inf on both paths, as in the JAX package."""
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_cols, masked_moments_plain
+
+    _require_cuda()
+    X, M = overflowed_block()
+    Xc, Mc = X.cuda(), M.cuda()
+    got = masked_moments_cols(Xc, Mc).cpu().numpy()
+    torch.cuda.synchronize()
+    exp = masked_moments_plain(Xc, Mc).cpu().numpy()
+    assert overflowed_agree(got, exp) == [], (got[:, 0], exp[:, 0])
+    assert np.isposinf(exp[4]).all()  # the plain version keeps the first tile's M4
+
+
+@pytest.mark.cuda
+def test_cuda_autoencoder_bf16_feeds_bf16_values_to_an_ieee_gemm(monkeypatch):
+    """``compute_dtype="bf16"`` on the card: every GEMM of the AE's dense
+    layers gets f32 tensors on the card whose values are bf16 (each equal
+    to its own bf16 rounding) and runs with TF32 off, so the sums are f32;
+    the latents equal the CPU's bf16 run within the test's band."""
+    from anovos_tpu_torch.models.autoencoder import AutoEncoder
+
+    _require_cuda()
+    seen = []
+    matmul = torch.matmul
+
+    def recording(a, b):
+        seen.append((a.dtype, b.dtype, a.device.type, bool(torch.equal(a, a.to(torch.bfloat16).float())),
+                     bool(torch.equal(b, b.to(torch.bfloat16).float())),
+                     torch.backends.cuda.matmul.fp32_precision))
+        return matmul(a, b)
+
+    g = np.random.default_rng(2)
+    X = torch.from_numpy(g.normal(0, 1, (512, 5)).astype(np.float32))
+    ae = AutoEncoder(5, 2, seed=3, compute_dtype="bf16")
+    net = ae.init_params()
+    cpu = ae.latent(net, X).numpy()
+    monkeypatch.setattr(torch, "matmul", recording)
+    card = ae.latent(net.cuda(), X.cuda()).cpu().numpy()
+    monkeypatch.undo()
+    assert len(seen) == 3  # enc1, enc2, bottleneck
+    assert set(seen) == {(torch.float32, torch.float32, "cuda", True, True, "ieee")}
+    np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=1e-3)

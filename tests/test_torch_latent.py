@@ -302,3 +302,61 @@ def test_all_null_column_adds_nothing(latent_df):
     assert lat == [c for c in ref.columns if c.startswith("latent_")]
     np.testing.assert_allclose(_aligned(got[lat].to_numpy(), ref[lat].to_numpy()), ref[lat].to_numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# the bf16 band: both models round the same f32 values to bf16 and sum the
+# exact products in f32, so only the sum order differs (4.9e-8 on this
+# data); an intermediate that the order moves across a bf16 rounding step
+# changes one input of the next layer by 2^-8 of itself
+BF16 = 1e-3
+
+
+@pytest.mark.parametrize("how", ["constructor", "env"])
+def test_bf16_latents_match_jax_bf16(ae_data, how, monkeypatch):
+    """``compute_dtype="bf16"`` (or ``ANOVOS_AE_COMPUTE=bf16`` under
+    ``auto``) from weights carried across: the latents and reconstruction
+    within BF16 of the JAX model's bf16 run, and apart from the f32 run's
+    (the knob is honoured, not ignored)."""
+    import jax.numpy as jnp
+    import torch
+
+    from anovos_tpu.models.autoencoder import AutoEncoder as JAE
+    from anovos_tpu_torch.models.autoencoder import AutoEncoder, params_from_jax
+
+    tree = jax_params(5, 2, seed=4)
+    if how == "env":
+        monkeypatch.setenv("ANOVOS_AE_COMPUTE", "bf16")
+        jae, pae = JAE(5, 2), AutoEncoder(5, 2)
+    else:
+        monkeypatch.setenv("ANOVOS_AE_COMPUTE", "f32")  # the constructor wins
+        jae, pae = JAE(5, 2, compute_dtype="bf16"), AutoEncoder(5, 2, compute_dtype="bf16")
+    assert pae.compute_dtype == torch.bfloat16 and jae.compute_dtype == jnp.bfloat16
+    jtree = {k: {kk: (jnp.asarray(vv) if kk != "bn" else {b: jnp.asarray(x) for b, x in vv.items()})
+                 for kk, vv in v.items()} for k, v in tree.items()}
+    net = pae.net_from_state(params_from_jax(tree))
+    X = torch.from_numpy(ae_data)
+    got = pae.latent(net, X).numpy()
+    exp = np.asarray(jae.latent(jtree, jnp.asarray(ae_data)))
+    _close(got, exp, BF16, "bf16 latent")
+    _close(pae.reconstruct(net, X).numpy(), np.asarray(jae.reconstruct(jtree, jnp.asarray(ae_data))), BF16,
+           "bf16 reconstruction")
+    f32 = AutoEncoder(5, 2, compute_dtype="f32")
+    assert f32.compute_dtype is None
+    assert np.abs(f32.latent(f32.net_from_state(params_from_jax(tree)), X).numpy() - got).max() > 1e-5
+
+
+def test_compute_dtype_precedence(monkeypatch):
+    """The constructor's dtype, then ``ANOVOS_AE_COMPUTE``, then f32: off a
+    TPU the JAX package's ``auto`` is f32 too."""
+    import torch
+
+    from anovos_tpu.models.autoencoder import _resolve_compute_dtype as jresolve
+    from anovos_tpu_torch.models.autoencoder import resolve_compute_dtype
+
+    for env, req in [(None, "auto"), ("bf16", "auto"), ("f32", "bf16"), ("bfloat16", "auto"), ("bf16", "f32")]:
+        if env is None:
+            monkeypatch.delenv("ANOVOS_AE_COMPUTE", raising=False)
+        else:
+            monkeypatch.setenv("ANOVOS_AE_COMPUTE", env)
+        got, exp = resolve_compute_dtype(req), jresolve(req)
+        assert (got is torch.bfloat16) == (exp is not None), (env, req)

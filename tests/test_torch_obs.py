@@ -14,8 +14,8 @@
 * ``ANOVOS_TPU_TRACE`` gates the trace export, and the report's Run
   Timings tab renders from a manifest and is absent without one.
 
-The Prometheus text exposition has no counterpart yet (ROADMAP.md Queue A
-item 2).  Everything runs on the CPU runtime.
+The Prometheus text exposition is held against the JAX package's in
+``tests/test_torch_telemetry.py``.  Everything runs on the CPU runtime.
 """
 
 import importlib.util

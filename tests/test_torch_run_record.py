@@ -5,7 +5,7 @@ its own.
 
 * ``write_manifest`` of one dict and ``config_hash`` of one config: the
   same bytes and digest; ``KNOWN_ENV_KNOBS`` the JAX list and the port's
-  ``ANOVOS_GEOCODE_TABLE``, and ``env_fingerprint`` the JAX digest of the
+  ``ANOVOS_GEOCODE_TABLE`` and ``ANOVOS_AE_COMPUTE``, and ``env_fingerprint`` the JAX digest of the
   port's knobs, backend and count;
 * the two manifests: the same keys, and ``stable_view`` equal but for
   the entries of :data:`MANIFEST_DIFFERENCES`, each with its reason; the
@@ -38,7 +38,7 @@ MANIFEST_DIFFERENCES = {
         "value: the JAX package runs on the tests' 8 virtual CPU devices (tests/conftest.py), "
         "the port on one device; each summary states its own runtime's count",
     ("resilience", "failover_retries"):
-        "JAX only: the port has no backend failover (ROADMAP.md Queue A item 3), so no "
+        "JAX only: the port has no backend failover (ROADMAP.md Queue A, backend failover), so no "
         "failover re-execution to count (the section is stripped by stable_view)",
     ("resilience", "failovers"):
         "JAX only: as failover_retries",
@@ -97,8 +97,8 @@ def test_env_fingerprint_is_the_jax_digest_of_the_runtime(monkeypatch):
 
     from anovos_tpu_torch.cache import fingerprint as pf
 
-    # the JAX list and the port's own knob (tests/test_torch_cache.py)
-    assert pf.KNOWN_ENV_KNOBS == jf.KNOWN_ENV_KNOBS + ("ANOVOS_GEOCODE_TABLE",)
+    # the JAX list and the port's own knobs (tests/test_torch_cache.py)
+    assert pf.KNOWN_ENV_KNOBS == jf.KNOWN_ENV_KNOBS + ("ANOVOS_GEOCODE_TABLE", "ANOVOS_AE_COMPUTE")
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:x")
     knobs = {k: os.environ.get(k, "") for k in pf.KNOWN_ENV_KNOBS}
     assert pf.env_fingerprint() == jf.digest(jf.canonical(knobs), "cpu", "1")

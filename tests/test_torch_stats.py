@@ -108,3 +108,31 @@ def test_describe_refuses_compensated_size(monkeypatch):
     t.nrows = 1 << 24
     num, _ = describe.table_describe(t, ["x"], [])
     assert calls == [(100, 1)] and num["mean"].dtype == np.float64 and num["mean"][0] == 49.5
+
+
+def test_overflowed_spread_gives_inf_as_jax_does():
+    """Queue C3: 6,000 rows of N(0, 1)·1e20 with rows 2,000 onward null, so
+    B1's plain version has two empty 2048-row tiles after the first, whose
+    M2 is past the f32 maximum.  Both packages' ``measures_of_dispersion``
+    give stddev, variance and cov of ±inf (an empty tile keeps the
+    accumulator instead of turning inf · 0 into NaN); the accumulator keeps
+    the first tile's M2 (inf) and M4 (inf)."""
+    import torch
+
+    from anovos_tpu.data_analyzer.stats_generator import measures_of_dispersion as jdisp
+    from anovos_tpu.shared.table import Table as JTable
+    from anovos_tpu_torch.data_analyzer.stats_generator import measures_of_dispersion
+    from anovos_tpu_torch.ops.kernels.moments import masked_moments_plain
+    from anovos_tpu_torch.shared.table import Table
+
+    g = np.random.default_rng(0)
+    v = (g.standard_normal(6000) * 1e20).astype(np.float32).astype(np.float64)
+    v[2000:] = np.nan
+    df = pd.DataFrame({"a": v})
+    got, exp = measures_of_dispersion(Table.from_pandas(df, device="cpu")), jdisp(JTable.from_pandas(df))
+    assert_frames_close(got, exp, rtol=1e-6)
+    assert np.isposinf(got.loc[0, "stddev"]) and np.isposinf(got.loc[0, "variance"])
+    assert np.isinf(got.loc[0, "cov"])
+    acc = masked_moments_plain(torch.from_numpy(v[None].astype(np.float32)).nan_to_num(0.0),
+                               torch.from_numpy(~np.isnan(v[None]))).numpy()[:, 0]
+    assert acc[0] == 2000 and np.isposinf(acc[2]) and np.isposinf(acc[4])

@@ -131,9 +131,8 @@ def test_ineligible_columns_in_stats(analyzed):
 @pytest.mark.parametrize("module", ["data_analyzer.ts_analyzer", "data_ingest.ts_auto_detection"])
 def test_public_functions_have_the_jax_arguments(module):
     """Every public function of the JAX module has a counterpart with the
-    same arguments (private ``_``-arguments aside); the pandas helpers the
-    port replaces with device counts (``daypart_cat``, ``ts_processed_feats``)
-    are not ported."""
+    same arguments (private ``_``-arguments aside), the host pandas helpers
+    ``daypart_cat`` and ``ts_processed_feats`` among them."""
     import importlib
     import inspect
 
@@ -141,7 +140,35 @@ def test_public_functions_have_the_jax_arguments(module):
     pm = importlib.import_module(f"anovos_tpu_torch.{module}")
     args = lambda f: [p for p in inspect.signature(f).parameters if not p.startswith("_")]  # noqa: E731
     public = [n for n, f in vars(jm).items() if inspect.isfunction(f) and not n.startswith("_")
-              and f.__module__ == jm.__name__ and n not in ("daypart_cat", "ts_processed_feats")]
+              and f.__module__ == jm.__name__]
     assert "ts_analyzer" in public or "ts_preprocess" in public
     for n in public:
         assert args(getattr(pm, n)) == args(getattr(jm, n)), n
+
+
+def test_processed_feats_and_dayparts_match_jax():
+    """``ts_processed_feats`` and ``daypart_cat`` of both packages on one ts
+    column with nulls, a 00:00 and 23:59 pair on one day and every hour of
+    a week: equal frames (a NaT row gives a null date, hour and daypart in
+    both)."""
+    import torch
+
+    from anovos_tpu.data_analyzer.ts_analyzer import daypart_cat as jcat, ts_processed_feats as jfeats
+    from anovos_tpu.shared.runtime import get_runtime as jrt
+    from anovos_tpu.shared.table import Table as JTable, _host_to_column
+    from anovos_tpu_torch.data_analyzer.ts_analyzer import daypart_cat, ts_processed_feats
+    from anovos_tpu_torch.shared.table import Table, host_to_column
+
+    base = np.datetime64("2021-03-06T00:00:00", "s")  # a Saturday
+    ts = np.concatenate([base + np.arange(0, 7 * 86400, 3600).astype("timedelta64[s]"),
+                         [base + np.timedelta64(86399, "s"), np.datetime64("NaT"), base,
+                          np.datetime64("NaT")]]).astype("datetime64[s]")
+    df = pd.DataFrame({"k": np.arange(len(ts), dtype=np.float64)})
+    jt, pt = JTable.from_pandas(df), Table.from_pandas(df, device="cpu")
+    jt = jt.with_column("ts", _host_to_column(ts, len(ts), jt.pad_target(), jrt()))
+    pt = pt.with_column("ts", host_to_column(ts, len(ts), torch.device("cpu")))
+    got, exp = ts_processed_feats(pt, "ts"), jfeats(jt, "ts")
+    pd.testing.assert_frame_equal(got, exp)
+    assert got["daypart"].iloc[-4] == "night_hours" and pd.isna(got["daypart"].iloc[-3])
+    hours = pd.Series([0, 5, 6, 9, 10, 16, 17, 20, 21, 23, np.nan])
+    pd.testing.assert_series_equal(daypart_cat(hours), jcat(hours))

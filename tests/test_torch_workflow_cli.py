@@ -52,7 +52,7 @@ def test_resume_is_refused(tmp_path):
     absent input, before the store is made."""
     res = run_cli(os.path.join(REPO, "config", "configs_basic.yaml"), "local", "--resume", cwd=str(tmp_path))
     assert res.returncode != 0
-    assert "Queue A item" not in res.stderr
+    assert "Queue A" not in res.stderr
     assert "ANOVOS_TPU_CACHE is unset" not in res.stderr
     assert "FileNotFoundError: no parquet files" in res.stderr
     assert not (tmp_path / ".anovos_cache").exists()
@@ -93,8 +93,8 @@ def test_cli_runs_on_the_card_and_never_falls_back(tmp_path):
     assert "CUDA device requested" in res.stderr
 
 
-@pytest.mark.parametrize("block,item", [("streaming_analysis", "Queue A item 4"),
-                                        ("continuous_analysis", "Queue A item 4"),
+@pytest.mark.parametrize("block,item", [("streaming_analysis", "multi-device"),
+                                        ("continuous_analysis", "multi-device"),
                                         ("streaming_analysis", "transformers"),
                                         ("continuous_analysis", "write_feast_features")])
 def test_unported_blocks_raise_before_any_work(block, item, tmp_path, monkeypatch):
@@ -130,14 +130,14 @@ def test_unported_knobs_raise_naming_their_item(knob, tmp_path, monkeypatch):
     input does not exist, so any work would raise FileNotFoundError) and
     ``run`` (on a config file that does not exist) raise
     NotImplementedError naming the knob, what it asks for and its Queue A
-    item; the same knob set to 0 or off is no request."""
+    item by name; the same knob set to 0 or off is no request."""
     from anovos_tpu_torch import workflow
 
     what, item = UNPORTED_KNOBS[knob]
     cfg = load_config("configs_basic.yaml")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(knob, "1")
-    match = f"{knob} asks for {what}, which is not ported.*ROADMAP.md Queue A item {item}$"
+    match = f"{knob} asks for {what}, which is not ported.*ROADMAP.md Queue A, {item}$"
     with pytest.raises(NotImplementedError, match=match):
         workflow.main(cfg, "local")
     with pytest.raises(NotImplementedError, match=match):
@@ -158,7 +158,7 @@ def test_chaos_wedge_raises_naming_the_failover_item(tmp_path, monkeypatch):
     cfg = load_config("configs_basic.yaml")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "seed=3;exc@node:join_dataset;wedge@node:stats_generator/*")
-    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A item 3$"):
+    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A, backend failover$"):
         workflow.main(cfg, "local")
     monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:join_dataset;hang@node:x:secs=1")
     with pytest.raises(FileNotFoundError):
