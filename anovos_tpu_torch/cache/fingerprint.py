@@ -55,12 +55,10 @@ __all__ = [
 # must NOT invalidate the cache.
 # The serving knobs (ANOVOS_SERVE_BATCH_WINDOW_MS, ANOVOS_SERVE_MAX_BATCH,
 # ANOVOS_SERVE_BF16) are a deliberate exemption too: they are read only by
-# anovos_tpu/serving/, which never executes as a scheduler node — no node
-# artifact can depend on them, so they must not invalidate workflow cache
-# entries (GC008's registration-body scan cannot reach them by
-# construction).  The one that changes OUTPUTS — ANOVOS_SERVE_BF16 —
-# does so by setting ANOVOS_TPU_BF16 in the serving process, and THAT
-# knob is on the list below.
+# anovos_tpu_torch/serving/, which never executes as a scheduler node — no
+# node artifact can depend on them, so they must not invalidate workflow
+# cache entries.  None changes outputs in the port: ANOVOS_SERVE_BF16=1
+# raises there (the JAX package sets ANOVOS_TPU_BF16 for its process).
 # ANOVOS_SHAPE_BUCKETS is on it defensively: bucketed-vs-exact parity is
 # tested byte-identical, but the knob exists precisely to flip compiled
 # program shapes, and a false invalidation is cheap while a false hit is

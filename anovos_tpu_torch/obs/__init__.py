@@ -17,7 +17,8 @@
   h2d/d2h bytes.
 * **Flight recorder** (``obs.flight``): a ring of lifecycle events, and
   a synchronous postmortem ``obs/flightrec_<node>.json`` at a fatal
-  error, a watchdog escalation, an abandonment or a fatal timeout.
+  error, a watchdog escalation, an abandonment, a fatal timeout or a
+  serving micro-batch that failed after its retry (``serve_fatal``).
 * **The live plane** (``obs.telemetry``): ``/metrics`` (the registry's
   Prometheus text, ``MetricsRegistry.expose_text``), ``/healthz`` and
   ``/statusz`` on 127.0.0.1 under ``ANOVOS_TPU_TELEMETRY=<port>``, with

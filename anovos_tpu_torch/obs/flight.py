@@ -11,7 +11,9 @@ The scheduler dumps at three of the JAX package's four triggers: a
 watchdog **timeout escalation**, an **abandonment** (and the fatal
 timeout after an escalated bound), and a **fatal error** of a raise-mode
 node.  The fourth, the backend failover, waits for the failover itself
-(ROADMAP.md Queue A, backend failover).  A dump goes to
+(ROADMAP.md Queue A, backend failover).  The feature server
+(``serving/server.py``) dumps at **serve_fatal**, a micro-batch whose
+apply failed after its retry.  A dump goes to
 ``<obs_dir>/flightrec_<node>.json`` by tmp file, fsync and rename, never
 through the async writer (the process may be about to die), and never
 over an earlier dump of the same node (``_2``, ``_3``, ...).  It holds the
@@ -38,8 +40,8 @@ from typing import List, Optional
 
 logger = logging.getLogger("anovos_tpu_torch.obs.flight")
 
-__all__ = ["build_snapshot", "configure", "dump", "dump_paths", "enabled", "record", "reset",
-           "snapshot_events"]
+__all__ = ["build_snapshot", "configure", "destination", "dump", "dump_paths", "enabled", "record",
+           "reset", "snapshot_events"]
 
 FLIGHTREC_VERSION = 1
 _DEFAULT_EVENTS = 256
@@ -68,6 +70,13 @@ def _ring_bound() -> int:
 def enabled() -> bool:
     with _LOCK:
         return _RING is not None and _DIR is not None
+
+
+def destination() -> Optional[str]:
+    """The obs directory dumps go to while armed, else None: what a caller
+    passes back to :func:`configure` to re-arm the recorder where it was."""
+    with _LOCK:
+        return _DIR if _RING is not None else None
 
 
 def configure(obs_dir: Optional[str]) -> None:

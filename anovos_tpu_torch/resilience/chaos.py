@@ -57,10 +57,12 @@ installed.  Installation happens once per run in ``workflow.main`` via
 In the port the sites are the ingest guard's ``io:<path>``, the
 continuum's ``continuum:fold_committed:<part key>`` (``exc`` there aborts
 a step right after a partition's fold committed, the window a resume
-must cover) and the scheduler's ``node:<name>``, visited before each
+must cover), the scheduler's ``node:<name>``, visited before each
 attempt of a node (``exc`` and ``hang`` fire there; a hang waits on the
-attempt's interrupt, which the watchdog sets).  The port has no backend
-failover yet (ROADMAP.md Queue A, backend failover), which gives ``wedge``
+attempt's interrupt, which the watchdog sets), and the feature server's
+``serve:apply``, visited in each apply attempt of a micro-batch (the
+serve-fault scenario, ``serving/demo.run_serve_fault``).  The port has no
+backend failover yet (ROADMAP.md Queue A, backend failover), which gives ``wedge``
 its outcome (a flip to the CPU and a clean re-run), so :func:`install`
 refuses a plan with a ``wedge`` directive instead of ignoring it.  Every
 injection also lands in the flight recorder's ring (``obs/flight.py``).

@@ -351,6 +351,25 @@ Phases, in order; any failure exits non-zero:
    first the phase whose top mover is the basic report, with a
    schema-valid diagnosis.  Each step's wall is printed on a line of its
    own.
+19. serving (``anovos_tpu_torch.serving``): (a) ``DEMO_CHAIN`` (all ten
+   servable families) fitted on 1,000,000 ``demo_frame`` rows, the bundle
+   exported to a CAS store and read back: B1 launched, every launch held
+   against its plain version on the inputs the fit gave it and timed at
+   the first; (b) a ``FeatureServer`` with 256-row micro-batches and a
+   5 ms window booted with the warm-up of the buckets 8-256: each bucket's
+   wall, launches and new allocator segments printed; (c) 8 client
+   threads send 50 requests each, widths cycling 1, 3, 8, 17, 32: every
+   response byte-equal to its rows in one batch apply of all the load's
+   rows, every 10th also to the batch apply of its own rows alone, and
+   between the warm-up and the load's end no hand-kernel launch and no new
+   CUDA allocator segment; (d) the nine hostile payloads of
+   ``tests/test_serving.py`` refused with their five codes, then a request
+   served equal to its batch apply; (e) the serve-fault scenario
+   (``serving.demo.run_serve_fault``) passing every gate; (f) the CLI's
+   ``smoke --telemetry --clients 2 --requests 10`` in-process.  It prints
+   QPS, p50/p99, the cold start, the bucket walls and the launches beside
+   the card's name and power limit, and leaves no thread, listener,
+   provider or flight recorder arming behind.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -412,7 +431,10 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "sequential_basic": ("masked_moments", "binned_histograms"),
                 "sequential_full": ("masked_moments", "binned_histograms"),
                 "chaos": ("masked_moments",),
-                "run_record": ("masked_moments", "binned_histograms")}
+                "run_record": ("masked_moments", "binned_histograms"),
+                "serving_export": ("masked_moments",),
+                "serving_warm": (),
+                "serving_load": ()}
 # phase 15: the recommender's queries (an industry and a usecase of the
 # corpus, then two misspelt ones the embeddings resolve), the attributes it
 # maps and the descriptions it ranks them against; the chaos run's rows,
@@ -758,6 +780,20 @@ LIVE_MIN_SEGMENTS = 3
 LIVE_HANG_NODE = "anovos_basic_report"
 LIVE_HANG_TIMEOUT = 6
 LIVE_SLEEP_CHUNKS = 300
+# phase 19: the serving fit's rows (the income-shaped demo frame), the
+# server's micro-batch and window, the load's clients and requests a client
+SERVE_FIT_ROWS = 1_000_000
+SERVE_MAX_BATCH = 256
+SERVE_WINDOW_MS = 5.0
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 50
+SERVE_SRC_ROWS = 5_000
+SERVE_SMOKE_ARGS = ("smoke", "--telemetry", "--clients", "2", "--requests", "10")
+# (c) holds every response to one batch apply of all the load's rows and
+# every SERVE_OWN_EVERY-th to the batch apply of its own rows alone (an
+# apply costs ~50 ms of host work at any bucket: 400 of them took 20 s)
+SERVE_OWN_EVERY = 10
+SERVE_THREAD_PREFIX = "anovos-torch-serve"
 PROFILE_KERNEL_NAMES = {"masked_moments": "moments_kernel", "binned_histograms": "hist_kernel"}
 PROFILE_KERNEL_CAT = "kernel"
 RANGE_SLACK_US = 500.0
@@ -6476,6 +6512,258 @@ def phase_live_plane(torch, record: dict, runner: dict, root: str) -> dict:
     return out
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def serving_leftovers() -> list:
+    """What a closed server must not leave in the process: serving threads,
+    the live plane's listener, the serving provider, the flight recorder's
+    arming."""
+    import threading
+
+    from anovos_tpu_torch.obs import flight, telemetry
+
+    left = sorted(t.name for t in threading.enumerate() if t.name.startswith(SERVE_THREAD_PREFIX))
+    if telemetry.current() is not None:
+        left.append("telemetry listener")
+    if "serving" in telemetry._providers():
+        left.append("serving provider")
+    if flight.enabled():
+        left.append("flight recorder armed")
+    return left
+
+
+def apply_split(torch, program, frame, reps: int = 5) -> dict:
+    """Where one apply of ``frame`` spends its wall: the upload
+    (``Table.from_pandas``), each stage of the chain, the download
+    (``to_pandas``), each ending in a device sync; the median of ``reps``
+    applies, in ms."""
+    from anovos_tpu_torch.shared.table import Table
+
+    walls: dict = {}
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        walls.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        t = Table.from_pandas(frame)
+        lap("from_pandas", t0)
+        for i, ft in enumerate(program.transformers):
+            t0 = time.perf_counter()
+            t = ft.apply(t)
+            lap(f"{i}:{ft.family}", t0)
+        t0 = time.perf_counter()
+        t.to_pandas()
+        lap("to_pandas", t0)
+    return {k: round(float(np.median(v)), 3) for k, v in walls.items()}
+
+
+def phase_serving(torch, seed: int) -> dict:
+    """Phase 19: (a)-(f) of the module docstring."""
+    import contextlib
+    import io
+
+    import pandas as pd
+
+    from anovos_tpu_torch.data_ingest import guard
+    from anovos_tpu_torch.obs import flight, telemetry
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.resilience.policy import reset_degraded
+    from anovos_tpu_torch.serving import (ApplyProgram, FeatureServer, coerce_payload, fit_bundle,
+                                          frame_to_payload, load_bundle, save_bundle)
+    from anovos_tpu_torch.serving.__main__ import drive, main as serving_main, smoke_payloads
+    from anovos_tpu_torch.serving.demo import DEMO_CHAIN, demo_frame, run_serve_fault
+    from anovos_tpu_torch.shared.runtime import get_runtime
+    from anovos_tpu_torch.shared.table import Table
+
+    t_phase = time.perf_counter()
+    # the runner's runs of phases 9-18 leave the flight recorder armed on
+    # their obs dir, since removed, and their degraded sections, quarantined
+    # parts and heartbeats in the registries /healthz folds: the servers
+    # below arm their own recorder, and the serve-fault gates read /healthz
+    flight.reset()
+    reset_degraded()
+    guard.reset()
+    telemetry.clear_heartbeat()
+    check(serving_leftovers() == [], f"serving: the process holds {serving_leftovers()} before the phase")
+    tmp = tempfile.mkdtemp(prefix="anovos_serving_")
+    out = {"fit_rows": SERVE_FIT_ROWS, "max_batch": SERVE_MAX_BATCH, "window_ms": SERVE_WINDOW_MS}
+    launches = {}
+    try:
+        # (a) fit on the card, export, read back
+        t0 = time.perf_counter()
+        df = demo_frame(SERVE_FIT_ROWS, seed=7)
+        table = Table.from_pandas(df)
+        check(on_card([table]), "serving: the fit's Table is not on the card")
+        setup_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        with KernelInputs(torch) as given:
+            t0 = time.perf_counter()
+            bundle = fit_bundle(table, DEMO_CHAIN, source="chip_smoke")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        launches["serving_export"] = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        cache = os.path.join(tmp, "cache")
+        version = save_bundle(bundle, cache)
+        loaded = load_bundle(cache, version)
+        export_s = time.perf_counter() - t0
+        check(loaded.doc == bundle.doc and [s["family"] for s in loaded.chain] == [n for n, _ in DEMO_CHAIN],
+              "serving: the bundle read back differs from the one exported")
+        check(loaded.doc["schema"]["fit_rows"] == SERVE_FIT_ROWS, "serving: fit_rows")
+        for name in PATH_KERNELS["serving_export"]:
+            check(launches["serving_export"][name] > 0, f"kernel {name} was not launched by the serving fit")
+        held = held_to_plain(torch, given, launches["serving_export"], "serving fit")
+        Xc, Mc = given.seen["masked_moments"][0]
+        b1 = b1_row(torch, Xc, Mc, "serving_export", "the first fit's block")
+        del given, table, df
+        out["a"] = {"setup_s": setup_s, "fit_s": fit_s, "export_read_s": export_s, "version": version,
+                    "launches": launches["serving_export"], "held": held}
+        print(f"serving: (a) DEMO_CHAIN fitted on {SERVE_FIT_ROWS:,} rows in {fit_s:.3f} s (frame and "
+              f"upload {setup_s:.3f} s), exported and read back in {export_s:.3f} s, bundle {version[:12]}; "
+              f"launches {launches['serving_export']}, each held to plain ({held})", flush=True)
+
+        # (b) boot and warm
+        kernels.reset_launches()
+        program = ApplyProgram(loaded)
+        server = FeatureServer(program, window_ms=SERVE_WINDOW_MS, max_batch=SERVE_MAX_BATCH,
+                               obs_dir=os.path.join(tmp, "server"))
+        server.start(warm=True)
+        try:
+            launches["serving_warm"] = dict(kernels.LAUNCHES)
+            warm = program.warm_stats
+            check(warm["buckets"] == [8, 16, 32, 64, 128, 256], f"serving: buckets {warm['buckets']}")
+            out["b"] = {"cold_start_s": server.cold_start_s, "warm": warm}
+            print(f"serving: (b) cold start {server.cold_start_s:.3f} s (warm-up {warm['warm_wall_s']:.3f} s): "
+                  f"bucket walls {warm['wall_s_per_bucket']}, launches {warm['launches_per_bucket']}, new "
+                  f"allocator segments {warm['segments_per_bucket']}", flush=True)
+
+            # (c) the load, then every response against its own batch apply
+            src = demo_frame(SERVE_SRC_ROWS, seed=11)[loaded.input_names]
+            payloads = smoke_payloads(src, SERVE_CLIENTS * SERVE_REQUESTS)
+            kernels.reset_launches()
+            mark = program.device_counters()
+            wall, results = drive(server, payloads, SERVE_CLIENTS)
+            after = program.device_counters()
+            launches["serving_load"] = dict(kernels.LAUNCHES)
+            stats = server.stats()
+            check(after == mark and not any(launches["serving_load"].values()),
+                  f"serving: after the warm-up the load launched {launches['serving_load']} and added "
+                  f"{after[1] - mark[1]} allocator segment(s)")
+            t0 = time.perf_counter()
+            frames = []
+            for i, (p, resp) in enumerate(zip(payloads, results)):
+                check(resp is not None and "error" not in resp, f"serving: request {i} failed: {resp}")
+                frame, err = coerce_payload(program.input_columns, p, SERVE_MAX_BATCH)
+                check(err is None, f"serving: request {i} does not coerce: {err}")
+                frames.append(frame)
+                if i % SERVE_OWN_EVERY == 0:
+                    check(resp["columns"] == frame_to_payload(program.apply_frame(frame)),
+                          f"serving: response {i} differs from the batch apply of its own rows")
+            whole = program.apply_frame(pd.concat(frames, ignore_index=True))
+            offset = 0
+            for i, (frame, resp) in enumerate(zip(frames, results)):
+                part = whole.iloc[offset:offset + len(frame)].reset_index(drop=True)
+                offset += len(frame)
+                check(resp["columns"] == frame_to_payload(part),
+                      f"serving: response {i} differs from the batch apply of the load's rows")
+            parity_s = time.perf_counter() - t0
+            split = apply_split(torch, program, program.pad_frame(frames[4], SERVE_MAX_BATCH))
+            qps = len(payloads) / wall
+            out["c"] = {"requests": len(payloads), "clients": SERVE_CLIENTS, "wall_s": wall, "qps": qps,
+                        "rows": offset, "own_apply_checked": len(range(0, len(payloads), SERVE_OWN_EVERY)),
+                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"], "parity_s": parity_s,
+                        "segments_after_parity": program.device_counters()[1] - mark[1],
+                        "apply_split_ms": split}
+            print(f"serving: (c) {len(payloads)} requests from {SERVE_CLIENTS} clients in {wall:.3f} s: "
+                  f"{qps:.1f} QPS, p50 {stats['p50_ms']} ms, p99 {stats['p99_ms']} ms; every response equal "
+                  f"to the batch apply of the load's {offset:,} rows, every {SERVE_OWN_EVERY}th to the apply of "
+                  f"its own (checked in {parity_s:.2f} s); no launch and no new allocator segment after the "
+                  f"warm-up", flush=True)
+            print(f"serving: (c) one {SERVE_MAX_BATCH}-row apply, median of 5, ms: {split} (sum "
+                  f"{sum(split.values()):.3f})", flush=True)
+
+            # (d) hostile payloads, then a correct answer
+            cols = payloads[1]["columns"]
+            two = {k: v[:2] for k, v in cols.items()}
+            hostile = [
+                ("hostile_values", {"columns": {**two, "age": [float("inf"), 1.0]}}),
+                ("hostile_values", {"columns": {**two, "age": [1e39, None]}}),
+                ("schema_drift", {"columns": {**two, "bogus": [1.0, 2.0]}}),
+                ("schema_drift", {"columns": {k: v for k, v in two.items() if k != "age"}}),
+                ("wrong_dtype", {"columns": {**two, "age": ["nope", 1.0]}}),
+                ("wrong_dtype", {"columns": {**two, "workclass": [1.0, 2.0]}}),
+                ("bad_shape", {"columns": {**two, "age": [1.0]}}),
+                ("bad_shape", {"columns": frame_to_payload(pd.concat([src.iloc[:SERVE_MAX_BATCH]] * 2,
+                                                                     ignore_index=True))}),
+                ("bad_request", {"rows": [1, 2]}),
+            ]
+            q0 = server.stats()["quarantined"]
+            for code, payload in hostile:
+                resp = server.serve(payload)
+                check("error" in resp and resp["error"]["code"] == code, f"serving: hostile {code}: {resp}")
+            ok = {"columns": two}
+            resp = server.serve(ok)
+            frame, _ = coerce_payload(program.input_columns, ok, SERVE_MAX_BATCH)
+            check("error" not in resp and resp["columns"] == frame_to_payload(program.apply_frame(frame)),
+                  "serving: a request after the hostile ones differs from its batch apply")
+            check(server.stats()["quarantined"] - q0 == len(hostile), "serving: quarantine count")
+            out["d"] = {"refused": len(hostile), "codes": sorted({c for c, _ in hostile})}
+            print(f"serving: (d) {len(hostile)} hostile payloads refused with codes {out['d']['codes']}; "
+                  f"the next request served equal to its batch apply", flush=True)
+        finally:
+            server.close()
+        check(serving_leftovers() == [], f"serving: the closed server left {serving_leftovers()}")
+
+        # (e) the serve-fault scenario
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rec = run_serve_fault(os.path.join(tmp, "serve_fault"))
+        fault_s = time.perf_counter() - t0
+        check(rec["ok"], f"serving: serve-fault: {rec.get('error')}")
+        check(serving_leftovers() == [], f"serving: the serve-fault scenario left {serving_leftovers()}")
+        out["e"] = {k: rec[k] for k in ("gates", "injections", "clean_p99_ms", "chaos_p99_ms", "quarantined",
+                                        "served_after_fatal", "flightrec", "chaos_healthz_reasons")}
+        out["e"].update({"wall_s": fault_s, "launches": dict(kernels.LAUNCHES)})
+        print(f"serving: (e) serve-fault in {fault_s:.2f} s: every gate passed {sorted(rec['gates'])}; "
+              f"p99 clean {rec['clean_p99_ms']} ms, chaos {rec['chaos_p99_ms']} ms (bound "
+              f"{rec['p99_bound_ms']:.0f}); dumps {[d['file'] for d in rec['flightrec']]}", flush=True)
+
+        # (f) the CLI in-process
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serving_main([*SERVE_SMOKE_ARGS, "--workdir", os.path.join(tmp, "cli")])
+        cli_s = time.perf_counter() - t0
+        smoke = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and smoke["serve_parity_ok"] and smoke["serve_errors"] == 0
+              and smoke["backend"] == get_runtime().device.type, f"serving: smoke CLI rc {rc}: {smoke}")
+        check(smoke["scrape_failures"] == 0 and smoke["healthz_status"] == "ok"
+              and smoke["serve_errors_with_telemetry"] == 0, f"serving: smoke --telemetry: {smoke}")
+        check(serving_leftovers() == [], f"serving: the smoke CLI left {serving_leftovers()}")
+        out["f"] = {"wall_s": cli_s, **{k: smoke[k] for k in (
+            "serve_qps", "serve_p50_ms", "serve_p99_ms", "serve_cold_start_s", "serve_requests",
+            "telemetry_overhead_pct", "scrape_p50_ms", "scrape_p99_ms", "scrape_count")}}
+        print(f"serving: (f) python -m anovos_tpu_torch.serving {' '.join(SERVE_SMOKE_ARGS)} in-process in "
+              f"{cli_s:.2f} s: {json.dumps(out['f'])}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["kernels"] = {"masked_moments": [b1]}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving: {card_line()}: {out['c']['qps']:.1f} QPS, p50 {out['c']['p50_ms']} ms, p99 "
+          f"{out['c']['p99_ms']} ms, cold start {out['b']['cold_start_s']:.3f} s, bucket walls "
+          f"{out['b']['warm']['wall_s_per_bucket']}; launches {launches}; phase 19 in {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -6676,11 +6964,16 @@ def main() -> None:
         shutil.rmtree(runs_root, ignore_errors=True)
     print("node_cache " + json.dumps({k: v for k, v in node_cache.items() if k != "launches"}), flush=True)
     print("live_plane " + json.dumps({k: v for k, v in live.items() if k != "launches"}), flush=True)
+    serving = phase_serving(torch, args.seed)
+    serving_kernels = serving.pop("kernels")
+    print("serving " + json.dumps({k: v for k, v in serving.items() if k != "launches"}), flush=True)
+    lap("19 serving")
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
     kres["masked_moments"]["other_shapes"] += runner_kernels["masked_moments"]
     kres["masked_moments"]["other_shapes"] += transform_kernels["masked_moments"]
+    kres["masked_moments"]["other_shapes"] += serving_kernels["masked_moments"]
     kres["binned_histograms"]["other_shapes"] = ([quality_kernels["binned_histograms"]]
                                                  + runner_kernels["binned_histograms"]
                                                  + transform_kernels["binned_histograms"])
@@ -6705,13 +6998,12 @@ def main() -> None:
                                                      "chaos": execu["chaos"]["launches"],
                                                      "run_record": record["launches"],
                                                      "node_cache": node_cache["launches"],
-                                                     "live_plane": live["launches"]}, sass)
+                                                     "live_plane": live["launches"],
+                                                     **serving["launches"]}, sass)
     print("phase walls " + json.dumps(walls), flush=True)
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(result_line(torch), flush=True)
 
 

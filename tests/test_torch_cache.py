@@ -226,6 +226,10 @@ OUTSIDE_NODE_BODIES = {
         "the recommender, which no runner block calls",
     ("feature_recommender/featrec_init.py", "_EmbeddingModel.__init__", "FR_BACKEND"): "as FR_CORPUS_PATH",
     ("feature_recommender/featrec_init.py", "detect_model_path", "FR_MODEL_PATH"): "as FR_CORPUS_PATH",
+    ("serving/server.py", "FeatureServer.__init__", "ANOVOS_SERVE_BATCH_WINDOW_MS"):
+        "the feature server's batcher, which no runner block starts",
+    ("serving/server.py", "FeatureServer.__init__", "ANOVOS_SERVE_MAX_BATCH"): "as the batch window",
+    ("serving/program.py", "ApplyProgram.__init__", "ANOVOS_SERVE_BF16"): "refused where a server builds its program",
 }
 
 

@@ -187,6 +187,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     # the version the manifest records
     assert {f"anovos_tpu_torch/{m}.py" for m in (
         "obs/__init__", "obs/tracing", "obs/timed", "obs/devprof", "obs/manifest", "version")} <= rel
+    # the serving slice: the bundle, the apply program, the server, the demo
+    # and its serve-fault scenario, the CLI
+    assert {f"anovos_tpu_torch/serving/{m}.py" for m in (
+        "__init__", "__main__", "bundle", "demo", "program", "server")} <= rel
     assert (REPO / "anovos_tpu_torch" / "feature_recommender" / "data" / "corpus.jsonl").is_file()
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad

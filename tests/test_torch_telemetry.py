@@ -1,7 +1,7 @@
 """The port's live telemetry plane (``anovos_tpu_torch/obs/telemetry.py``,
 ``MetricsRegistry.expose_text`` and trace rotation) against the JAX
 package's, case by case as ``tests/test_telemetry.py`` holds the JAX one
-(its ``FeatureServer`` case waits for the port's serving):
+(its ``FeatureServer`` timeout case is in ``tests/test_torch_serving.py``):
 
 * the Prometheus text: deterministic, escaped, and byte-equal to JAX's
   for the same instrument calls, through ``expose_text`` and
@@ -14,7 +14,9 @@ package's, case by case as ``tests/test_telemetry.py`` holds the JAX one
 * trace rotation: ``rotation_spec`` as JAX parses it, the union of the
   segments equal to one uninterrupted export, a failed export requeued;
 * the continuum loop and the runner with ``ANOVOS_TPU_TELEMETRY`` and
-  ``ANOVOS_TPU_TRACE_ROTATE`` set, against the JAX runner's segments.
+  ``ANOVOS_TPU_TRACE_ROTATE`` set, against the JAX runner's segments;
+* a live ``FeatureServer``'s serving provider on ``/metrics``,
+  ``/statusz`` and ``/healthz``, healthy and after a fatal micro-batch.
 
 Ports come from the OS (port 0).  Every test leaves no thread behind
 (``_no_thread_left``), and the plane's threads never take a JAX thread's
@@ -428,6 +430,57 @@ def test_cleared_heartbeat_drops_its_gauge_series():
         assert 'name="gone_svc"' not in _get(srv.port, "/metrics")[1]
     finally:
         telemetry.release(srv)
+
+
+def test_feature_server_provider_on_the_live_plane(tmp_path, monkeypatch):
+    """A server started under ANOVOS_TPU_TELEMETRY holds the listener and
+    serves its provider: the serving families in /metrics, its section of
+    /statusz, and /healthz ok, then degraded naming a micro-batch that failed
+    after its retry (with its serve_fatal dump); close() lets all of it go."""
+    from anovos_tpu_torch.obs import flight
+    from anovos_tpu_torch.resilience import chaos
+    from anovos_tpu_torch.serving import ApplyProgram, FeatureServer, fit_bundle, frame_to_payload
+    from anovos_tpu_torch.serving.demo import DEMO_CHAIN, demo_frame
+    from anovos_tpu_torch.shared.table import Table
+
+    flight.reset()  # a runner's run earlier in this worker leaves it armed elsewhere
+    df = demo_frame(200, seed=5)
+    bundle = fit_bundle(Table.from_pandas(df, device="cpu"), DEMO_CHAIN)
+    program = ApplyProgram(type(bundle)(doc=bundle.doc, version=bundle.version))
+    payload = {"columns": frame_to_payload(df[bundle.input_names].iloc[:3])}
+    monkeypatch.setenv("ANOVOS_TPU_TELEMETRY", str(free_port()))
+    server = FeatureServer(program, window_ms=2, max_batch=16, obs_dir=str(tmp_path))
+    server.start(warm=False)
+    try:
+        srv = telemetry.current()
+        assert srv is not None and srv.port == int(os.environ["ANOVOS_TPU_TELEMETRY"])
+        for _ in range(3):
+            assert "error" not in server.serve(payload)
+        _, body = _get(srv.port, "/metrics")
+        for fam in ("serve_batches_total", 'serve_rolling_qps{window="60s"}', 'serve_rolling_p99_ms{window="60s"}',
+                    "serve_queue_depth 0.0", "serve_request_seconds_bucket"):
+            assert fam in body, fam
+        code, body = _get(srv.port, "/statusz")
+        section = json.loads(body)["providers"]["serving"]
+        assert code == 200 and section["served"] == 3 and section["rolling"]["60s"]["count"] == 3
+        assert section["inflight_batch"] is None and section["last_fatal"] is None
+        code, body = _get(srv.port, "/healthz")
+        assert code == 200 and json.loads(body)["status"] == "ok"
+        chaos.install("exc@serve:apply:n=2")
+        assert server.serve(payload)["error"]["code"] == "apply_failed"
+        doc = json.loads(_get(srv.port, "/healthz")[1])
+        assert doc["status"] == "degraded"
+        assert any(r.startswith("serving: micro-batch of 3 row(s) (1 request(s)) failed after retry")
+                   for r in doc["reasons"])
+        section = json.loads(_get(srv.port, "/statusz")[1])["providers"]["serving"]
+        assert section["failed_batches"] == 1 and section["last_fatal"]["rows"] == 3
+        assert [os.path.basename(p) for p in flight.dump_paths()] == ["flightrec_serving_apply.json"]
+    finally:
+        chaos.reset()
+        server.close()
+    assert telemetry.current() is None and "serving" not in telemetry._providers()
+    assert not flight.enabled()
+    assert (tmp_path / "obs" / "flightrec_serving_apply.json").is_file()
 
 
 # ---------------------------------------------------------------------------
