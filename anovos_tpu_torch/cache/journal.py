@@ -5,8 +5,12 @@ One JSON line per event, ``{"event": ..., "t": ..., **fields}`` with
 sorted keys.  The runner's ``obs/run_journal.jsonl`` records the node
 cache's lifecycle: ``run_begin``, ``node_begin`` (a miss, about to
 execute), ``node_commit`` (artifacts committed to the store),
-``node_restored`` (a hit), ``node_failed``, ``run_end``, and the
-ingest guard's ``part_quarantined``.  The streaming checkpoints
+``node_restored`` (a hit), ``node_failed``, ``run_end``, the ingest
+guard's ``part_quarantined``, and the resilience records: ``node_retry``
+(``kind`` tells a policy retry from the escalated-timeout and the
+post-failover re-execution), ``node_degraded``, and ``backend_failover``
+(the mid-run flip to the CPU: the committed frontier above this line is
+what the rest of the run keeps).  The streaming checkpoints
 (``ops/streaming.StreamCheckpoint``) write ``run_begin``, ``chunk_begin``,
 ``chunk_commit``, ``chunks_invalidated`` and ``chunk_spilled`` into their
 own ``stream_journal.jsonl``; the continuum's state writes its own

@@ -4,16 +4,18 @@ synchronous dump of everything the process knows.
 
 The ring holds every write-ahead journal append (``cache/journal.py``),
 every chaos injection (``resilience/chaos.py``), every part the ingest
-guard quarantines (``data_ingest/guard.py``) and the scheduler's retries.
+guard quarantines (``data_ingest/guard.py``), the scheduler's retries and
+a journal-less run's backend failover (``resilience/failover.py``).
 The continuum's alerts attach its tail (``continuum/alerts.py``).
 
-The scheduler dumps at three of the JAX package's four triggers: a
-watchdog **timeout escalation**, an **abandonment** (and the fatal
-timeout after an escalated bound), and a **fatal error** of a raise-mode
-node.  The fourth, the backend failover, waits for the failover itself
-(ROADMAP.md Queue A, backend failover).  The feature server
-(``serving/server.py``) dumps at **serve_fatal**, a micro-batch whose
-apply failed after its retry.  A dump goes to
+The scheduler dumps at the JAX package's four triggers: a watchdog
+**timeout escalation**, an **abandonment** (and the fatal timeout after
+an escalated bound), a **fatal error** of a raise-mode node, and a
+**backend failover** (``resilience/failover.py`` flipped the runtime to
+the CPU, on a node's failure or at the watchdog's forced probe; the dump
+carries the card's state before the flip as ``pre_flip``).  The feature
+server (``serving/server.py``) dumps at **serve_fatal**, a micro-batch
+whose apply failed after its retry.  A dump goes to
 ``<obs_dir>/flightrec_<node>.json`` by tmp file, fsync and rename, never
 through the async writer (the process may be about to die), and never
 over an earlier dump of the same node (``_2``, ``_3``, ...).  It holds the

@@ -113,8 +113,9 @@ def build_manifest(
         "metrics": metrics_snapshot,
         "compile_census": compile_census,
         "cache": cache,
-        # recovery record: retries, timeout escalations, degraded sections
-        # (node -> failure reason), quarantined parts and the chaos plan
+        # recovery record: retries by kind (failover_retries among them),
+        # timeout escalations, backend failovers, degraded sections (node ->
+        # failure reason), quarantined parts and the chaos plan
         "resilience": resilience,
         # per-node device-time split (obs.devprof)
         "devprof": devprof,

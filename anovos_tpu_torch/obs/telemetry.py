@@ -63,7 +63,6 @@ CONN_THREAD = "anovos-torch-telemetry-conn"
 # knobs of layers the port does not have yet: what each asks for and the
 # ROADMAP.md Queue A item, by its name, that ports it
 UNPORTED_KNOBS = {
-    "ANOVOS_TPU_HEALTH_TIMEOUT": ("the backend failover's health probe", "backend failover"),
     "ANOVOS_TPU_PLACEMENT": ("multi-device placement", "multi-device"),
 }
 
@@ -289,8 +288,9 @@ def health(now: Optional[float] = None) -> dict:
     """The health document: the worst of the degradation registry, the
     quarantine, the chaos wedge flag, heartbeat staleness and every
     provider's fragment.  Never raises: a probe that fails becomes a
-    reason.  The port has no backend failover, so ``backend.failovers`` is
-    always 0."""
+    reason.  ``backend.failovers`` is this run's flips to the CPU
+    (``resilience.failover.failover_count``); a flip makes the run
+    degraded."""
     status = "ok"
     reasons: List[str] = []
 
@@ -321,11 +321,15 @@ def health(now: Optional[float] = None) -> dict:
         worsen("degraded", f"health probe quarantine failed: {type(e).__name__}: {e}")
     try:
         from anovos_tpu_torch.resilience import chaos
+        from anovos_tpu_torch.resilience.failover import failover_count
 
         wedged = chaos.backend_wedged()
-        doc["backend"] = {"wedged": wedged, "failovers": 0}
+        flips = failover_count()
+        doc["backend"] = {"wedged": wedged, "failovers": flips}
         if wedged:
             worsen("unhealthy", "backend wedged (dispatch unresponsive)")
+        elif flips:
+            worsen("degraded", f"backend failed over to CPU {flips}x this run")
     except Exception as e:
         worsen("degraded", f"health probe backend failed: {type(e).__name__}: {e}")
     beats = heartbeat_ages(now=now)

@@ -22,17 +22,34 @@ time, so one block's device compute overlaps another's host work.
   an exhausted ``retry:N:degrade`` node records itself in the degradation
   registry (the report's Degraded Sections tab reads it) and the run goes
   on.  Before each attempt the executor visits the chaos site
-  ``node:<name>`` (``resilience.chaos``: ``exc`` and ``hang`` fire there).
+  ``node:<name>`` (``resilience.chaos``: ``exc``, ``hang`` and ``wedge``
+  fire there).
+* **Backend failover** (``resilience.failover``).  A failure that looks
+  backend-shaped (a CUDA error, a chaos wedge) pays a bounded health
+  probe of the card; an unhealthy verdict flips the runtime to the CPU
+  once for the run, and the failed node gets one re-execution outside its
+  retry budget (``failover_retry``).  The precedence on a failed attempt:
+  the timeout re-execution, then the failover re-execution, then policy
+  retries, then degradation.  Re-execution of any kind applies only to
+  retry-mode nodes: a ``raise``/``continue`` node opted out, and a
+  failover still flips the runtime for the rest of the run while its own
+  error follows the declared policy.  Before a possible flip the executor
+  samples the card (``_backend_state``: the device, the allocator's bytes
+  in use, read without a device sync, and the wedge flag), which the
+  ``backend_failover`` flight dump carries as ``pre_flip``.
 * **Hang watchdog with escalation** (concurrent mode).  ``node_timeout``
-  bounds any single attempt.  A node's FIRST expiry interrupts the
-  attempt (the per-attempt ``interrupt`` event a chaos hang waits on) and
+  bounds any single attempt.  A node's FIRST expiry writes its flight
+  dump, then interrupts the attempt (the per-attempt ``interrupt`` event a
+  chaos hang waits on, fresh for every attempt) and
   re-allows it under the bound times ``policy.timeout_factor``; a retry
   node re-executes once after such an interrupt.  When the escalated
-  bound also expires, a ``retry:N:degrade`` node is abandoned (its
-  interrupt is set again, so a cooperative hang unwinds; a thread stuck
-  elsewhere leaks as a daemon; a replacement worker keeps the pool's
-  width) and degraded; any other node ends the run with
-  :class:`NodeTimeout` naming the block.
+  bound also expires, the executor first pays a forced health probe
+  outside its lock: a wedged card flips to the CPU and the node gets one
+  more bound to unwind into its failover re-execution.  Otherwise a
+  ``retry:N:degrade`` node is abandoned (its interrupt is set again, so a
+  cooperative hang unwinds; a thread stuck elsewhere leaks as a daemon; a
+  replacement worker keeps the pool's width) and degraded; any other node
+  ends the run with :class:`NodeTimeout` naming the block.
 * **CUDA streams.**  In concurrent mode on the card every node whose
   placement is not ``host`` runs under ``torch.cuda.stream`` of its
   worker, and its stream is synchronized before the attempt ends.  Worker
@@ -42,7 +59,12 @@ time, so one block's device compute overlaps another's host work.
   stream never reads an unfinished df version, and a tensor that a node
   drops cannot be handed by the caching allocator to another stream while
   this node's kernels still read it.  Host nodes take no stream.
-  Sequential mode runs every node on the caller's current stream.
+  Sequential mode runs every node on the caller's current stream.  The
+  card is taken at run start, but each attempt reads the live runtime:
+  after a flip to the CPU (``runtime_generation()`` moved), an attempt
+  takes no worker stream and no drain.  Each attempt is pinned to the
+  runtime it started on (``shared.runtime.pinned_runtime``), so a node
+  still on its stream from before a flip finishes there, on the card.
 * **Run record.**  Each node runs inside its tracer span (``deps``,
   ``queue_wait_s``, ``lane``, ``scheduler``) and its devprof bracket
   (``obs/devprof.py``), and books ``node_wall_seconds`` and
@@ -81,14 +103,13 @@ time, so one block's device compute overlaps another's host work.
   (``/statusz``, and the ``scheduler_inflight_nodes`` and
   ``scheduler_ready_queue_depth`` gauges of ``/metrics``), and the flight
   recorder (``obs/flight.py``, armed by ``workflow.main``) dumps it at a
-  raise-mode node's fatal error, a watchdog escalation, an abandonment and
-  a fatal timeout, each dump outside the scheduler's lock.
+  raise-mode node's fatal error, a watchdog escalation, an abandonment, a
+  fatal timeout and a backend failover (on the failure path and on the
+  watchdog's), each dump outside the scheduler's lock.
 
-The JAX executor's two ``backend_failover`` dumps wait for the backend
-failover (ROADMAP.md Queue A, backend failover), and its lanes, with the
-rendezvous holders a dump names, for multi-device (Queue A,
-multi-device): nothing here stands in for them, so ``rendezvous_holders``
-is always empty.
+The JAX executor's lanes, with the rendezvous holders a dump names, wait
+for multi-device (ROADMAP.md Queue A, multi-device): nothing here stands
+in for them, so ``rendezvous_holders`` is always empty.
 """
 
 from __future__ import annotations
@@ -104,7 +125,9 @@ from anovos_tpu_torch.cache import capture
 from anovos_tpu_torch.cache.fingerprint import digest
 from anovos_tpu_torch.obs import devprof, flight, get_metrics, get_tracer, telemetry
 from anovos_tpu_torch.parallel.placement import Placement, parse_placement
+from anovos_tpu_torch.resilience import failover
 from anovos_tpu_torch.resilience.policy import ErrorPolicy, parse_policy
+from anovos_tpu_torch.shared.runtime import peek_runtime, pinned_runtime, runtime_generation
 
 logger = logging.getLogger(__name__)
 
@@ -142,7 +165,8 @@ class Node:
         "cache", "fingerprint", "cached", "rec",
         "placement", "on_stream",
         "policy", "attempts", "attempt_start", "interrupt",
-        "timeout_retried", "escalated", "degraded", "abandoned",
+        "timeout_retried", "failover_retried", "failover_granted",
+        "escalated", "degraded", "abandoned",
     )
 
     def __init__(self, name: str, fn: Callable[[], None], reads, writes,
@@ -172,6 +196,8 @@ class Node:
         self.attempt_start = 0.0    # monotonic start of the CURRENT attempt
         self.interrupt = threading.Event()  # per-attempt cooperative interrupt
         self.timeout_retried = False   # the one escalated-bound re-execution
+        self.failover_retried = False  # the one post-failover re-execution
+        self.failover_granted = False  # the watchdog flipped while this node ran
         self.escalated = False      # watchdog raised this node's bound once
         self.degraded = False       # retries exhausted; section marked degraded
         self.abandoned = False      # watchdog gave up on a stuck attempt
@@ -237,9 +263,11 @@ class DagScheduler:
         self._cache_lock = threading.Lock()
         self._cache_stats = {"hits": 0, "misses": 0, "restore_s": 0.0}
         self._res_lock = threading.Lock()
-        self._res_stats = {"retries": 0, "timeout_retries": 0, "timeout_escalations": 0}
+        self._res_stats = {"retries": 0, "timeout_retries": 0, "failover_retries": 0,
+                           "timeout_escalations": 0}
         self._device = None          # the card, when nodes run on streams
         self._drain_device = None    # the card, when sequential nodes drain
+        self._generation = 0         # the runtime generation the card was taken at
         self._devprof_drain = True   # book drains as device time
         self._worker = threading.local()  # each worker thread's slot
         self._running: Dict[str, Node] = {}  # the live view's in-flight nodes
@@ -331,10 +359,9 @@ class DagScheduler:
         # mode ANOVOS_TPU_DEVPROF=full opts in to booking it
         self._devprof_drain = (mode == "sequential"
                                or os.environ.get("ANOVOS_TPU_DEVPROF", "") == "full")
-        from anovos_tpu_torch.shared.runtime import peek_runtime
-
         rt = peek_runtime()  # never pick a device just to run a graph
         card = rt.device if rt is not None and rt.device.type == "cuda" else None
+        self._generation = runtime_generation()
         # the live plane reads this run's view (one dict insert; nothing
         # runs unless a scrape comes)
         telemetry.register_provider("scheduler", statusz=self.live_state, metrics=self._telemetry_gauges)
@@ -406,7 +433,11 @@ class DagScheduler:
     def _node_scope(self, node: Node):
         """The worker's CUDA stream for a device node in a concurrent run
         on the card; the drain of the current stream for any node in a
-        sequential run on the card; nothing otherwise."""
+        sequential run on the card; nothing otherwise, and nothing once the
+        runtime has left the card: a flip to the CPU (any ``init_runtime``)
+        moves the generation the card was taken at (read per attempt)."""
+        if runtime_generation() != self._generation:
+            return contextlib.nullcontext()
         if self._drain_device is not None:
             import torch
 
@@ -470,13 +501,14 @@ class DagScheduler:
     # -- resilience --------------------------------------------------------
     def _run_attempts(self, node: Node) -> None:
         """Execute the node body under its error policy: chaos injection
-        site, the one escalated-timeout re-execution, bounded retries with
-        backoff, and terminal degradation, in that precedence order."""
+        site, the one escalated-timeout re-execution, the one post-failover
+        re-execution, bounded retries with backoff, and terminal
+        degradation, in that precedence order."""
         from anovos_tpu_torch.resilience import chaos
         from anovos_tpu_torch.resilience import policy as rpolicy
 
         pol = node.policy
-        # re-execution of either kind is only sound for retry-mode nodes: a
+        # re-execution of any kind is only sound for retry-mode nodes: a
         # node registered "raise"/"continue" opted out (e.g. the stability
         # node, whose cross-run metric-file appends could double-book)
         retryable = pol.mode == "retry"
@@ -484,10 +516,14 @@ class DagScheduler:
         while True:
             node.attempts += 1
             node.attempt_start = time.monotonic()
-            if node.interrupt.is_set():
-                node.interrupt = threading.Event()  # fresh event per attempt
+            # a fresh event per attempt: the watchdog sets the one of the
+            # attempt it escalated, which may be a finished attempt's
+            node.interrupt = threading.Event()
             try:
-                with self._node_scope(node):
+                # the scope is entered per attempt: a post-failover
+                # re-execution must not take the flipped card's stream, and
+                # an attempt in flight at a flip finishes on its card
+                with pinned_runtime(), self._node_scope(node):
                     chaos.chaos_point(f"node:{node.name}", interrupt=node.interrupt)
                     self._run_body(node)
                 return
@@ -503,14 +539,33 @@ class DagScheduler:
                     self._note_retry(node, e, kind="timeout_retry")
                     self._discard_partial(node)
                     continue
-                # 2) policy retries with exponential backoff + jitter
+                # 2) backend failover: a wedge (the chaos flag, a
+                #    backend-shaped error and a failed probe, or the
+                #    watchdog flipped while this node ran: failover_granted)
+                #    earns one re-execution outside the budget; the node
+                #    never had a healthy card to run on
+                pre_flip = self._backend_state()
+                flipped = self._maybe_failover(node, e)
+                if flipped:
+                    # the dump runs after the flip: the card's state before
+                    # it rides along explicitly
+                    self._flight_dump("backend_failover", node,
+                                      extra={"error": repr(e)[:300], "pre_flip": pre_flip})
+                flipped = flipped or node.failover_granted
+                node.failover_granted = False
+                if retryable and flipped and not node.failover_retried:
+                    node.failover_retried = True
+                    self._note_retry(node, e, kind="failover_retry")
+                    self._discard_partial(node)
+                    continue
+                # 3) policy retries with exponential backoff + jitter
                 if retries_left > 0:
                     retries_left -= 1
                     self._note_retry(node, e, kind="retry")
                     self._discard_partial(node)
                     time.sleep(rpolicy.backoff_delay(node.name, node.attempts, pol))
                     continue
-                # 3) exhausted: degrade (the run continues, the section is
+                # 4) exhausted: degrade (the run continues, the section is
                 #    marked) or propagate to _execute's raise/continue
                 if pol.mode == "retry" and pol.on_exhausted == "degrade":
                     node.degraded = True
@@ -533,6 +588,8 @@ class DagScheduler:
             self._res_stats["retries"] += 1
             if kind == "timeout_retry":
                 self._res_stats["timeout_retries"] += 1
+            elif kind == "failover_retry":
+                self._res_stats["failover_retries"] += 1
         if self.journal is not None:
             self.journal.append("node_retry", node=node.name, kind=kind, attempt=node.attempts,
                                 error=repr(exc)[:300])
@@ -543,6 +600,33 @@ class DagScheduler:
                           error=repr(exc)[:300])
         logger.warning("node %r attempt %d failed (%r); re-executing (%s)",
                        node.name, node.attempts, exc, kind)
+
+    def _maybe_failover(self, node: Node, exc: Optional[BaseException], force_probe: bool = False) -> bool:
+        """True when this failure (or, with ``force_probe``, this escalated
+        timeout) flipped the run's runtime to the CPU."""
+        try:
+            return failover.maybe_failover(exc, journal=self.journal, force_probe=force_probe)
+        except Exception:
+            logger.exception("backend failover check for node %r failed", node.name)
+            return False
+
+    def _backend_state(self) -> dict:
+        """The runtime's device, each card's allocator bytes in use (no
+        device sync) and the wedge flag, sampled before a possible flip:
+        the postmortem must show the card, not the CPU it flipped to."""
+        try:
+            from anovos_tpu_torch.obs.metrics import memory_by_device
+            from anovos_tpu_torch.resilience import chaos
+
+            rt = peek_runtime()
+            return {
+                "backend": rt.device.type if rt is not None else None,
+                "device": str(rt.device) if rt is not None else None,
+                "hbm": {dev: stats.get("bytes_in_use") for dev, stats in memory_by_device().items()},
+                "wedged": chaos.backend_wedged(),
+            }
+        except Exception:
+            return {}
 
     def _discard_partial(self, node: Node) -> None:
         """Between attempts, drop the failed attempt's partial artifacts:
@@ -772,11 +856,10 @@ class DagScheduler:
                     if not node.escalated:
                         # first expiry: escalate, don't abort — interrupt the
                         # attempt (a chaos hang observes the event and
-                        # unwinds into the timeout-retry path) and grant the
-                        # raised bound
+                        # unwinds into the timeout-retry path) right after
+                        # its dump, and grant the raised bound
                         node.escalated = True
                         node.attempt_start = now
-                        node.interrupt.set()
                         with self._res_lock:
                             self._res_stats["timeout_escalations"] += 1
                         get_metrics().counter("node_timeout_escalations_total",
@@ -791,19 +874,47 @@ class DagScheduler:
                         # blows too, this evidence is already on disk
                         pending_dumps.append(("timeout_escalation", node,
                                               {"bound_s": round(node_timeout, 3),
-                                               "factor": node.policy.timeout_factor}))
+                                               "factor": node.policy.timeout_factor}, node.interrupt))
                         continue
                     expired = node
                     break
                 if pending_dumps:
                     cv.release()  # a dump writes a file: never under the lock
                     try:
-                        for trig, dnode, extra in pending_dumps:
-                            self._flight_dump(trig, dnode, extra=extra)
+                        # each dump lands before its attempt is interrupted,
+                        # so it shows the node in flight and precedes any
+                        # dump of what the interrupt leads to
+                        for trig, dnode, extra, interrupt in pending_dumps:
+                            try:
+                                self._flight_dump(trig, dnode, extra=extra)
+                            finally:
+                                interrupt.set()
                     finally:
                         cv.acquire()
                     continue  # re-scan: the state may have moved meanwhile
                 if expired is None:
+                    continue
+                # the escalated bound expired too: a forced probe outside
+                # the lock (bounded, but seconds); a wedged card flips to
+                # the CPU and the node gets one more bound to unwind into
+                # its failover re-execution
+                cv.release()
+                try:
+                    pre_flip = self._backend_state()
+                    flipped = self._maybe_failover(expired, expired.error, force_probe=True)
+                    if flipped:
+                        self._flight_dump("backend_failover", expired,
+                                          extra={"via": "watchdog", "pre_flip": pre_flip})
+                finally:
+                    cv.acquire()
+                if expired.name not in running:
+                    continue  # the attempt finished while the probe ran
+                if flipped and not expired.failover_retried:
+                    # _run_attempts sees the grant and books the
+                    # re-execution as the budget-free failover retry
+                    expired.failover_granted = True
+                    expired.attempt_start = time.monotonic()
+                    expired.interrupt.set()
                     continue
                 reason = (
                     f"scheduler node {expired.name!r} still running after its escalated "
@@ -877,8 +988,6 @@ class DagScheduler:
         for _, delta in events:
             in_flight += delta
             overlap = max(overlap, in_flight)
-        from anovos_tpu_torch.shared.runtime import peek_runtime
-
         rt = peek_runtime()
         return {
             "mode": mode,
@@ -899,6 +1008,7 @@ class DagScheduler:
             },
             "resilience": {
                 **res_stats,
+                "failovers": failover.failover_count(),
                 "degraded": sorted(n.name for n in self._nodes if n.degraded),
             },
             "nodes": {

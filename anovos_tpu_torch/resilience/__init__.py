@@ -1,11 +1,12 @@
-"""Fault injection and error policy of the port (counterpart of
-``anovos_tpu/resilience``): the seeded chaos harness (``chaos``) and the
-retry/backoff policy with the degradation registry (``policy``).  The
-JAX package's mid-run failover is not ported (ROADMAP.md Queue A, backend
-failover).
+"""Fault injection, error policy and failover of the port (counterpart of
+``anovos_tpu/resilience``): the seeded chaos harness (``chaos``), the
+retry/backoff policy with the degradation registry (``policy``), the
+mid-run backend failover to the CPU (``failover``), and the workflow
+chaos scenarios (``scenarios``, ``python -m
+anovos_tpu_torch.resilience.scenarios``).
 """
 
-from anovos_tpu_torch.resilience import chaos, policy
+from anovos_tpu_torch.resilience import chaos, failover, policy
 from anovos_tpu_torch.resilience.chaos import (
     BackendWedge,
     ChaosCorrupt,
@@ -14,6 +15,11 @@ from anovos_tpu_torch.resilience.chaos import (
     ChaosPlan,
     ChaosTruncate,
     chaos_point,
+)
+from anovos_tpu_torch.resilience.failover import (
+    backend_healthy,
+    failover_to_cpu,
+    maybe_failover,
 )
 from anovos_tpu_torch.resilience.policy import (
     ErrorPolicy,
@@ -26,6 +32,7 @@ from anovos_tpu_torch.resilience.policy import (
 
 __all__ = [
     "chaos",
+    "failover",
     "policy",
     "BackendWedge",
     "ChaosCorrupt",
@@ -34,6 +41,9 @@ __all__ = [
     "ChaosPlan",
     "ChaosTruncate",
     "chaos_point",
+    "backend_healthy",
+    "failover_to_cpu",
+    "maybe_failover",
     "ErrorPolicy",
     "backoff_delay",
     "degraded_sections",

@@ -61,11 +61,11 @@ must cover), the scheduler's ``node:<name>``, visited before each
 attempt of a node (``exc`` and ``hang`` fire there; a hang waits on the
 attempt's interrupt, which the watchdog sets), and the feature server's
 ``serve:apply``, visited in each apply attempt of a micro-batch (the
-serve-fault scenario, ``serving/demo.run_serve_fault``).  The port has no
-backend failover yet (ROADMAP.md Queue A, backend failover), which gives ``wedge``
-its outcome (a flip to the CPU and a clean re-run), so :func:`install`
-refuses a plan with a ``wedge`` directive instead of ignoring it.  Every
-injection also lands in the flight recorder's ring (``obs/flight.py``).
+serve-fault scenario, ``serving/demo.run_serve_fault``).  ``wedge`` fires
+at the ``node:`` sites; the backend failover (``resilience/failover.py``)
+gives it its outcome: the health probe sees the flag, the runtime flips
+to the CPU and the node re-executes there.  Every injection also lands
+in the flight recorder's ring (``obs/flight.py``).
 """
 
 from __future__ import annotations
@@ -244,14 +244,7 @@ def install(spec: Optional[str]) -> Optional[ChaosPlan]:
     if not spec:
         _PLAN = None
         return None
-    plan = ChaosPlan(spec)
-    if any(d.kind == "wedge" for d in plan.directives):
-        _PLAN = None
-        raise NotImplementedError(
-            f"{ENV_KNOB}={spec!r} asks for a backend wedge, whose outcome is the "
-            "backend failover, which is not ported to anovos_tpu_torch yet; "
-            "see ROADMAP.md Queue A, backend failover")
-    _PLAN = plan
+    _PLAN = ChaosPlan(spec)
     logger.warning(
         "CHAOS plan active (%s): %d directive(s), seed=%d — injected faults "
         "are deliberate", ENV_KNOB, len(_PLAN.directives), _PLAN.seed)

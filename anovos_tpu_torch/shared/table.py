@@ -198,6 +198,23 @@ class Table:
             return get_runtime().device
         return next(iter(self.columns.values())).data.device
 
+    def to(self, device) -> "Table":
+        """This Table on ``device``: every column's data, mask and exact
+        values copied there, vocabularies shared; itself when it is
+        there already.  The backend failover moves the df versions a run
+        committed on the card to the CPU with it."""
+        dev = torch.device(device)
+        if not self.columns or self.device == dev:
+            return self
+        nbytes = sum(c.data.nbytes + c.mask.nbytes + (0 if c.exact is None else c.exact.nbytes)
+                     for c in self.columns.values())
+        with devprof.transfer_bracket("d2h" if dev.type == "cpu" else "h2d", nbytes, label="table.to"):
+            cols: "OrderedDict[str, Column]" = OrderedDict(
+                (name, Column(c.kind, c.data.to(dev), c.mask.to(dev), vocab=c.vocab, dtype_name=c.dtype_name,
+                              exact=None if c.exact is None else c.exact.to(dev)))
+                for name, c in self.columns.items())
+        return Table(cols, self.nrows)
+
     def dtypes(self) -> List[Tuple[str, str]]:
         return [(k, c.dtype_name) for k, c in self.columns.items()]
 

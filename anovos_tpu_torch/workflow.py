@@ -33,11 +33,15 @@ files and the degradation registry (``resilience/policy.py``, read by
 :func:`degraded_sections` and the report's Degraded Sections tab) names
 it (``ANOVOS_TPU_DEGRADE=0``: they abort too).  Each run installs the
 chaos plan of ``ANOVOS_TPU_CHAOS`` (``node:<name>`` sites fire before
-each node), resets the degradation registry and the ingest guard, and
-points the guard's quarantine manifest at ``<master_path or write_main
-path>/obs``.  :func:`main` and :func:`run` raise ``NotImplementedError``
-on a knob of a layer the port does not have yet
-(``obs/telemetry.UNPORTED_KNOBS``: the failover and multi-device knobs).
+each node), re-arms the backend failover (``resilience/failover.py``),
+resets the degradation registry and the ingest guard, and points the
+guard's quarantine manifest at ``<master_path or write_main path>/obs``.
+After a flip to the CPU, a df version committed on the card reaches its
+next reader moved to the CPU (``Table.to``); a node in flight at the flip
+finishes, and settles its stream, on the card.  :func:`main` and
+:func:`run` raise ``NotImplementedError`` on a knob of a layer the port
+does not have yet (``obs/telemetry.UNPORTED_KNOBS``: the multi-device
+knob).
 
 The run record, as in the JAX runner: every run resets the metrics
 registry, the tracer (whose ring ``ANOVOS_TPU_TRACE_BUFFER`` bounds) and
@@ -133,6 +137,7 @@ from anovos_tpu_torch.obs.metrics import record_cache_stats, record_device_memor
 from anovos_tpu_torch.obs.tracing import buffer_size, maybe_rotator, trace_destination, write_chrome_trace
 from anovos_tpu_torch.parallel.scheduler import DagScheduler, available_cpus
 from anovos_tpu_torch.resilience import chaos
+from anovos_tpu_torch.resilience import failover as res_failover
 from anovos_tpu_torch.resilience import policy as res_policy
 from anovos_tpu_torch.resilience.policy import ErrorPolicy
 from anovos_tpu_torch.shared.artifact_store import AsyncArtifactWriter, for_run_type
@@ -208,12 +213,24 @@ def ETL(args: dict) -> Table:
 def _settle() -> None:
     """Wait for the work this thread queued on its CUDA stream (a node on
     a worker's stream, before a Table it produced goes to the writer
-    thread or a df version it read may be freed)."""
+    thread or a df version it read may be freed).  A node attempt is
+    pinned to the runtime it started on, so one in flight at a flip to the
+    CPU still settles its card's stream."""
     rt = peek_runtime()
     if rt is not None and rt.device.type == "cuda":
         import torch
 
         torch.cuda.current_stream(rt.device).synchronize()
+
+
+def _on_live_device(table: Optional[Table]) -> Optional[Table]:
+    """``table`` on the runtime's device: a Table committed on the card
+    before a flip to the CPU is moved there (an exact copy); any other
+    comes back as it is."""
+    if table is None:
+        return None
+    rt = peek_runtime()
+    return table if rt is None or table.device == rt.device else table.to(rt.device)
 
 
 def save(data, write_configs: Optional[dict], folder_name: str, reread: bool = False,
@@ -461,7 +478,14 @@ class _PipelineRun:
 
     def _resolve(self, v: int) -> Optional[Table]:
         df = self._versions[v]
-        return df.get() if isinstance(df, _LazyTable) else df
+        df = df.get() if isinstance(df, _LazyTable) else df
+        live = _on_live_device(df)
+        if live is not df:
+            # moved once: later readers of the version take the copy
+            with self._lock:
+                if self._versions.get(v) is not None:
+                    self._versions[v] = live
+        return live
 
     def current_df(self) -> Optional[Table]:
         return self._resolve(self._ver)
@@ -636,8 +660,10 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
     LAST_RUN_SUMMARY = {}
     LAST_MANIFEST_PATH = ""
     # per-run resilience state: the chaos plan of ANOVOS_TPU_CHAOS (inert
-    # when unset), an empty degradation registry and quarantine registry
+    # when unset), a re-armed failover (a new run may probe and flip
+    # again), an empty degradation registry and quarantine registry
     chaos.install_from_env()
+    res_failover.reset()
     res_policy.reset_degraded()
     ingest_guard.reset()
     auth_key = _auth_key(auth_key_val)
@@ -885,7 +911,7 @@ def main(all_configs: dict, run_type: str = "local", auth_key_val: Optional[dict
                                 # base table instead of reading it again
                                 if base_df is not None and src_spec and \
                                         _clean_spec(src_spec) == _clean_spec(all_configs.get("input_dataset")):
-                                    source = base_df
+                                    source = _on_live_device(base_df)
                                 else:
                                     source = ETL(src_spec)
                             # statistics() also persists the drift frequency

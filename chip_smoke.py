@@ -53,7 +53,7 @@ Phases, in order; any failure exits non-zero:
    moments kernel on the lat/lon block, the neighbour-count kernel on the
    centred 16,384-point grid sample at every eps) against their plain
    versions, timed.  The neighbour counts at every eps and the DBSCAN
-   labels of a seeded sample of 4 of the 35 combos are checked against
+   labels of a seeded sample of 2 of the 35 combos are checked against
    float64 numpy/scipy (every combo's labels against the analyzer's
    frame), the k-means centers
    against a float64 Lloyd run from the same start, and every expected
@@ -153,7 +153,7 @@ Phases, in order; any failure exits non-zero:
    boxcox λ equal to the float64 KS argmin where the margin exceeds f32
    noise, the expressions, every served apply equal to its batch apply;
    (b) autoencoder_latentFeatures at n = 9, k = 4 with
-   ``configs_segmentation_unsupervised``'s batch (256) on a 125,000-row
+   ``configs_segmentation_unsupervised``'s batch (256) on a 62,500-row
    sample (the config's 500,000 cut), AE_EPOCHS epochs: the validation MSE below the first epoch's and
    the mean predictor's, the model.npz round trip bit-equal, the card's
    latents equal a CPU forward, 3 Adam steps equal to the CPU's; (c) KNN,
@@ -163,7 +163,7 @@ Phases, in order; any failure exits non-zero:
    MF's observed-cell error, auto's output equal to its choice's, and its
    choice against the CPU port's on the same holdout of the first 100,000
    rows; (d) ``workflow.main`` on all of ``configs_full.yaml``
-   (a copy, ``FULL_CONFIG``) over 200,000 synthesized rows in the
+   (a copy, ``FULL_CONFIG``) over 150,000 synthesized rows in the
    default executor mode, its input and run kept for phase 15: the six
    intermediate datasets written, the final dataset equal to the same
    chain of direct calls, no block failed.  B1 must have been launched;
@@ -172,7 +172,7 @@ Phases, in order; any failure exits non-zero:
 11. the codec and the four configs no earlier phase runs: (a) an avro file
    of 250,000 rows of the full income schema written and read through
    the codec with deflate and with snappy, read back equal to the frame,
-   and on its first 25,000 rows the codec timed beside the pure-Python
+   and on its first 10,000 rows the codec timed beside the pure-Python
    record loops; (b) ``config/configs.yaml`` (a copy) through
    ``workflow.main`` on 100,000 income rows as parquet, concatenated with a
    second read (200,000 rows) and inner-joined with an avro side of one
@@ -370,6 +370,25 @@ Phases, in order; any failure exits non-zero:
    QPS, p50/p99, the cold start, the bucket walls and the launches beside
    the card's name and power limit, and leaves no thread, listener,
    provider or flight recorder arming behind.
+20. the backend failover (``resilience/failover.py``): (a) the health
+   probe on the live card: 20 round trips, each within the runner's 5 s
+   deadline, then healthy within a 1 s deadline while a worker stream runs
+   a 2 s device sleep (still running when the probe answers); an ordinary
+   error pays no probe, a CUDA-shaped one pays one and flips nothing; (b)
+   the ``full`` chaos scenario (``resilience/scenarios.py``: an exception,
+   a hang and a wedge in one run of the synthetic config): ok, 3
+   injections, 1 failover, at least 3 retries and 1 escalation, the two
+   expected flight dumps and none on the clean runs, and the parity rule:
+   each file byte-equal to the clean card run's, or, when a node that ran
+   after the flip wrote it, to a clean CPU run's; (c) configs_full on
+   20,000 rows in the concurrent mode, a clean card run, a clean CPU run
+   and a run with ``wedge@node:drift_detector/drift_statistics``: 1
+   failover, 1 failover re-execution, the drift node's 2 attempts, its
+   ``backend_failover`` dump with ``pre_flip`` on the card and wedged, B1
+   and B2 launches over the nodes before the flip equal to the clean card
+   run's and none by a node after it, the launches held to plain, the
+   parity rule, nothing degraded.  The phase ends on the card with no
+   flip; no earlier phase flips.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -409,8 +428,9 @@ GEO_B3_SAMPLE = 16_384
 GEO_EPS = "0.3,0.5,0.05"
 GEO_MIN_SAMPLES = "500,1100,100"
 # DBSCAN combos of the 35 whose labels are bracketed by float64 (seeded;
-# cut from 10, about 4 s of host checks a combo; PERF.md section 4)
-GEO_BRACKETED = 4
+# cut from 10, then from 4, about 4 s of host checks a combo; PERF.md
+# section 4)
+GEO_BRACKETED = 2
 # the kernels each path must launch
 PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "geo_default": ("masked_moments",),
@@ -434,7 +454,9 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "run_record": ("masked_moments", "binned_histograms"),
                 "serving_export": ("masked_moments",),
                 "serving_warm": (),
-                "serving_load": ()}
+                "serving_load": (),
+                "failover_clean": ("masked_moments", "binned_histograms"),
+                "failover_wedge": ("masked_moments",)}
 # phase 15: the recommender's queries (an industry and a usecase of the
 # corpus, then two misspelt ones the embeddings resolve), the attributes it
 # maps and the descriptions it ranks them against; the chaos run's rows,
@@ -616,9 +638,9 @@ FULL_CONFIG = {
 }
 # 10b: configs_segmentation_unsupervised's autoencoder sample and batch;
 # the epochs cut from 100, then from 10 to make room for phase 14, then
-# from 3, and the sample from 500,000, to keep the script near half its
-# limit (PERF.md section 4)
-AE_SAMPLE = 125_000  # cut from the config's 500,000 (PERF.md section 4)
+# from 3, and the sample from 500,000, then from 125,000 to make room for
+# phase 20, to keep the script near half its limit (PERF.md section 4)
+AE_SAMPLE = 62_500  # cut from the config's 500,000 (PERF.md section 4)
 AE_BATCH = 256
 AE_EPOCHS = 2
 # 10c: the imputers' table, its nulled columns, the KNN query rows checked
@@ -634,8 +656,9 @@ IMPUTE_COLS = ["age", "fnlwgt", "hours-per-week"]
 AUTO_REF_ROWS = 100_000
 KNN_QUERIES = 300
 MF_RMSE_BOUND = 0.5
-# 10d: the rows of configs_full's input (cut from 4M, PERF.md section 4)
-FULL_ROWS = 200_000
+# 10d: the rows of configs_full's input (cut from 4M, then from 200,000 to
+# make room for phase 20; PERF.md section 4)
+FULL_ROWS = 150_000
 # phase 11: the host codec at scale (11a: an avro file of CODEC_ROWS rows of
 # the full income schema; the pure-Python reference timed beside the codec
 # on its first CODEC_REF_ROWS) and the four shipped configs no earlier phase
@@ -646,7 +669,7 @@ FULL_ROWS = 200_000
 # CHECKIN_ROWS rows each.  The rows are a depth cut forced by the 1,200 s
 # limit (PERF.md section 4).
 CODEC_ROWS = 250_000
-CODEC_REF_ROWS = 25_000
+CODEC_REF_ROWS = 10_000
 SCENARIO_ROWS = 100_000
 CHECKIN_ROWS = 50_000
 _CSV_INPUT = {"read_dataset": {"file_path": None, **_CSV_READ}}
@@ -794,6 +817,17 @@ SERVE_SMOKE_ARGS = ("smoke", "--telemetry", "--clients", "2", "--requests", "10"
 # apply costs ~50 ms of host work at any bucket: 400 of them took 20 s)
 SERVE_OWN_EVERY = 10
 SERVE_THREAD_PREFIX = "anovos-torch-serve"
+# phase 20: the health probe's round trips timed, the runner's default
+# deadline, (a)'s deadline and the worker stream's device sleep past it;
+# (c)'s rows and wedge (the node named: drift_detector/* also matches the
+# stability index, a raise-mode node that takes no re-execution)
+FAILOVER_PROBES = 20
+FAILOVER_DEFAULT_DEADLINE_S = 5.0
+FAILOVER_DEADLINE_S = 1.0
+FAILOVER_BUSY_S = 2.0
+FAILOVER_ROWS = 20_000
+FAILOVER_NODE = "drift_detector/drift_statistics"
+FAILOVER_WEDGE = f"seed=7;wedge@node:{FAILOVER_NODE}"
 PROFILE_KERNEL_NAMES = {"masked_moments": "moments_kernel", "binned_histograms": "hist_kernel"}
 PROFILE_KERNEL_CAT = "kernel"
 RANGE_SLACK_US = 500.0
@@ -5653,8 +5687,10 @@ def phase_chaos(torch, seed: int, root: str) -> dict:
     check(node["state"] == "degraded" and node["escalated"] and node["attempts"] == 2,
           f"chaos: the node {node}")
     check(bound - 0.1 <= node["dur_s"] <= bound + 2.0, f"chaos: degraded after {node['dur_s']} s, bound {bound} s")
-    check(summary["resilience"]["timeout_escalations"] == 1 and summary["resilience"]["timeout_retries"] == 1,
-          f"chaos: {summary['resilience']}")
+    # the escalated bound's expiry pays a forced health probe, which the
+    # healthy card passes: no flip
+    check(summary["resilience"]["timeout_escalations"] == 1 and summary["resilience"]["timeout_retries"] == 1
+          and summary["resilience"]["failovers"] == 0, f"chaos: {summary['resilience']}")
     others = {n: v["state"] for n, v in summary["nodes"].items() if n != CHAOS_NODE}
     check(all(st == "done" for st in others.values()), f"chaos: other nodes {others}")
     rdir = os.path.join(root, "chaos", "run", "report_stats")
@@ -6764,6 +6800,239 @@ def phase_serving(torch, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the backend failover
+# ---------------------------------------------------------------------------
+class NodeLaunches:
+    """While in its ``with`` block: every kernel launch as (kernel, the
+    scheduler node it happens in, the runtime generation it happens at),
+    read at ``kernels.count_launch``."""
+
+    def __enter__(self):
+        from anovos_tpu_torch.obs import devprof
+        from anovos_tpu_torch.ops import kernels
+        from anovos_tpu_torch.shared.runtime import runtime_generation
+
+        self.calls, self.saved = [], kernels.count_launch
+        count = kernels.count_launch
+
+        def counted(name):
+            self.calls.append((name, devprof.current_node(), runtime_generation()))
+            count(name)
+
+        kernels.count_launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        from anovos_tpu_torch.ops import kernels
+
+        kernels.count_launch = self.saved
+
+    def by_node(self) -> dict:
+        """{kernel: {node: launches}}."""
+        out: dict = {}
+        for name, node, _ in self.calls:
+            out.setdefault(name, {})
+            out[name][node] = out[name].get(node, 0) + 1
+        return out
+
+
+def failover_probe(torch) -> dict:
+    """Phase 20 (a): the health probe on the live card, healthy and under
+    a worker stream's device sleep longer than its deadline; an ordinary
+    error pays no probe, a CUDA-shaped one pays one and flips nothing."""
+    from anovos_tpu_torch.resilience import failover
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    walls = []
+    for _ in range(FAILOVER_PROBES):
+        t0 = time.perf_counter()
+        ok = failover.backend_healthy()
+        walls.append(time.perf_counter() - t0)
+        check(ok, "failover: the probe calls the live card unhealthy")
+    check(max(walls) < FAILOVER_DEFAULT_DEADLINE_S, f"failover: probe round trips {walls}")
+    # the card's sleep rate, then a worker stream busy past the deadline
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    b.record()
+    b.synchronize()
+    cycles_per_s = QUEUE_CYCLES / (a.elapsed_time(b) / 1e3)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(int(cycles_per_s * FAILOVER_BUSY_S))
+    t0 = time.perf_counter()
+    ok = failover.backend_healthy(timeout_s=FAILOVER_DEADLINE_S)
+    busy = time.perf_counter() - t0
+    still_busy = not stream.query()
+    stream.synchronize()
+    check(ok and busy < FAILOVER_DEADLINE_S and still_busy,
+          f"failover: probe under a {FAILOVER_BUSY_S} s device sleep: healthy {ok} in {busy:.4f} s "
+          f"(deadline {FAILOVER_DEADLINE_S} s), the sleep still running {still_busy}")
+    probes, real = [], failover.probe_in_process
+    failover.probe_in_process = lambda *args, **kw: (probes.append(1), real(*args, **kw))[1]
+    try:
+        ordinary = failover.maybe_failover(ValueError("plain config error"))
+        check(ordinary is False and probes == [], f"failover: an ordinary error paid {len(probes)} probe(s)")
+        shaped = failover.maybe_failover(RuntimeError("CUDA error: an illegal memory access was encountered"))
+        check(shaped is False and probes == [1], f"failover: a CUDA-shaped error on a healthy card: flipped "
+              f"{shaped}, {len(probes)} probe(s)")
+    finally:
+        failover.probe_in_process = real
+    check(failover.failover_count() == 0 and get_runtime().device.type == "cuda",
+          f"failover: probes flipped the runtime to {get_runtime().device}")
+    out = {"probe_ms": {"min": min(walls) * 1e3, "median": float(np.median(walls)) * 1e3, "max": max(walls) * 1e3},
+           "busy_probe_ms": busy * 1e3, "busy_sleep_s": FAILOVER_BUSY_S, "deadline_s": FAILOVER_DEADLINE_S}
+    print(f"failover: (a) {card_line()}: {FAILOVER_PROBES} healthy probes, round trip min "
+          f"{out['probe_ms']['min']:.3f} / median {out['probe_ms']['median']:.3f} / max "
+          f"{out['probe_ms']['max']:.3f} ms; healthy in {out['busy_probe_ms']:.3f} ms with a worker stream "
+          f"in a {FAILOVER_BUSY_S} s device sleep (deadline {FAILOVER_DEADLINE_S} s); an ordinary error paid no "
+          f"probe, a CUDA-shaped one one probe and no flip", flush=True)
+    return out
+
+
+def failover_scenario(root: str) -> dict:
+    """Phase 20 (b): the ``full`` chaos scenario through
+    ``resilience/scenarios.py`` on the card."""
+    from anovos_tpu_torch.resilience import failover, scenarios
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    card = get_runtime().device
+    t0 = time.perf_counter()
+    res = scenarios.run_scenario("full", os.path.join(root, "scenario"))
+    wall = time.perf_counter() - t0
+    rs = res.get("resilience", {})
+    triggers = sorted((d["trigger"], d["node"]) for d in res.get("flightrec", []))
+    check(res["ok"] and res["injections"] == 3 and res["failovers"] == 1 and rs.get("retries", 0) >= 3
+          and rs.get("timeout_escalations", 0) >= 1 and not res["flightrec_missing"] and res["clean_flightrec"] == 0
+          and res["parity"] and len(triggers) == 2 and res["runtime_after"] == "cpu",
+          f"failover: the full scenario on the card: {json.dumps(res)}")
+    check(get_runtime().device == card, f"failover: the scenario left the runtime on {get_runtime().device}")
+    failover.reset()
+    out = {"wall_s": wall, **{k: res.get(k) for k in ("clean_wall_s", "clean_cpu_wall_s", "chaos_wall_s", "injections",
+                                                  "failovers", "cpu_parity_files", "post_flip_nodes")},
+           "resilience": {k: rs.get(k) for k in ("retries", "timeout_retries", "failover_retries",
+                                                 "timeout_escalations")},
+           "flight": triggers}
+    print(f"failover: (b) the full scenario on the card in {wall:.2f} s (clean {res['clean_wall_s']} s, clean on "
+          f"the CPU {res.get('clean_cpu_wall_s')} s, chaos {res['chaos_wall_s']} s): ok, 3 injections, 1 failover, "
+          f"{out['resilience']}, dumps {triggers}; {res['cpu_parity_files']} file(s) of the nodes after the flip "
+          f"({res['post_flip_nodes']}) held to the clean CPU tree, the rest byte-equal to the clean card tree",
+          flush=True)
+    return out
+
+
+def phase_failover(torch, seed: int) -> dict:
+    """Phase 20: (a)-(c) of the module docstring."""
+    from anovos_tpu_torch.obs import flight
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.resilience import failover, scenarios
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime, runtime_generation
+
+    t_phase = time.perf_counter()
+    card = get_runtime().device
+    tmp = tempfile.mkdtemp(prefix="anovos_failover_")
+    out = {"rows": FAILOVER_ROWS}
+    try:
+        out["a"] = failover_probe(torch)
+        out["b"] = failover_scenario(tmp)
+        # (c) configs_full: a clean card leg, a clean CPU leg, a wedge leg
+        _, main_dir, si = full_inputs(seed + 20, os.path.join(tmp, "full"), FAILOVER_ROWS)
+        cfg = full_config(main_dir, si)
+        walls = {}
+        kernels.reset_launches()
+        with NodeLaunches() as clean_launches:
+            t0 = time.perf_counter()
+            scenarios.run_leg(cfg, os.path.join(tmp, "clean"), "", "600")
+            walls["clean"] = time.perf_counter() - t0
+        clean_total = dict(kernels.LAUNCHES)
+        for name in PATH_KERNELS["failover_clean"]:
+            check(clean_total[name] > 0, f"failover: kernel {name} was not launched by the clean card leg")
+        init_runtime("cpu")
+        try:
+            t0 = time.perf_counter()
+            scenarios.run_leg(cfg, os.path.join(tmp, "clean_cpu"), "", "600")
+            walls["clean_cpu"] = time.perf_counter() - t0
+        finally:
+            init_runtime(card)
+        gen0 = runtime_generation()
+        cache_dir = os.path.join(tmp, "wedge_cache")
+        kernels.reset_launches()
+        with NodeLaunches() as wedge_launches, KernelInputs(torch) as given:
+            t0 = time.perf_counter()
+            man = scenarios.run_leg(cfg, os.path.join(tmp, "wedge"), FAILOVER_WEDGE, "600", cache_dir=cache_dir)
+            walls["wedge"] = time.perf_counter() - t0
+        wedge_total = dict(kernels.LAUNCHES)
+        check(get_runtime().device.type == "cpu", f"failover: the wedge leg ended on {get_runtime().device}")
+        init_runtime(card)
+        res, nodes = man["resilience"], man["scheduler"]["nodes"]
+        check(res["failovers"] == 1 and res["failover_retries"] == 1 and nodes[FAILOVER_NODE]["attempts"] == 2,
+              f"failover: the wedge leg's resilience {res}, {FAILOVER_NODE} {nodes[FAILOVER_NODE]}")
+        check(res["degraded"] == [] and res["degraded_sections"] == {}, f"failover: degraded {res}")
+        check(all(v["state"] == "done" for v in nodes.values()),
+              f"failover: {[(n, v['state']) for n, v in nodes.items() if v['state'] != 'done']}")
+        dumps = scenarios.flight_dumps(os.path.join(tmp, "wedge"))
+        check([(t, n) for _, t, n in dumps] == [("backend_failover", FAILOVER_NODE)], f"failover: dumps {dumps}")
+        with open(dumps[0][0]) as f:
+            pre_flip = json.load(f)["extra"]["pre_flip"]
+        check(pre_flip.get("backend") == card.type and pre_flip.get("wedged") is True,
+              f"failover: the dump's pre_flip {pre_flip}")
+        post = scenarios.post_flip_files(os.path.join(tmp, "wedge"), cache_dir, cfg)
+        check(FAILOVER_NODE in post["nodes"], f"failover: the journal's nodes after the flip {post}")
+        # launches: none by a node that ran after the flip, each other node
+        # as many as in the clean card leg
+        # (which of the stats nodes launches the shared describe varies from
+        # run to run, so launches are compared summed over each side)
+        clean_by, wedge_by = clean_launches.by_node(), wedge_launches.by_node()
+        for name in clean_by:
+            side = {False: 0, True: 0}
+            for n, c in wedge_by.get(name, {}).items():
+                side[n in post["nodes"]] += c
+            expect = sum(c for n, c in clean_by[name].items() if n not in post["nodes"])
+            check(side[True] == 0 and side[False] == expect,
+                  f"failover: {name} launches by node {wedge_by.get(name)}, clean {clean_by[name]}, nodes after "
+                  f"the flip {post['nodes']}")
+        late = [(k, n) for k, n, g in wedge_launches.calls if g != gen0]
+        check(not any(n in post["nodes"] for _, n in late), f"failover: launches after the flip {late}")
+        after = {k: sum(1 for a in given.seen[k] if not a[0].is_cuda) for k in given.seen}
+        before = {k: sum(1 for a in given.seen[k] if a[0].is_cuda) for k in given.seen}
+        check(before == {k: wedge_total[k] for k in before}, f"failover: card calls {before}, launches {wedge_total}")
+        for name in PATH_KERNELS["failover_wedge"]:
+            check(wedge_total[name] > 0, f"failover: kernel {name} was not launched before the flip")
+        _, checked = given_kernel_rows(torch, given, "failover wedge", {tuple(a[0].shape) for v in given.seen.values()
+                                                                         for a in v})
+        del given
+        par = scenarios.parity(scenarios.tree_files(os.path.join(tmp, "wedge")),
+                               scenarios.tree_files(os.path.join(tmp, "clean")),
+                               scenarios.tree_files(os.path.join(tmp, "clean_cpu")), post["files"])
+        check(par["parity"], f"failover: the wedge tree differs from both clean trees: {par['differ'][:12]}")
+        failover.reset()
+        flight.reset()
+        out["c"] = {"walls_s": walls, "launches_clean": clean_total, "launches_wedge": wedge_total,
+                    "calls_before_flip": before, "calls_after_flip": after, "in_flight_after_flip": len(late),
+                    "post_flip_nodes": post["nodes"], "cpu_parity_files": par["cpu_parity_files"],
+                    "files": len(scenarios.tree_files(os.path.join(tmp, "wedge"))), "held_to_plain": checked,
+                    "pre_flip": pre_flip}
+        print(f"failover: (c) {card_line()}: configs_full on {FAILOVER_ROWS} rows, clean on the card "
+              f"{walls['clean']:.2f} s, clean on the CPU {walls['clean_cpu']:.2f} s, {FAILOVER_WEDGE} "
+              f"{walls['wedge']:.2f} s: 1 failover, {FAILOVER_NODE} 2 attempts, nothing degraded, the dump's "
+              f"pre_flip {pre_flip}; launches clean {clean_total}, wedge {wedge_total} (B1/B2 calls before the flip "
+              f"{before}, after it on the CPU {after}; {len(late)} launch(es) after the flip by nodes in flight); "
+              f"nodes after the flip {post['nodes']}; {out['c']['files']} files, {par['cpu_parity_files']} held to the "
+              f"clean CPU tree, the rest byte-equal to the clean card tree", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if get_runtime().device != card:
+            init_runtime(card)
+        failover.reset()
+    check(get_runtime().device == card and failover.failover_count() == 0,
+          f"failover: the phase ends on {get_runtime().device} with {failover.failover_count()} flip(s)")
+    out["launches"] = {"failover_clean": clean_total, "failover_wedge": wedge_total}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"failover: phase 20 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -6836,7 +7105,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     from anovos_tpu_torch.ops.kernels import build
-    from anovos_tpu_torch.shared.runtime import init_runtime
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
 
     init_runtime("cuda")
     # each phase's wall, printed at the end: the script must stay well
@@ -6847,6 +7116,8 @@ def main() -> None:
         now = time.perf_counter()
         walls[name], mark[0] = round(now - mark[0], 3), now
         print(f"phase {name}: {walls[name]:.1f} s, {now - t_start:.1f} s in all", flush=True)
+        # only phase 20 flips, and it flips back: every phase ends on the card
+        check(get_runtime().device.type == "cuda", f"phase {name} ended on {get_runtime().device}")
 
     device_name = torch.cuda.get_device_name(0)
     print(f"device: {device_name}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -6968,6 +7239,9 @@ def main() -> None:
     serving_kernels = serving.pop("kernels")
     print("serving " + json.dumps({k: v for k, v in serving.items() if k != "launches"}), flush=True)
     lap("19 serving")
+    fail_over = phase_failover(torch, args.seed)
+    print("failover " + json.dumps({k: v for k, v in fail_over.items() if k != "launches"}), flush=True)
+    lap("20 failover")
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -6999,9 +7273,10 @@ def main() -> None:
                                                      "run_record": record["launches"],
                                                      "node_cache": node_cache["launches"],
                                                      "live_plane": live["launches"],
-                                                     **serving["launches"]}, sass)
+                                                     **serving["launches"],
+                                                     **fail_over["launches"]}, sass)
     print("phase walls " + json.dumps(walls), flush=True)
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(result_line(torch), flush=True)

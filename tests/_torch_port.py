@@ -357,19 +357,53 @@ def thread_names():
     return {t.name for t in threading.enumerate()}
 
 
-def assert_no_thread_left(before, settle_s=10.0):
-    """No thread name that was not there before the test is left after it:
-    a thread that is ending (a scheduler worker polls its queue every
-    50 ms) gets ``settle_s`` to go."""
+def assert_no_thread_left(before, settle_s=10.0, prefix=""):
+    """No thread name (starting with ``prefix``) that was not there before
+    the test is left after it: a thread that is ending (a scheduler worker
+    polls its queue every 50 ms) gets ``settle_s`` to go."""
     import time
 
     deadline = time.monotonic() + settle_s
     while True:
-        left = thread_names() - before
+        left = {n for n in thread_names() - before if n.startswith(prefix)}
         if not left or time.monotonic() > deadline:
             break
         time.sleep(0.02)
     assert not left, f"threads left behind: {sorted(left)}"
+
+
+@pytest.fixture
+def failover_isolated():
+    """For a test that flips a runtime: afterwards both packages' failover
+    state, chaos plan (and its wedge flag), degradation registry and flight
+    recorder are reset, the port's CPU runtime and JAX's default device put
+    back, and it asserts that no flip, no wedge and no ``anovos-torch-*``
+    thread outlives the test in the shared worker."""
+    import jax
+
+    from anovos_tpu.obs import flight as jflight
+    from anovos_tpu.resilience import chaos as jchaos
+    from anovos_tpu.resilience import failover as jfailover
+    from anovos_tpu.resilience import policy as jpolicy
+    from anovos_tpu_torch.obs import flight
+    from anovos_tpu_torch.resilience import chaos, failover, policy
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+
+    before = thread_names()
+    jax_default = jax.config.jax_default_device
+    yield
+    for mod in (chaos, jchaos, failover, jfailover):
+        mod.reset()
+    for mod in (policy, jpolicy):
+        mod.reset_degraded()
+    for mod in (flight, jflight):
+        mod.reset()
+    jax.config.update("jax_default_device", jax_default)
+    init_runtime("cpu")
+    assert failover.failover_count() == 0 and not failover._STATE["flipped"]
+    assert not chaos.backend_wedged() and not jchaos.backend_wedged()
+    assert get_runtime().device.type == "cpu"
+    assert_no_thread_left(before, prefix="anovos-torch-")
 
 
 def free_port() -> int:

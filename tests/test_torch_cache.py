@@ -230,6 +230,9 @@ OUTSIDE_NODE_BODIES = {
         "the feature server's batcher, which no runner block starts",
     ("serving/server.py", "FeatureServer.__init__", "ANOVOS_SERVE_MAX_BATCH"): "as the batch window",
     ("serving/program.py", "ApplyProgram.__init__", "ANOVOS_SERVE_BF16"): "refused where a server builds its program",
+    ("resilience/failover.py", "backend_healthy", "ANOVOS_TPU_HEALTH_TIMEOUT"):
+        "the health probe, which the scheduler pays outside the node body that failed",
+    ("resilience/scenarios.py", "_knobs", "<dynamic>"): "the chaos scenarios' knobs, set around workflow.main",
 }
 
 

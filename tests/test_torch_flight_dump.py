@@ -11,9 +11,9 @@ the scheduler's triggers) against the JAX package's, case by case as
   concurrent mode a hang under a ``node_timeout`` that escalates (a dump
   with the node in flight) and then is abandoned, fails or ends the run
   (a second dump, ``_2``); a clean run and an absorbed retry dump
-  nothing, and the retry is in the ring.  The JAX package's wedge case waits for
-  the port's backend failover: the runner's dump list is held against
-  JAX's on a fatal run instead.
+  nothing, and the retry is in the ring.  The runner's dump list is held
+  against JAX's on a fatal run; the JAX package's wedge case (the
+  ``backend_failover`` dump) is in ``tests/test_torch_failover.py``.
 
 Every test leaves no thread behind (``_no_thread_left``).
 """
@@ -33,14 +33,20 @@ from anovos_tpu_torch.parallel.scheduler import DagScheduler, NodeTimeout
 @pytest.fixture(autouse=True)
 def _no_thread_left():
     from anovos_tpu.obs import flight as jflight
+    from anovos_tpu.resilience import chaos as jchaos
+    from anovos_tpu.resilience import policy as jpolicy
     from anovos_tpu_torch.resilience import chaos, policy
 
     before = thread_names()
     yield
     flight.reset()
     jflight.reset()
+    # both packages' chaos plans: the runner test installs one in each, and
+    # a plan left installed would fire in a later file's scheduler runs
     chaos.reset()
+    jchaos.reset()
     policy.reset_degraded()
+    jpolicy.reset_degraded()
     assert_no_thread_left(before)
 
 

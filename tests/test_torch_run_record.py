@@ -37,11 +37,6 @@ MANIFEST_DIFFERENCES = {
     ("scheduler", "n_devices"):
         "value: the JAX package runs on the tests' 8 virtual CPU devices (tests/conftest.py), "
         "the port on one device; each summary states its own runtime's count",
-    ("resilience", "failover_retries"):
-        "JAX only: the port has no backend failover (ROADMAP.md Queue A, backend failover), so no "
-        "failover re-execution to count (the section is stripped by stable_view)",
-    ("resilience", "failovers"):
-        "JAX only: as failover_retries",
 }
 
 
@@ -113,9 +108,8 @@ def test_manifests_have_the_same_keys(runs):
     assert set(PORT_ONLY_NODE_FIELDS) == {"stream"}
     for name, node in pm["scheduler"]["nodes"].items():
         assert set(node) == set(jm["scheduler"]["nodes"][name]) | {"stream"}
-    jax_only = {k for section, k in MANIFEST_DIFFERENCES if section == "resilience"}
-    assert set(pm["resilience"]) == set(jm["resilience"]) - jax_only
-    assert set(pm["scheduler"]["resilience"]) == set(jm["scheduler"]["resilience"]) - jax_only
+    assert set(pm["resilience"]) == set(jm["resilience"])
+    assert set(pm["scheduler"]["resilience"]) == set(jm["scheduler"]["resilience"])
     assert set(pm["env"]) == set(jm["env"])
     assert pm["backend"] == jm["backend"] == "cpu"
     assert pm["compile_census"] is None and pm["cache"] is None

@@ -240,8 +240,8 @@ def test_retry_then_degrade_records_the_section(mode):
     assert summary["nodes"]["flaky"]["state"] == "done" and summary["nodes"]["flaky"]["attempts"] == 2
     assert order == ["after"]
     assert policy.degraded_sections() == {"bad": "KeyError: 'gone'"}
-    assert summary["resilience"] == {"retries": 2, "timeout_retries": 0, "timeout_escalations": 0,
-                                     "degraded": ["bad"]}
+    assert summary["resilience"] == {"retries": 2, "timeout_retries": 0, "failover_retries": 0,
+                                     "timeout_escalations": 0, "failovers": 0, "degraded": ["bad"]}
 
 
 def test_chaos_hang_escalates_then_degrades(monkeypatch):

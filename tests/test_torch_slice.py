@@ -191,6 +191,8 @@ def test_port_never_imports_jax_or_the_jax_package():
     # and its serve-fault scenario, the CLI
     assert {f"anovos_tpu_torch/serving/{m}.py" for m in (
         "__init__", "__main__", "bundle", "demo", "program", "server")} <= rel
+    # the failover slice: the failover and its chaos scenarios
+    assert {f"anovos_tpu_torch/resilience/{m}.py" for m in ("failover", "scenarios")} <= rel
     assert (REPO / "anovos_tpu_torch" / "feature_recommender" / "data" / "corpus.jsonl").is_file()
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad

@@ -6,9 +6,9 @@ them) skipped under ``basic_report`` as the JAX runner skips them, a
 geospatial name in a transformers block raising AttributeError as in the
 JAX runner, the device never falling back to the CPU, and ``anovos_tpu_torch.workflow``
 importable without a YAML reader.  Every knob of a layer the port does not
-have yet (``obs/telemetry.UNPORTED_KNOBS``) and a chaos ``wedge`` make
-``workflow.main`` and ``workflow.run`` raise before any work, naming the
-ROADMAP.md item, and the four knobs of the run record work
+have yet (``obs/telemetry.UNPORTED_KNOBS``) makes ``workflow.main`` and
+``workflow.run`` raise before any work, naming the ROADMAP.md item, and
+the four knobs of the run record work
 (``ANOVOS_TPU_TRACE``, ``ANOVOS_TPU_TRACE_BUFFER``, ``ANOVOS_PROFILE``,
 ``ANOVOS_TPU_DEVPROF``).  Also ``chip_smoke.py``'s copy of
 ``config/configs_basic.yaml`` held equal to the file.
@@ -147,22 +147,6 @@ def test_unported_knobs_raise_naming_their_item(knob, tmp_path, monkeypatch):
         monkeypatch.setenv(knob, off)
         with pytest.raises(FileNotFoundError):
             workflow.main(cfg, "local")
-
-
-def test_chaos_wedge_raises_naming_the_failover_item(tmp_path, monkeypatch):
-    """A chaos plan with a ``wedge`` directive: the port has no backend
-    failover, which gives a wedge its outcome, so ``main`` raises before
-    any work instead of ignoring it; ``exc`` and ``hang`` plans run."""
-    from anovos_tpu_torch import workflow
-
-    cfg = load_config("configs_basic.yaml")
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("ANOVOS_TPU_CHAOS", "seed=3;exc@node:join_dataset;wedge@node:stats_generator/*")
-    with pytest.raises(NotImplementedError, match="backend wedge.*failover.*ROADMAP.md Queue A, backend failover$"):
-        workflow.main(cfg, "local")
-    monkeypatch.setenv("ANOVOS_TPU_CHAOS", "exc@node:join_dataset;hang@node:x:secs=1")
-    with pytest.raises(FileNotFoundError):
-        workflow.main(cfg, "local")
 
 
 def test_basic_report_skips_the_analytics_blocks(tmp_path, monkeypatch):
