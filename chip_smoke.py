@@ -389,6 +389,25 @@ Phases, in order; any failure exits non-zero:
    run's and none by a node after it, the launches held to plain, the
    parity rule, nothing degraded.  The phase ends on the card with no
    flip; no earlier phase flips.
+21. the data-plane and continuum chaos scenarios
+   (``resilience/scenarios.py``, each through its gate with the JAX
+   gate's bounds): (a) ``corrupt-ingest``, the synthetic config's 1,500
+   rows in four parts, two of which fail on every read: exactly those two
+   quarantined with 375 rows each (the manifest and the on-disk
+   ``quarantine_manifest.json``), exactly their two ``ingest/`` sections
+   degraded, no flight dump, the chaos wall within 2 x the clean wall +
+   90 s, and the chaos tree byte-equal to a clean card run over parts 0
+   and 3 alone; (b) ``slowread-stream``, ``describe_streaming`` over
+   eight 2,048-row parts, six read 0.6 s slowly: equal stats frames, no
+   quarantine, at least 12 injections, the chaos wall within the clean
+   wall + 4.32 s and an overlap of at least 0.3; (c) ``feed-30d``, the
+   30-day feed at 500 rows a day folded day by day and as one batch:
+   byte-equal trees, day 20 quarantined on both legs, a drift alert on or
+   after day 25 with flight context, day 30's fold within 2 x day 2's.
+   Each prints its walls, injections, overlap or fold ratio and launches;
+   B1 (and B2 where the path runs it) is held to its plain version and
+   timed on the surviving-row block of (a), a 2,048-row chunk of (b) and a
+   daily block of (c).
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -456,7 +475,10 @@ PATH_KERNELS = {"income": ("masked_moments", "binned_histograms"),
                 "serving_warm": (),
                 "serving_load": (),
                 "failover_clean": ("masked_moments", "binned_histograms"),
-                "failover_wedge": ("masked_moments",)}
+                "failover_wedge": ("masked_moments",),
+                "dataplane_corrupt_ingest": ("masked_moments", "binned_histograms"),
+                "dataplane_slowread_stream": ("masked_moments",),
+                "dataplane_feed_30d": ("masked_moments", "binned_histograms")}
 # phase 15: the recommender's queries (an industry and a usecase of the
 # corpus, then two misspelt ones the embeddings resolve), the attributes it
 # maps and the descriptions it ranks them against; the chaos run's rows,
@@ -639,8 +661,9 @@ FULL_CONFIG = {
 # 10b: configs_segmentation_unsupervised's autoencoder sample and batch;
 # the epochs cut from 100, then from 10 to make room for phase 14, then
 # from 3, and the sample from 500,000, then from 125,000 to make room for
-# phase 20, to keep the script near half its limit (PERF.md section 4)
-AE_SAMPLE = 62_500  # cut from the config's 500,000 (PERF.md section 4)
+# phase 20, then from 62,500 for phase 21, to keep the script near half
+# its limit (PERF.md section 4)
+AE_SAMPLE = 31_250  # cut from the config's 500,000 (PERF.md section 4)
 AE_BATCH = 256
 AE_EPOCHS = 2
 # 10c: the imputers' table, its nulled columns, the KNN query rows checked
@@ -651,9 +674,9 @@ IMPUTE_ROWS = 250_000  # cut from 1,000,000 (PERF.md section 4)
 IMPUTE_COLS = ["age", "fnlwgt", "hours-per-week"]
 # auto_imputation's choice on the card held against the CPU port's on the
 # table's first AUTO_REF_ROWS rows (cut from IMPUTE_ROWS: the CPU reference
-# took 95-142 s of the 1,200 s limit at 1M rows, 23 s at 250,000; PERF.md
-# section 4)
-AUTO_REF_ROWS = 100_000
+# took 95-142 s of the 1,200 s limit at 1M rows, 23 s at 250,000, 9.8 s at
+# 100,000, cut to make room for phase 21; PERF.md section 4)
+AUTO_REF_ROWS = 50_000
 KNN_QUERIES = 300
 MF_RMSE_BOUND = 0.5
 # 10d: the rows of configs_full's input (cut from 4M, then from 200,000 to
@@ -7033,6 +7056,153 @@ def phase_failover(torch, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the data-plane and continuum chaos scenarios
+# ---------------------------------------------------------------------------
+def dataplane_scenario(torch, what: str, path: str, run) -> tuple:
+    """One scenario of phase 21 through its gate (``run``), the launch
+    counts set to 0 just before it and read just after, every B1/B2 call
+    recorded: its whole ``ok``, the path's kernels launched, each launch a
+    call on the runtime's device.  Returns (result, launches, the recorded
+    calls, wall)."""
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    device = get_runtime().device
+    kernels.reset_launches()
+    with KernelInputs(torch) as given:
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(res.get("ok") is True, f"dataplane: {what}: {json.dumps(res, default=str)[:6000]}")
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"dataplane: {what}: kernel {name} was not launched")
+    for name, calls in given.seen.items():
+        on_device = sum(1 for a in calls if a[0].device == device)
+        check(on_device == launches[name], f"dataplane: {what}: {on_device} {name} calls on {device}, "
+              f"{launches[name]} launches")
+    return res, launches, given, wall
+
+
+def held_at(torch, given, rows: int, path: str, what: str, b2: bool) -> dict:
+    """B1 (and B2 with ``b2``) on the first call a scenario gave it at
+    ``rows`` rows, on the runtime's device, against its plain version and
+    timed (``b1_row``/``b2_row``)."""
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    device = get_runtime().device
+    out = {"masked_moments": [], "binned_histograms": []}
+    for name, row in (("masked_moments", b1_row), ("binned_histograms", b2_row))[:2 if b2 else 1]:
+        call = next((a for a in given.seen[name] if a[0].device == device and a[0].shape[1] == rows), None)
+        check(call is not None, f"dataplane: no {name} call at {rows} rows on the {path} path: "
+              f"{sorted({tuple(a[0].shape) for a in given.seen[name]})}")
+        out[name].append(row(torch, *call, path, what))
+    return out
+
+
+def phase_dataplane_chaos(torch, seed: int) -> dict:
+    """Phase 21: (a)-(c) of the module docstring (``seed`` unused: the
+    scenarios' data come from their own seeds, 7 and 13)."""
+    import pandas as pd
+
+    from anovos_tpu_torch.resilience import scenarios
+    from anovos_tpu_torch.shared.runtime import get_runtime
+
+    t_phase = time.perf_counter()
+    card = get_runtime().device
+    tmp = tempfile.mkdtemp(prefix="anovos_dataplane_")
+    out = {"launches": {}, "kernels": {"masked_moments": [], "binned_histograms": []}}
+
+    def add(rows: dict) -> None:
+        for k, v in rows.items():
+            out["kernels"][k] += v
+
+    try:
+        # (a) corrupt-ingest, and the clean run over the parts it keeps
+        ci = os.path.join(tmp, "corrupt_ingest")
+        res, la, given, wall = dataplane_scenario(torch, "(a) corrupt-ingest", "dataplane_corrupt_ingest",
+                                                  lambda: scenarios.run_scenario("corrupt-ingest", ci))
+        check(res["quarantine_records"] == scenarios.EXPECT_QUARANTINE["corrupt-ingest"]
+              and res["degraded"] == sorted(scenarios.EXPECT_DEGRADED["corrupt-ingest"])
+              and res["flightrec"] == [] and res["clean_flightrec"] == 0 and res["clean_quarantined_parts"] == 0,
+              f"dataplane: (a) corrupt-ingest: {json.dumps(res, default=str)[:6000]}")
+        survivors = os.path.join(tmp, "survivors")
+        cfg = scenarios.survivors_config(ci, survivors)
+        t0 = time.perf_counter()
+        scenarios.run_leg(cfg, os.path.join(tmp, "survivors_run"), "", "600")
+        survivors_wall = time.perf_counter() - t0
+        scenarios.reset_planes()
+        chaos_files = scenarios.tree_files(os.path.join(ci, "chaos"))
+        check(chaos_files == scenarios.tree_files(os.path.join(tmp, "survivors_run")),
+              "dataplane: (a) the chaos tree differs from the clean run over the surviving parts")
+        rows = len(pd.read_parquet(survivors))
+        add(held_at(torch, given, rows, "dataplane_corrupt_ingest", f"the surviving {rows}-row block", b2=True))
+        del given
+        out["launches"]["dataplane_corrupt_ingest"] = la
+        out["a"] = {"wall_s": wall, "survivors_wall_s": survivors_wall, "surviving_rows": rows,
+                    "files": len(chaos_files), **{k: res[k] for k in ("clean_wall_s", "chaos_wall_s",
+                                                                       "chaos_wall_bound_s", "injections",
+                                                                       "quarantine_records", "degraded")}}
+        print(f"dataplane: (a) {card_line()}: corrupt-ingest in {wall:.2f} s (clean {res['clean_wall_s']} s, "
+              f"chaos {res['chaos_wall_s']} s, bound {res['chaos_wall_bound_s']} s), {res['injections']} "
+              f"injections, quarantined {res['quarantine_records']}, degraded {res['degraded']}; the chaos tree's "
+              f"{len(chaos_files)} files byte-equal to a clean run over parts 0 and 3 ({rows} rows, "
+              f"{survivors_wall:.2f} s); launches {la}", flush=True)
+
+        # (b) slowread-stream
+        res, lb, given, wall = dataplane_scenario(
+            torch, "(b) slowread-stream", "dataplane_slowread_stream",
+            lambda: scenarios.run_slowread_stream(os.path.join(tmp, "slowread")))
+        add(held_at(torch, given, scenarios.SLOWREAD_ROWS, "dataplane_slowread_stream",
+                    f"a {scenarios.SLOWREAD_ROWS}-row chunk", b2=False))
+        del given
+        out["launches"]["dataplane_slowread_stream"] = lb
+        out["b"] = {"wall_s": wall, **{k: res[k] for k in ("clean_wall_s", "chaos_wall_s", "chaos_wall_bound_s",
+                                                           "serial_penalty_s", "injections", "stream_overlap_pct",
+                                                           "stream_workers")}}
+        print(f"dataplane: (b) {card_line()}: slowread-stream in {wall:.2f} s (clean {res['clean_wall_s']} s, "
+              f"chaos {res['chaos_wall_s']} s, bound {res['chaos_wall_bound_s']} s against a serial penalty of "
+              f"{res['serial_penalty_s']:.1f} s), {res['injections']} injections, overlap "
+              f"{res['stream_overlap_pct']} with {res['stream_workers']} workers; launches {lb}", flush=True)
+
+        # (c) feed-30d, with the incremental leg's fold wall of every day
+        # read back from its journal before the gate is judged
+        def feed_gate() -> dict:
+            from anovos_tpu_torch.cache.journal import read_journal
+            from anovos_tpu_torch.continuum.state import JOURNAL
+
+            res = scenarios.run_feed_30d(os.path.join(tmp, "feed"))
+            walls = [e["fold_wall_s"] for e in read_journal(os.path.join(tmp, "feed", "inc", "state", JOURNAL))
+                     if e.get("event") == "step_end"]
+            print(f"dataplane: (c) the incremental leg's fold wall by day (s): {walls}", flush=True)
+            return res
+
+        res, lc, given, wall = dataplane_scenario(torch, "(c) feed-30d", "dataplane_feed_30d", feed_gate)
+        add(held_at(torch, given, scenarios.FEED_ROWS_PER_DAY, "dataplane_feed_30d",
+                    f"a {scenarios.FEED_ROWS_PER_DAY}-row daily block", b2=True))
+        del given
+        out["launches"]["dataplane_feed_30d"] = lc
+        out["c"] = {"wall_s": wall, **{k: res[k] for k in (
+            "continuum_incremental_wall_s", "continuum_batch_wall_s", "continuum_day2_fold_s",
+            "continuum_day30_fold_s", "continuum_day30_vs_day2", "e2e_continuum_fold_s", "continuum_quarantined",
+            "continuum_batch_quarantined", "continuum_shift_alert_day", "drift_alerts",
+            "drift_alerts_with_flight_context")}}
+        print(f"dataplane: (c) {card_line()}: feed-30d in {wall:.2f} s (incremental "
+              f"{res['continuum_incremental_wall_s']} s, batch {res['continuum_batch_wall_s']} s), byte parity, "
+              f"quarantined {res['continuum_quarantined']} and {res['continuum_batch_quarantined']}, shift alert "
+              f"on day {res['continuum_shift_alert_day']}, {res['drift_alerts_with_flight_context']} of "
+              f"{res['drift_alerts']} drift alerts with flight context, fold day 2 {res['continuum_day2_fold_s']} "
+              f"s, day 30 {res['continuum_day30_fold_s']} s ({res['continuum_day30_vs_day2']}x, median "
+              f"{res['e2e_continuum_fold_s']} s); launches {lc}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(get_runtime().device == card, f"dataplane: the phase ends on {get_runtime().device}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dataplane: phase 21 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_rows(kres: dict, geo_kernels: dict, b3_blobs: dict, by_path: dict, sass) -> list:
     """The ``{"kernels": [...]}`` rows: each kernel at its own path's shape,
     with its launches there (``by_path``: launch counts per path) and the
@@ -7242,6 +7412,10 @@ def main() -> None:
     fail_over = phase_failover(torch, args.seed)
     print("failover " + json.dumps({k: v for k, v in fail_over.items() if k != "launches"}), flush=True)
     lap("20 failover")
+    dataplane = phase_dataplane_chaos(torch, args.seed)
+    dataplane_kernels = dataplane.pop("kernels")
+    print("dataplane_chaos " + json.dumps({k: v for k, v in dataplane.items() if k != "launches"}), flush=True)
+    lap("21 dataplane chaos")
     print_codec_walls(path, quality, ts, runner)
     kres["masked_moments"]["other_shapes"].append(quality_kernels["masked_moments"])
     kres["masked_moments"]["other_shapes"] += assoc_kernels["masked_moments"]
@@ -7255,7 +7429,7 @@ def main() -> None:
         for kname in ("masked_moments", "binned_histograms"):
             kres[kname]["other_shapes"] += scen_kernels[p][kname]
     for kname in ("masked_moments", "binned_histograms"):
-        kres[kname]["other_shapes"] += stream_kernels[kname] + cont_kernels[kname]
+        kres[kname]["other_shapes"] += stream_kernels[kname] + cont_kernels[kname] + dataplane_kernels[kname]
     rows = kernel_rows(kres, geo_kernels, b3_blobs, {"income": path["launches"], **geo["launches"],
                                                      "quality": quality["launches"],
                                                      "association": assoc["launches"],
@@ -7274,9 +7448,10 @@ def main() -> None:
                                                      "node_cache": node_cache["launches"],
                                                      "live_plane": live["launches"],
                                                      **serving["launches"],
-                                                     **fail_over["launches"]}, sass)
+                                                     **fail_over["launches"],
+                                                     **dataplane["launches"]}, sass)
     print("phase walls " + json.dumps(walls), flush=True)
-    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(result_line(torch), flush=True)

@@ -1072,3 +1072,32 @@ def test_cuda_autoencoder_bf16_feeds_bf16_values_to_an_ieee_gemm(monkeypatch):
     assert len(seen) == 3  # enc1, enc2, bottleneck
     assert set(seen) == {(torch.float32, torch.float32, "cuda", True, True, "ieee")}
     np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_corrupt_ingest_and_feed_30d_gates(tmp_path):
+    """The ``corrupt-ingest`` and ``feed-30d`` scenarios on the card: each
+    gate's whole ``ok`` (quarantine records, degraded set, bounded wall;
+    inc/batch parity, day 20 quarantined on both legs, the shift alert with
+    flight context, day 30's fold within 2 x day 2's), B1 and B2 launched,
+    and the runtime left on the card."""
+    from anovos_tpu_torch.ops import kernels
+    from anovos_tpu_torch.resilience import scenarios
+    from anovos_tpu_torch.shared.runtime import get_runtime, init_runtime
+
+    _require_cuda()
+    prev = get_runtime().device
+    init_runtime("cuda")
+    try:
+        kernels.reset_launches()
+        res = scenarios.run_scenario("corrupt-ingest", str(tmp_path / "ci"))
+        assert res["ok"], res
+        assert res["quarantine_records"] == {"part-00001.parquet": 375, "part-00002.parquet": 375}
+        assert kernels.LAUNCHES["masked_moments"] > 0 and kernels.LAUNCHES["binned_histograms"] > 0
+        kernels.reset_launches()
+        feed = scenarios.run_feed_30d(str(tmp_path / "feed"))
+        assert feed["ok"], feed
+        assert kernels.LAUNCHES["masked_moments"] > 0 and kernels.LAUNCHES["binned_histograms"] > 0
+        assert get_runtime().device.type == "cuda"
+    finally:
+        init_runtime(prev)

@@ -193,6 +193,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "__init__", "__main__", "bundle", "demo", "program", "server")} <= rel
     # the failover slice: the failover and its chaos scenarios
     assert {f"anovos_tpu_torch/resilience/{m}.py" for m in ("failover", "scenarios")} <= rel
+    # the data-plane slice: the 30-day feed the feed-30d scenario folds
+    assert "anovos_tpu_torch/resilience/feed.py" in rel
     assert (REPO / "anovos_tpu_torch" / "feature_recommender" / "data" / "corpus.jsonl").is_file()
     assert (REPO / "anovos_tpu_torch" / "shared" / "csrc" / "anovos_native.cpp").is_file()
     assert not bad, bad
